@@ -41,6 +41,9 @@ def pytest_configure(config):
         "markers", "quick: fast test (auto-applied to everything not slow); "
                    "`pytest -m quick` is the ~5-min iteration loop on this "
                    "1-CPU box, the full suite stays the pre-commit bar")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); "
+                   "skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,168 @@
+"""Interactive / serving inference on a GPU (port of visdial_tpu/infer.py,
+disc decoder).
+
+Load a checkpoint once, embed the whole answer pool (the split's
+deduplicated option list) into a table, and answer ad-hoc (caption,
+history, question) queries: one encoder forward, one (1, H) x (H, M)
+product against the table, top-k.  Gen checkpoints are not served yet.
+
+CLI: one JSON query per stdin line, one JSON answer per stdout line:
+
+    echo '{"caption": "a man on a horse", "question": "is it sunny ?",
+           "history": [["is the man old ?", "no"]]}' | \
+    python -m visdial_tpu_torch.infer --load_path checkpoints/run/step_N \
+        --data_dir data [--top_k 5] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+from visdial_tpu.data.dataset import VisDialSplit, load_split
+from visdial_tpu.data.loader import BatchAssembler
+from visdial_tpu.data.synthetic import make_synthetic_split
+
+from .data.prepro import tokenize
+from .models.encoders import check_ported, encoder_apply
+from .models.model import _impl, batch_to_device, model_option_table
+from .utils.checkpoint import load_checkpoint
+
+
+class InferenceEngine:
+    """Params + vocabulary + the answer-pool table on one device."""
+
+    def __init__(self, load_path: str = "", data_dir: str = "",
+                 synthetic: int = 0, *, params=None, cfg=None, data=None,
+                 vocab=None, device="cuda"):
+        """Build from a checkpoint path (the CLI route) or from in-memory
+        components (pass params, cfg, data, vocab and no load_path).  The
+        device is explicit: there is no silent move to the CPU."""
+        self.device = torch.device(device)
+        if load_path:
+            params, cfg, _ = load_checkpoint(load_path, self.device)
+            if data_dir:
+                cfg = cfg.replace(data_dir=data_dir)
+            if synthetic:
+                data, vocab = make_synthetic_split(
+                    cfg, num_dialogs=synthetic, seed=cfg.seed + 1)
+            else:
+                data, vocab = load_split(cfg.data_dir, "val")
+        if any(v is None for v in (params, cfg, data, vocab)):
+            raise ValueError("need load_path or explicit (params, cfg, data, vocab)")
+        if cfg.decoder != "disc":
+            raise NotImplementedError(
+                "serving gen checkpoints is not ported yet (see ROADMAP.md, "
+                "queue 1: gen decoder)")
+        check_ported(cfg)
+        self.cfg = cfg
+        # The shared assembler casts image features to bfloat16 through
+        # ml_dtypes under a bfloat16 config; batches are assembled in
+        # float32 and the encoder casts on the device instead.
+        self._asm_cfg = cfg.replace(compute_dtype="float32")
+        self.vocab = vocab
+        self.params = params
+        self.opt_list = data.opt_list
+        self.opt_list_len = data.opt_list_len
+        self._feat_dim = data.img_feat.shape[1]
+        self.impl = _impl(cfg, self.device)
+        with torch.inference_mode():
+            self.table = model_option_table(
+                params, torch.from_numpy(data.opt_list.astype(np.int64)).to(
+                    self.device), cfg, impl=self.impl)
+
+    # -- raw text -> one-dialog split (visdial_tpu/infer.py::_encode_dialog)
+    def _encode_dialog(self, caption: str, history, question: str,
+                       img_feat=None) -> tuple[VisDialSplit, int]:
+        cfg, v = self.cfg, self.vocab
+        R = cfg.num_rounds
+        # keep the most recent turns when the dialog exceeds the round budget
+        history = list(history or [])
+        history = history[max(len(history) - (R - 1), 0):]
+        t = len(history)                       # current round index
+        ques = np.zeros((1, R, cfg.max_ques_len), np.int32)
+        ques_len = np.zeros((1, R), np.int32)
+        ans = np.zeros((1, R, cfg.max_ans_len), np.int32)
+        ans_len = np.zeros((1, R), np.int32)
+        for r, (q, a) in enumerate(history):
+            ques[0, r], ques_len[0, r] = v.encode(tokenize(q), cfg.max_ques_len)
+            ans[0, r], ans_len[0, r] = v.encode(tokenize(a), cfg.max_ans_len)
+        ques[0, t], ques_len[0, t] = v.encode(tokenize(question),
+                                              cfg.max_ques_len)
+        cap = np.zeros((1, cfg.max_cap_len), np.int32)
+        cap[0], cap_n = v.encode(tokenize(caption or ""), cfg.max_cap_len)
+        F = self._feat_dim
+        feat = (np.asarray(img_feat, np.float32).reshape(1, F)
+                if img_feat is not None else np.zeros((1, F), np.float32))
+        split = VisDialSplit(
+            ques=ques, ques_len=ques_len, ans=ans, ans_len=ans_len,
+            cap=cap, cap_len=np.array([cap_n], np.int32),
+            opt_list=self.opt_list, opt_list_len=self.opt_list_len,
+            opt_inds=np.zeros((1, R, cfg.num_options), np.int32),
+            gt_ind=np.zeros((1, R), np.int32),
+            img_feat=feat, img_ids=np.zeros(1, np.int64),
+        )
+        return split, t
+
+    def _batch(self, caption, history, question, img_feat):
+        split, t = self._encode_dialog(caption, history, question, img_feat)
+        asm = BatchAssembler(split, self.vocab, self._asm_cfg)
+        batch = asm.assemble(np.array([0]), with_options=False).as_dict()
+        return batch_to_device(batch, self.device), t
+
+    # -- public API -------------------------------------------------------
+    @torch.inference_mode()
+    def pool_scores(self, question: str, caption: str = "", history=None,
+                    img_feat=None) -> torch.Tensor:
+        """(M,) float32 scores of every answer in the pool, on the device."""
+        batch, t = self._batch(caption, history, question, img_feat)
+        joint = encoder_apply(self.params["encoder"], self.params["embed"],
+                              batch, self.cfg, impl=self.impl)
+        j = joint[t:t + 1].to(self.table.dtype).float()          # (1, H)
+        return (j @ self.table.float().T)[0]
+
+    def rank_answers(self, question: str, caption: str = "", history=None,
+                     img_feat=None, top_k: int = 5) -> list[dict]:
+        """Top-k answers of the whole pool with their scores."""
+        scores = self.pool_scores(question, caption, history, img_feat)
+        k = min(int(top_k), scores.numel())
+        top_s, top_i = torch.topk(scores, k)
+        return [{"answer": " ".join(self.vocab.decode(self.opt_list[i])),
+                 "score": s}
+                for i, s in zip(top_i.tolist(), top_s.tolist())]
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--load_path", required=True)
+    p.add_argument("--data_dir", type=str, default="")
+    p.add_argument("--synthetic", type=int, default=0)
+    p.add_argument("--top_k", type=int, default=5)
+    p.add_argument("--device", type=str, default="cuda")
+    args = p.parse_args(argv)
+
+    engine = InferenceEngine(args.load_path, data_dir=args.data_dir,
+                             synthetic=args.synthetic, device=args.device)
+    print(json.dumps({"event": "ready",
+                      "model": f"{engine.cfg.encoder}-{engine.cfg.decoder}"}),
+          flush=True)
+    for line in sys.stdin:
+        line = line.strip()
+        if not line:
+            continue
+        try:  # one bad request -> one error line, never a dead server
+            q = json.loads(line)
+            out = {"answers": engine.rank_answers(
+                q["question"], q.get("caption", ""), q.get("history"),
+                q.get("img_feat"), top_k=args.top_k)}
+        except Exception as e:
+            out = {"error": f"{type(e).__name__}: {e}"}
+        print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,93 @@
+"""Model assembly: init and candidate scoring (port of
+visdial_tpu/models/model.py, disc eval path).
+
+Kernel dispatch follows the device, as models/model.py::_impl follows the
+backend: on a CUDA device with cfg.use_pallas the LSTMs and the attention
+tail run as the hand-written kernels; otherwise the plain PyTorch versions
+run.  There is no fallback from a failed kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from visdial_tpu.config import Config
+
+from ..utils.params import flatten, unflatten
+from .core import embedding_init
+from .decoders import (decoder_init, disc_option_table, disc_scores,
+                       disc_scores_from_table)
+from .encoders import encoder_apply, encoder_init
+
+
+def model_init(cfg: Config, seed: int | None = None, device="cpu") -> dict:
+    """Fresh params (model.py::model_init) from a CPU torch.Generator seeded
+    with `seed` (default cfg.seed), moved to `device`.  On the meta device
+    only the shapes are made."""
+    if cfg.vocab_size <= 1:
+        raise ValueError("set Config.vocab_size from the data artifact")
+    device = torch.device(device)
+    gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+    home = device if device.type == "meta" else torch.device("cpu")
+    params = {
+        "embed": embedding_init(gen, cfg.vocab_size, cfg.embed_size, home),
+        "encoder": encoder_init(gen, cfg, home),
+        "decoder": decoder_init(gen, cfg, home),
+    }
+    if device != home:
+        params = unflatten({k: v.to(device) for k, v in flatten(params).items()})
+    return params
+
+
+def _impl(cfg: Config, device) -> str:
+    return ("cuda" if cfg.use_pallas and torch.device(device).type == "cuda"
+            else "plain")
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """numpy batch (Batch.as_dict()) -> tensors on `device`; integer arrays
+    become int64 (token ids and row indices)."""
+    out = {}
+    for k, v in batch.items():
+        a = np.asarray(v)
+        if a.dtype.kind in "iu":
+            a = a.astype(np.int64)
+        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return out
+
+
+def model_scores(params, batch, cfg: Config, *, impl: str | None = None):
+    """Candidate scores (B, R, K) from the batch's option tokens (disc)."""
+    if cfg.decoder != "disc":
+        raise NotImplementedError(
+            "gen decoder scoring is not ported yet (see ROADMAP.md, queue 1)")
+    impl = impl or _impl(cfg, batch["ques"].device)
+    joint = encoder_apply(params["encoder"], params["embed"], batch, cfg,
+                          impl=impl)
+    N, K = joint.shape[0], cfg.num_options
+    scores = disc_scores(params["decoder"], params["embed"], joint,
+                         batch["opt"].reshape(N, K, -1), cfg, impl=impl)
+    return scores.reshape(batch["ques"].shape[0], cfg.num_rounds, K)
+
+
+def model_option_table(params, opt_list, cfg: Config, *,
+                       impl: str | None = None):
+    """Embed the split's deduplicated option list once: (M, La) -> (M, H)."""
+    if cfg.decoder != "disc":
+        raise ValueError("the option table belongs to the disc decoder")
+    impl = impl or _impl(cfg, opt_list.device)
+    return disc_option_table(params["decoder"], params["embed"], opt_list,
+                             cfg, impl=impl)
+
+
+def model_scores_with_table(params, batch, table, cfg: Config, *,
+                            impl: str | None = None):
+    """Candidate scores (B, R, K) via the precomputed option table."""
+    impl = impl or _impl(cfg, batch["ques"].device)
+    joint = encoder_apply(params["encoder"], params["embed"], batch, cfg,
+                          impl=impl)
+    N, K = joint.shape[0], cfg.num_options
+    scores = disc_scores_from_table(joint, table,
+                                    batch["opt_inds"].reshape(N, K))
+    return scores.reshape(batch["ques"].shape[0], cfg.num_rounds, K)

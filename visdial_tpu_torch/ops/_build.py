@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+
+The sources have a plain C interface and are compiled by nvcc into one
+shared library, loaded with ctypes (no PyTorch headers, so a build takes
+seconds).  The library lands in build/visdial_tpu_torch/<hash>/ at the root
+of the checkout, keyed by a hash of the sources and the flags, so a changed
+source rebuilds and an unchanged one loads the existing library.
+
+Importing this module needs no nvcc and no GPU; `library()` does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
+                          "visdial_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_p = ctypes.c_void_p
+_i = ctypes.c_int
+_SIGNATURES = {
+    # dtype, x, mask, w, b, h0, c0, hbuf, cbuf, hs, N, T, E, H, stream
+    "vd_lstm_layer_fwd": [_i] + [_p] * 9 + [_i] * 4 + [_p],
+    # dtype, q, slots, valid, wf, bias, out, B, R, S, H, stream
+    "vd_attention_fusion": [_i] + [_p] * 6 + [_i] * 4 + [_p],
+}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _sources() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels of "
+                       "visdial_tpu_torch are built at first use")
+
+
+def library_path() -> str:
+    """Path of the built library, building it first if needed."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + b"\0" + f.read())
+    out_dir = os.path.join(BUILD_ROOT, h.hexdigest()[:16])
+    lib = os.path.join(out_dir, "libvisdial_kernels.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cu = [s for s in srcs if s.endswith(".cu")]
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                          capture_output=True, text=True)
+    with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library with every entry point's signature set."""
+    lib = ctypes.CDLL(library_path())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.vd_error_string.argtypes = [ctypes.c_int]
+    lib.vd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err:
+        msg = library().vd_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as the pointer the C side takes."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,39 @@
+"""Masked attention over dialog-round memory slots (port of
+visdial_tpu/ops/attention.py and of attention_pallas.py's unfused twin).
+
+Scores are unscaled dot products, masked to -1e30 where a slot is not
+visible, so a round with no visible slot attends uniformly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def masked_slot_attention(query: torch.Tensor, slots: torch.Tensor,
+                          valid: torch.Tensor) -> torch.Tensor:
+    """Attention-weighted slot sum (attention.py::masked_slot_attention,
+    impl='xla').  query (B, R, H), slots (B, S, H), valid (B, R, S) 1.0
+    where slot s is visible to round r.  Returns (B, R, H) in query.dtype."""
+    scores = torch.einsum("brh,bsh->brs", query.float(), slots.float())
+    scores = torch.where(valid > 0, scores, torch.full_like(scores, NEG_INF))
+    att = torch.softmax(scores, dim=-1)
+    mem = torch.einsum("brs,bsh->brh", att.to(slots.dtype).float(),
+                       slots.float())
+    return mem.to(query.dtype)
+
+
+def attention_fusion_ref(query, slots, valid, fusion_w, fusion_b):
+    """Plain PyTorch version of kernel K4 (attention_pallas.py::
+    _attention_fusion_ref): attention -> concat -> linear -> tanh.
+    fusion_w (2H, H) rows [query half; memory half], fusion_b (H,)."""
+    B, R, H = query.shape
+    scores = torch.einsum("brh,bsh->brs", query.float(), slots.float())
+    scores = torch.where(valid > 0, scores, torch.full_like(scores, NEG_INF))
+    att = torch.softmax(scores, dim=-1)
+    mem = torch.einsum("brs,bsh->brh", att, slots.float()).to(query.dtype)
+    cat = torch.cat([query.reshape(-1, H), mem.reshape(-1, H)], dim=-1)
+    pre = cat.float() @ fusion_w.to(cat.dtype).float() + fusion_b.float()
+    return torch.tanh(pre).reshape(B, R, H).to(query.dtype)
