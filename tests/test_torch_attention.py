@@ -1,8 +1,10 @@
 """Port's slot attention and attention + fusion tail
 (visdial_tpu_torch/ops/attention.py) against the JAX package: the xla
-twin, kernel K4 (attention_fusion_pallas, interpret mode on the CPU) and
-its unfused twin.  f32, atol 1e-5."""
+twin, kernel K3 (masked_slot_attention_pallas) and its gradients, kernel K4
+(attention_fusion_pallas) and its unfused twin, the Pallas kernels in
+interpret mode on the CPU.  f32, atol 1e-5."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,10 +12,13 @@ import torch
 
 from visdial_tpu.ops.attention import masked_slot_attention as jax_attention
 from visdial_tpu.ops.attention_pallas import (_attention_fusion_ref,
-                                              attention_fusion_pallas)
+                                              attention_fusion_pallas,
+                                              masked_slot_attention_pallas)
 from visdial_tpu_torch.ops.attention import (attention_fusion_ref,
+                                             attention_plain,
                                              masked_slot_attention)
-from visdial_tpu_torch.ops.attention_cuda import attention_fusion
+from visdial_tpu_torch.ops import attention_cuda
+from visdial_tpu_torch.ops.attention_cuda import AttentionFn, attention_fusion
 
 torch.set_num_threads(1)
 
@@ -64,14 +69,43 @@ def test_fusion_tail_matches_pallas_kernel_and_twin(B, R, S, H, masked_row):
     assert attention_fusion.launches == before   # CPU: plain version
 
 
+@pytest.mark.parametrize("B,R,S,H,masked_row", CASES)
+def test_attention_kernel_and_grads_match_pallas(B, R, S, H, masked_row):
+    """K3's plain version and AttentionFn (CPU tensors: the plain version
+    forward, the plain vjp backward) against masked_slot_attention_pallas
+    and jax.grad through its custom vjp."""
+    q, s, valid, _, _ = _case(B, R, S, H, masked_row=masked_row, seed=2)
+    g = np.random.default_rng(3).standard_normal((B, R, H)).astype(np.float32)
+    jv = jnp.asarray(valid)
+    want = masked_slot_attention_pallas(jnp.asarray(q), jnp.asarray(s), jv)
+    want_dq, want_ds = jax.grad(
+        lambda q, s: jnp.sum(masked_slot_attention_pallas(q, s, jv) * g),
+        argnums=(0, 1))(jnp.asarray(q), jnp.asarray(s))
+    before = attention_cuda.masked_slot_attention.launches
+    np.testing.assert_allclose(
+        attention_plain(*map(torch.from_numpy, (q, s, valid))).numpy(),
+        np.asarray(want), atol=ATOL)
+    qt, st = (torch.from_numpy(a).requires_grad_() for a in (q, s))
+    out = AttentionFn.apply(qt, st, torch.from_numpy(valid))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=ATOL)
+    dq, ds = torch.autograd.grad(out, (qt, st), torch.from_numpy(g))
+    np.testing.assert_allclose(dq.numpy(), np.asarray(want_dq), atol=ATOL)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(want_ds), atol=ATOL)
+    assert attention_cuda.masked_slot_attention.launches == before  # CPU
+
+
 def test_fully_masked_row_attends_uniformly():
     q, s, valid, _, _ = _case(3, 4, 4, 16, masked_row=True)
-    got = masked_slot_attention(*map(torch.from_numpy, (q, s, valid)))
-    np.testing.assert_allclose(got[1, 2].numpy(), s[1].mean(0), atol=ATOL)
+    for fn in (masked_slot_attention, attention_plain):
+        got = fn(*map(torch.from_numpy, (q, s, valid)))
+        np.testing.assert_allclose(got[1, 2].numpy(), s[1].mean(0), atol=ATOL)
 
 
 def test_wrapper_has_no_silent_fallback():
     meta = lambda *shape: torch.zeros(shape, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="no kernel for device"):
+        attention_cuda.masked_slot_attention(meta(1, 4, 8), meta(1, 4, 8),
+                                             meta(1, 4, 4))
     with pytest.raises(ValueError, match="no kernel for device"):
         attention_fusion(meta(1, 4, 8), meta(1, 4, 8), meta(1, 4, 4),
                          meta(16, 8), meta(8))

@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain versions on the GPU, at
-ragged shapes the serving shapes do not reach (row, unit and depth counts
-that are not multiples of the kernels' tiles), plus the wrappers' checks.
+ragged shapes the main paths do not reach (row, unit and depth counts that
+are not multiples of the kernels' tiles), in float32 and bfloat16, plus the
+wrappers' checks.  Tolerances: absolute for forward outputs in [-1, 1]
+(f32 sums in another order; bf16 output rounding); relative to the largest
+reference value for gradients.
 
 Needs an NVIDIA GPU: every test skips without one.  On the card:
 
@@ -10,10 +13,11 @@ Needs an NVIDIA GPU: every test skips without one.  On the card:
 import pytest
 import torch
 
-from visdial_tpu_torch.ops.attention import attention_fusion_ref
-from visdial_tpu_torch.ops.attention_cuda import attention_fusion
-from visdial_tpu_torch.ops.lstm import lstm_layer_plain
-from visdial_tpu_torch.ops.lstm_cuda import lstm_layer
+from visdial_tpu_torch.ops.attention import attention_fusion_ref, attention_plain
+from visdial_tpu_torch.ops.attention_cuda import (AttentionFn, attention_fusion,
+                                                  masked_slot_attention)
+from visdial_tpu_torch.ops.lstm import lstm_layer_bwd_plain, lstm_layer_plain
+from visdial_tpu_torch.ops.lstm_cuda import LSTMLayerFn, lstm_layer, lstm_layer_bwd
 
 pytestmark = pytest.mark.cuda
 
@@ -30,7 +34,7 @@ def dev():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,T,E,H", [(5, 7, 10, 12), (70, 3, 33, 40),
-                                     (600, 5, 20, 36)])
+                                     (200, 4, 20, 36), (600, 5, 20, 36)])
 def test_lstm_kernel_matches_plain(dev, N, T, E, H, dtype):
     g = torch.Generator().manual_seed(N)
     w = torch.empty(E + H, 4 * H).uniform_(-0.5, 0.5, generator=g)
@@ -70,6 +74,97 @@ def test_attention_kernel_matches_plain(dev, B, R, S, H, dtype):
     assert float((got.float() - want.float()).abs().max()) <= TOL[dtype]
 
 
+def _lstm_case(N, T, E, H, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.empty(E + H, 4 * H).uniform_(-0.5, 0.5, generator=g)
+    b = torch.empty(4 * H).uniform_(-0.5, 0.5, generator=g)
+    x = torch.randn(N, T, E, generator=g).to(dtype)
+    mask = (torch.rand(N, T, generator=g) < 0.6).float()
+    mask[::3] = 0.0                                  # all-pad rows
+    h0, c0 = torch.randn(2, N, H, generator=g)
+    return w, b, x, mask, h0, c0, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,T,E,H", [(5, 7, 10, 12), (600, 5, 20, 36)])
+def test_lstm_kernel_cell_states_match_plain(dev, N, T, E, H, dtype):
+    """K1 with save_cell: cs equals the plain version's."""
+    *case, _ = _lstm_case(N, T, E, H, dtype, N + 1)
+    args = [t.to(dev) for t in case]
+    got = lstm_layer(*args, save_cell=True)
+    want = lstm_layer_plain(*args, save_cell=True)
+    torch.cuda.synchronize()
+    for a, r in zip(got, want):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        assert float((a.float() - r.float()).abs().max()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,T,E,H", [(5, 7, 10, 12), (70, 1, 33, 40),
+                                     (200, 4, 20, 36), (600, 5, 20, 36)])
+def test_lstm_bwd_kernel_matches_plain(dev, N, T, E, H, dtype):
+    """K2 against its plain version on the same residuals (relative to the
+    largest reference value: bf16 rounds dgp, which feeds dh)."""
+    w, b, x, mask, h0, c0, g = _lstm_case(N, T, E, H, dtype, N + 2)
+    hp = torch.randn(N, T, H, generator=g).to(dtype)
+    cp = torch.randn(N, T, H, generator=g).to(dtype)
+    ghs = torch.randn(N, T, H, generator=g).to(dtype)
+    args = [t.to(dev) for t in (w, b, x, mask, hp, cp, ghs, h0, c0)]
+    before = lstm_layer_bwd.launches
+    got = lstm_layer_bwd(*args)
+    want = lstm_layer_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert lstm_layer_bwd.launches == before + 1
+    for a, r in zip(got, want):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        scale = float(r.float().abs().max())
+        assert float((a.float() - r.float()).abs().max()) <= TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_layer_fn_grads_match_autograd(dev, dtype):
+    w, b, x, mask, h0, c0, g = _lstm_case(40, 6, 24, 20, dtype, 3)
+    cot = [torch.randn(40, 6, 20, generator=g).to(dtype),
+           torch.randn(40, 20, generator=g), torch.randn(40, 20, generator=g)]
+    grads = []
+    for fn in (LSTMLayerFn.apply, lstm_layer_plain):
+        ins = [t.to(dev).requires_grad_(t.is_floating_point())
+               for t in (w, b, x)] + [mask.to(dev)] + [
+               t.to(dev).requires_grad_() for t in (h0, c0)]
+        outs = fn(*ins)
+        grads.append(torch.autograd.grad(outs, ins[:3] + ins[4:],
+                                         [c.to(dev) for c in cot]))
+    for a, r in zip(*grads):
+        scale = float(r.float().abs().max())
+        assert float((a.float() - r.float()).abs().max()) <= 3 * TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,R,S,H", [(3, 4, 4, 16), (9, 5, 7, 24), (2, 3, 64, 40)])
+def test_attention_only_kernel_matches_plain(dev, B, R, S, H, dtype):
+    """K3 forward and AttentionFn's grads against the plain version."""
+    g = torch.Generator().manual_seed(B * S + 1)
+    q = torch.randn(B, R, H, generator=g)
+    s = torch.randn(B, S, H, generator=g)
+    valid = (torch.rand(B, R, S, generator=g) < 0.5).float()
+    valid[0, 0] = 0.0                                # a fully masked row
+    cot = torch.randn(B, R, H, generator=g).to(dev, dtype)
+    before = masked_slot_attention.launches
+    outs, grads = [], []
+    for fn in (AttentionFn.apply, attention_plain):
+        qq = q.to(dev, dtype).requires_grad_()
+        ss = s.to(dev, dtype).requires_grad_()
+        out = fn(qq, ss, valid.to(dev))
+        grads.append(torch.autograd.grad(out, (qq, ss), cot))
+        outs.append(out.detach())
+    torch.cuda.synchronize()
+    assert masked_slot_attention.launches == before + 1
+    assert outs[0].dtype == dtype
+    assert float((outs[0].float() - outs[1].float()).abs().max()) <= TOL[dtype]
+    for a, r in zip(*grads):
+        assert float((a.float() - r.float()).abs().max()) <= TOL[dtype]
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 3, 8, device=dev)
     w, b = torch.zeros(8 + 6, 24, device=dev), torch.zeros(24, device=dev)
@@ -80,9 +175,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         lstm_layer(w, b, x.transpose(0, 1).contiguous().transpose(0, 1),
                    mask, h, h)
+    with pytest.raises(TypeError):
+        lstm_layer_bwd(w, b, x.half(), mask, h[:, None].expand(4, 3, 6),
+                       h[:, None].expand(4, 3, 6), h[:, None].expand(4, 3, 6),
+                       h, h)
+    seq = torch.zeros(4, 3, 6, device=dev)
+    with pytest.raises(ValueError, match="h_prev"):
+        lstm_layer_bwd(w, b, x, mask, seq.double(), seq, seq, h, h)
+    with pytest.raises(ValueError, match="g_hs"):
+        lstm_layer_bwd(w, b, x, mask, seq, seq, seq[:, :2], h, h)
     q = torch.zeros(1, 2, 8, device=dev)
     with pytest.raises(ValueError, match="S <= 64"):
         attention_fusion(q, torch.zeros(1, 65, 8, device=dev),
                          torch.ones(1, 2, 65, device=dev),
                          torch.zeros(16, 8, device=dev),
                          torch.zeros(8, device=dev))
+    with pytest.raises(ValueError, match="S <= 64"):
+        masked_slot_attention(q, torch.zeros(1, 65, 8, device=dev),
+                              torch.ones(1, 2, 65, device=dev))
+    with pytest.raises(TypeError):
+        masked_slot_attention(q, q.bfloat16(), torch.ones(1, 2, 2, device=dev))
+    with pytest.raises(ValueError, match="valid"):
+        masked_slot_attention(q, q, torch.ones(1, 2, 3, device=dev))

@@ -1,16 +1,21 @@
 """Port's masked LSTM (visdial_tpu_torch/ops/lstm.py) against the JAX
-package: the stacked twin masked_lstm(impl='xla'), and each layer against
-the Pallas kernel K1 in interpret mode.  f32, atol 1e-5."""
+package: the stacked twin masked_lstm(impl='xla') and its gradients, each
+layer against the Pallas kernel K1 (with and without save_cell) and the
+backward against the Pallas kernel K2, both in interpret mode.  f32, atol
+1e-5 for values and 1e-4 for gradients (sums over more terms)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from visdial_tpu.ops.lstm import masked_lstm as jax_masked_lstm
-from visdial_tpu.ops.lstm_pallas import lstm_layer_pallas
-from visdial_tpu_torch.ops.lstm import lstm_layer_plain, masked_lstm
-from visdial_tpu_torch.ops.lstm_cuda import lstm_layer
+from visdial_tpu.ops.lstm_pallas import lstm_layer_bwd_pallas, lstm_layer_pallas
+from visdial_tpu_torch.ops.lstm import (keep_mask, lstm_keep_masks,
+                                        lstm_layer_bwd_plain, lstm_layer_plain,
+                                        masked_lstm)
+from visdial_tpu_torch.ops.lstm_cuda import LSTMLayerFn, lstm_layer, lstm_layer_bwd
 
 torch.set_num_threads(1)
 
@@ -132,8 +137,135 @@ def test_wrapper_has_no_silent_fallback():
 
 
 def test_dropout_and_unknown_impl_raise():
+    """Dropout needs the caller's keep masks (drawn outside the kernels);
+    an unknown impl is refused."""
     params, x, mask, _, _ = _case("right", False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="keep masks"):
         masked_lstm(_port_params(params), _t(x), _t(mask), dropout_rate=0.5)
     with pytest.raises(ValueError, match="impl"):
         masked_lstm(_port_params(params), _t(x), _t(mask), impl="pallas")
+
+
+def test_inter_layer_dropout_applies_the_keep_masks():
+    """Layer 1 sees where(keep, hs_0 / 0.5, 0), on both paths; the masks
+    come from the generator in layer order."""
+    params, x, mask, h0, c0 = _case("mixed", True)
+    p = _port_params(params)
+    keep = lstm_keep_masks(torch.Generator().manual_seed(4), L, (N, T, H), 0.5)
+    assert len(keep) == L - 1 and keep[0].dtype == torch.bool
+    again = keep_mask(torch.Generator().manual_seed(4), (N, T, H), 0.5)
+    assert torch.equal(keep[0], again) and 0 < int(keep[0].sum()) < keep[0].numel()
+    hs0, _, _ = lstm_layer_plain(p["layers"][0]["w"], p["layers"][0]["b"],
+                                 _t(x), _t(mask), _t(h0[0]), _t(c0[0]))
+    want = lstm_layer_plain(p["layers"][1]["w"], p["layers"][1]["b"],
+                            torch.where(keep[0], hs0 / 0.5, 0.0), _t(mask),
+                            _t(h0[1]), _t(c0[1]))
+    for impl in ("plain", "cuda"):
+        out, (h, c) = masked_lstm(p, _t(x), _t(mask), _t(h0), _t(c0),
+                                  impl=impl, dropout_rate=0.5, keep_masks=keep)
+        torch.testing.assert_close(out, want[0], rtol=0, atol=0)
+        torch.testing.assert_close(h[1], want[1], rtol=0, atol=0)
+
+
+KINDS_T = [("right", 7), ("left", 7), ("mixed", 7), ("right", 1)]
+
+
+def _layer_case(kind, steps, seed):
+    """One layer's operands at T = steps, with an all-pad row."""
+    params, x, mask, h0, c0 = _case(kind, True, seed)
+    lp = params["layers"][0]
+    return (lp["w"], lp["b"], x[:, :steps].copy(), mask[:, :steps].copy(),
+            h0[0], c0[0])
+
+
+@pytest.mark.parametrize("kind,steps", KINDS_T)
+def test_save_cell_matches_pallas_kernel(kind, steps):
+    """K1's save_cell output cs: plain version and kernel wrapper (CPU
+    tensors: the plain version) against lstm_layer_pallas(save_cell=True)
+    in interpret mode."""
+    args = _layer_case(kind, steps, 2)
+    want = lstm_layer_pallas(*map(jnp.asarray, args), interpret=True,
+                             save_cell=True)
+    for fn in (lstm_layer_plain, lstm_layer):
+        got = fn(*map(_t, args), save_cell=True)
+        assert len(got) == 4
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
+def _bwd_case(kind, steps, seed):
+    """Forward residuals from K1 (interpret) and random cotangents."""
+    w, b, x, mask, h0, c0 = _layer_case(kind, steps, seed)
+    hs, cs, _, _ = lstm_layer_pallas(*map(jnp.asarray, (w, b, x, mask, h0, c0)),
+                                     interpret=True, save_cell=True)
+    hs, cs = np.asarray(hs), np.asarray(cs)
+    h_prev = np.concatenate([h0[:, None], hs[:, :-1]], axis=1)
+    c_prev = np.concatenate([c0[:, None], cs[:, :-1]], axis=1)
+    rng = np.random.default_rng(seed + 10)
+    g_hs = rng.standard_normal(hs.shape).astype(np.float32)
+    g_ht = rng.standard_normal(h0.shape).astype(np.float32)
+    g_ct = rng.standard_normal(c0.shape).astype(np.float32)
+    return w, b, x, mask, h_prev, c_prev, g_hs, g_ht, g_ct
+
+
+@pytest.mark.parametrize("kind,steps", KINDS_T)
+def test_bwd_matches_pallas_kernel(kind, steps):
+    """K2's plain version, and the kernel wrapper on CPU tensors, against
+    lstm_layer_bwd_pallas in interpret mode: dgp, dh0, dc0.  Rows with m=0
+    (the all-pad row) must give dgp = 0 exactly."""
+    args = _bwd_case(kind, steps, 3)
+    want = lstm_layer_bwd_pallas(*map(jnp.asarray, args), interpret=True)
+    mask = args[3]
+    for fn in (lstm_layer_bwd_plain, lstm_layer_bwd):
+        got = fn(*map(_t, args))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+        assert not got[0].numpy()[mask == 0].any()
+
+
+@pytest.mark.parametrize("kind,with_state", CASES)
+def test_layer_fn_grads_match_jax_autodiff(kind, with_state):
+    """masked_lstm(impl='cuda') on CPU tensors routes every layer through
+    LSTMLayerFn (K1 with cs, then K2 and the dW/db/dx contractions, each in
+    its plain version): its gradients w.r.t. every weight, bias, the input
+    and the initial state against jax.grad of masked_lstm(impl='xla')."""
+    params, x, mask, h0, c0 = _case(kind, True, seed=4)
+    rng = np.random.default_rng(5)
+    g_out = rng.standard_normal((N, T, H)).astype(np.float32)
+    g_h = rng.standard_normal((L, N, H)).astype(np.float32)
+
+    def jloss(params, x, h0, c0):
+        out, (h, c) = jax_masked_lstm(params, x, jnp.asarray(mask), h0, c0,
+                                      impl="xla")
+        return jnp.sum(out * g_out) + jnp.sum(h * g_h) + jnp.sum(c)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(x), jnp.asarray(h0),
+        jnp.asarray(c0))
+    p = {"layers": [{k: torch.from_numpy(v).requires_grad_()
+                     for k, v in lp.items()} for lp in params["layers"]]}
+    xt, h0t, c0t = (torch.from_numpy(a).requires_grad_() for a in (x, h0, c0))
+    out, (h, c) = masked_lstm(p, xt, _t(mask), h0t, c0t, impl="cuda")
+    assert out.grad_fn is not None and "LSTMLayerFn" in str(out.grad_fn)
+    loss = (out * _t(g_out)).sum() + (h * _t(g_h)).sum() + c.sum()
+    leaves = [p["layers"][li][k] for li in range(L) for k in ("w", "b")]
+    got = torch.autograd.grad(loss, leaves + [xt, h0t, c0t])
+    want_leaves = [want[0]["layers"][li][k] for li in range(L) for k in ("w", "b")]
+    for g, w in zip(got, want_leaves + list(want[1:])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+
+
+def test_layer_fn_is_used_only_when_a_gradient_is_needed():
+    """Serving (no grad) takes K1 without cell states; training takes
+    LSTMLayerFn."""
+    params, x, mask, h0, c0 = _case("mixed", True)
+    p = _port_params(params)
+    out, _ = masked_lstm(p, _t(x), _t(mask), impl="cuda")
+    assert out.grad_fn is None
+    p["layers"][0]["w"].requires_grad_()
+    with torch.no_grad():
+        out, _ = masked_lstm(p, _t(x), _t(mask), impl="cuda")
+    assert out.grad_fn is None
+    out, _ = masked_lstm(p, _t(x), _t(mask), impl="cuda")
+    assert type(out.grad_fn).__name__.startswith("LSTMLayerFn")
+    assert LSTMLayerFn is not None

@@ -24,6 +24,10 @@
 //    time step; f32 h/c ping-pong buffers in device memory carry the state
 //    between launches, and all T launches of a layer are issued from one
 //    host call (vd_lstm_layer_fwd), so the Python side pays one call a layer.
+//  * The training forward also writes cs (the post-mask cell state of every
+//    step, the TPU kernel's save_cell output) beside hs, so the backward
+//    (lstm_bwd.cu) never rebuilds the cell recurrence; serving passes no cs
+//    buffer and writes none.
 //  * Each block owns BN rows x BJ hidden units and computes the four gate
 //    columns j, H+j, 2H+j, 3H+j of each, so the cell update, the mask blend
 //    and the write of hs[:, t] happen in registers inside the block.  The
@@ -45,26 +49,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
+using vd::from_f;
+using vd::sigmoidf_;
+using vd::to_f;
 
 // BN rows x BJ hidden units per block; the block's 4*BJ gate columns are
 // spread over TX column threads (TN each, strided by TX) and its rows over
 // TY row threads (TM each, strided by TY).  BK is the K tile depth; MINB
 // the blocks an SM must be able to hold (caps registers per thread).
+// cs may be null (no cell states wanted).
 template <typename T, int BN, int BJ, int TX, int TY, int TM, int TN, int BK,
           int MINB>
 __global__ void __launch_bounds__(TX * TY, MINB)
@@ -72,19 +69,13 @@ lstm_step_kernel(const T* __restrict__ x, const float* __restrict__ mask,
                  const T* __restrict__ w, const float* __restrict__ b,
                  const float* __restrict__ h_in, const float* __restrict__ c_in,
                  float* __restrict__ h_out, float* __restrict__ c_out,
-                 T* __restrict__ hs, int N, int Tn, int E, int H, int t) {
+                 T* __restrict__ hs, T* __restrict__ cs, int N, int Tn, int E,
+                 int H, int t) {
   constexpr int NT = TX * TY;
-  constexpr int COLS = 4 * BJ;
   constexpr int Q = BJ / TX;  // hidden units per thread
-  static_assert(TM * TY == BN, "row tiling");
-  static_assert(TN * TX == COLS, "column tiling");
-  static_assert(BJ % TX == 0, "each thread must own all four gates of a unit");
-  static_assert((BK * BN) % NT == 0 && (BK * COLS) % NT == 0, "tile loads");
-  constexpr int A_PER = BK * BN / NT;
-  constexpr int B_PER = BK * COLS / NT;
 
   __shared__ float As[2][BK][BN + 1];  // +1: conflict-free transposed store
-  __shared__ float Bs[2][BK][COLS];
+  __shared__ float Bs[2][BK][4 * BJ];
   __shared__ float ms[BN];
 
   const int tid = threadIdx.x;
@@ -92,93 +83,33 @@ lstm_step_kernel(const T* __restrict__ x, const float* __restrict__ mask,
   const int ty = tid / TX;
   const int j0 = blockIdx.x * BJ;
   const int n0 = blockIdx.y * BN;
-  const int K = E + H;
-  const int G = 4 * H;
 
-  bool real = false;
-  if (tid < BN) {
-    const int n = n0 + tid;
-    const float m = n < N ? mask[(size_t)n * Tn + t] : 0.f;
-    ms[tid] = m;
-    real = m != 0.f;
-  }
-  if (!__syncthreads_or(real)) {
+  if (!vd::load_tile_mask<BN>(ms, mask, n0, N, Tn, t)) {
     // No real token in this tile at step t: emit the carried state.
     for (int idx = tid; idx < BN * BJ; idx += NT) {
       const int n = n0 + idx / BJ, j = j0 + idx % BJ;
       if (n < N && j < H) {
         const size_t o = (size_t)n * H + j;
-        const float h = h_in[o];
+        const size_t ot = ((size_t)n * Tn + t) * H + j;
+        const float h = h_in[o], c = c_in[o];
         h_out[o] = h;
-        c_out[o] = c_in[o];
-        hs[((size_t)n * Tn + t) * H + j] = from_f<T>(h);
+        c_out[o] = c;
+        hs[ot] = from_f<T>(h);
+        if (cs) cs[ot] = from_f<T>(c);
       }
     }
     return;
   }
 
-  float a_reg[A_PER], b_reg[B_PER];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int s = 0; s < A_PER; ++s) {
-      const int l = tid + s * NT;
-      const int r = l / BK, k = k0 + l % BK, n = n0 + r;
-      float v = 0.f;
-      if (ms[r] != 0.f && k < K) {
-        v = k < E ? to_f(x[((size_t)n * Tn + t) * E + k])
-                  : to_f(from_f<T>(h_in[(size_t)n * H + (k - E)]));
-      }
-      a_reg[s] = v;
-    }
-#pragma unroll
-    for (int s = 0; s < B_PER; ++s) {
-      const int l = tid + s * NT;
-      const int kk = l / COLS, c = l % COLS;
-      const int k = k0 + kk, j = j0 + c % BJ;
-      b_reg[s] = (k < K && j < H) ? to_f(w[(size_t)k * G + (c / BJ) * H + j]) : 0.f;
-    }
+  // A = [x_t; h] with h rounded to T before its product, as the TPU kernel does
+  auto load_a = [&](int r, int k) {
+    const int n = n0 + r;
+    return k < E ? to_f(x[((size_t)n * Tn + t) * E + k])
+                 : to_f(from_f<T>(h_in[(size_t)n * H + (k - E)]));
   };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int s = 0; s < A_PER; ++s) {
-      const int l = tid + s * NT;
-      As[buf][l % BK][l / BK] = a_reg[s];
-    }
-#pragma unroll
-    for (int s = 0; s < B_PER; ++s) {
-      const int l = tid + s * NT;
-      Bs[buf][l / COLS][l % COLS] = b_reg[s];
-    }
-  };
-
   float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[i][q] = 0.f;
-
-  const int n_k = (K + BK - 1) / BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < n_k) load((kt + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], bb[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[cur][kk][ty + i * TY];
-#pragma unroll
-      for (int q = 0; q < TN; ++q) bb[q] = Bs[cur][kk][tx + q * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int q = 0; q < TN; ++q) acc[i][q] = fmaf(a[i], bb[q], acc[i][q]);
-    }
-    if (kt + 1 < n_k) store(cur ^ 1);
-    __syncthreads();
-  }
+  vd::gate_tile_product<T, BN, BJ, TX, TY, TM, TN, BK>(acc, As, Bs, ms, load_a,
+                                                        w, E + H, H, j0);
 
   // Column tx + q*TX of the tile is gate (q / Q), unit j0 + tx + (q % Q)*TX.
 #pragma unroll
@@ -191,6 +122,7 @@ lstm_step_kernel(const T* __restrict__ x, const float* __restrict__ mask,
       const int j = j0 + tx + u * TX;
       if (j >= H) continue;
       const size_t o = (size_t)n * H + j;
+      const size_t ot = ((size_t)n * Tn + t) * H + j;
       float h = h_in[o], c = c_in[o];
       if (m != 0.f) {
         const float gi = sigmoidf_(acc[i][0 * Q + u] + b[j]);
@@ -204,19 +136,24 @@ lstm_step_kernel(const T* __restrict__ x, const float* __restrict__ mask,
       }
       h_out[o] = h;
       c_out[o] = c;
-      hs[((size_t)n * Tn + t) * H + j] = from_f<T>(h);
+      hs[ot] = from_f<T>(h);
+      if (cs) cs[ot] = from_f<T>(c);
     }
   }
 }
 
 // Rows at or below this count take the narrow tile (more blocks at serving
-// shapes); above it the wide tile reuses each loaded operand 4-8 times.
-constexpr int kSmallRows = 512;
+// shapes); above it the wide tile reuses each loaded operand 4-8 times.  At
+// the 320-row question and fact LSTMs of training the wide tile is already
+// the faster one (about 2x on an H100; the backward's phase (a) is not, so
+// lstm_bwd.cu keeps a higher threshold).
+constexpr int kSmallRows = 128;
 
 template <typename T>
 int layer_fwd(const void* x, const float* mask, const void* w, const float* b,
               const float* h0, const float* c0, float* hbuf, float* cbuf,
-              void* hs, int N, int Tn, int E, int H, cudaStream_t stream) {
+              void* hs, void* cs, int N, int Tn, int E, int H,
+              cudaStream_t stream) {
   const size_t NH = (size_t)N * H;
   for (int t = 0; t < Tn; ++t) {
     const float* h_in = t == 0 ? h0 : hbuf + ((t - 1) & 1) * NH;
@@ -228,13 +165,13 @@ int layer_fwd(const void* x, const float* mask, const void* w, const float* b,
       dim3 grid((H + BJ - 1) / BJ, (N + BN - 1) / BN);
       lstm_step_kernel<T, BN, BJ, 8, 16, 1, 4, 64, 1><<<grid, 128, 0, stream>>>(
           (const T*)x, mask, (const T*)w, b, h_in, c_in, h_out, c_out, (T*)hs,
-          N, Tn, E, H, t);
+          (T*)cs, N, Tn, E, H, t);
     } else {
       constexpr int BN = 64, BJ = 32;
       dim3 grid((H + BJ - 1) / BJ, (N + BN - 1) / BN);
       lstm_step_kernel<T, BN, BJ, 16, 16, 4, 8, 16, 1><<<grid, 256, 0, stream>>>(
           (const T*)x, mask, (const T*)w, b, h_in, c_in, h_out, c_out, (T*)hs,
-          N, Tn, E, H, t);
+          (T*)cs, N, Tn, E, H, t);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -245,18 +182,21 @@ int layer_fwd(const void* x, const float* mask, const void* w, const float* b,
 }  // namespace
 
 // One masked LSTM layer, all Tn steps.  dtype 0 = float32, 1 = bfloat16 for
-// x, w and hs.  hbuf/cbuf are (2, N, H) f32 scratch; the final state lands in
-// slot (Tn - 1) & 1.  Returns a cudaError_t value (0 on success).
+// x, w, hs and cs.  hbuf/cbuf are (2, N, H) f32 scratch; the final state lands
+// in slot (Tn - 1) & 1.  cs (N, Tn, H), the post-mask cell state of every
+// step (the training forward's residual), may be null: serving writes none.
+// Returns a cudaError_t value (0 on success).
 extern "C" int vd_lstm_layer_fwd(int dtype, const void* x, const float* mask,
                                  const void* w, const float* b, const float* h0,
                                  const float* c0, float* hbuf, float* cbuf,
-                                 void* hs, int N, int Tn, int E, int H,
+                                 void* hs, void* cs, int N, int Tn, int E, int H,
                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return layer_fwd<float>(x, mask, w, b, h0, c0, hbuf, cbuf, hs, N, Tn, E, H, s);
+    return layer_fwd<float>(x, mask, w, b, h0, c0, hbuf, cbuf, hs, cs, N, Tn, E,
+                            H, s);
   if (dtype == 1)
-    return layer_fwd<__nv_bfloat16>(x, mask, w, b, h0, c0, hbuf, cbuf, hs, N, Tn,
-                                    E, H, s);
+    return layer_fwd<__nv_bfloat16>(x, mask, w, b, h0, c0, hbuf, cbuf, hs, cs, N,
+                                    Tn, E, H, s);
   return (int)cudaErrorInvalidValue;
 }

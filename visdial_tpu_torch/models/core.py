@@ -7,6 +7,11 @@ Init: uniform(-0.08, 0.08) everywhere from a seeded CPU torch.Generator
 (the JAX package draws from jax.random, so the two inits agree in
 distribution, not in values), LSTM forget-gate bias 1.0, embedding row 0
 zero.
+
+Dropout draws its masks from an explicit torch.Generator on the tensor's
+device, never from the global generators, and always outside the kernels
+(the kernels take the drawn masks' effect as their input), so the kernel
+path and the plain path draw the same masks from the same generator state.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.lstm import uniform
+from ..ops.lstm import keep_mask, uniform
 
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -42,3 +47,26 @@ def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Zero-masked lookup (core.py::embed): pad token 0 embeds to zero."""
     vecs = F.embedding(tokens, params["table"])
     return vecs * (tokens != 0)[..., None].to(vecs.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
+            train: bool = True) -> torch.Tensor:
+    """Inverted dropout (core.py::dropout): where(keep, x / keep_prob, 0),
+    the mask drawn from `gen` (a generator on x's device)."""
+    if not train or rate <= 0.0 or gen is None:
+        return x
+    return torch.where(keep_mask(gen, x.shape, rate), x / (1.0 - rate), 0.0)
+
+
+def split_seeds(gen: torch.Generator, n: int = 2) -> list[int]:
+    """n seeds drawn from the CPU generator `gen` (the role of
+    jax.random.split): each seeds a generator made where it is used, so a
+    recomputation (remat) can rebuild the same draws."""
+    return torch.randint(0, 2 ** 62, (n,), generator=gen).tolist()
+
+
+def seeded(seed: int | None, device) -> torch.Generator | None:
+    """A generator on `device` seeded with `seed` (None for None)."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)

@@ -1,8 +1,9 @@
 """Answer decoders (port of visdial_tpu/models/decoders.py).
 
-Ported: the discriminative decoder's eval path — candidate answers through
-a shared option LSTM, score_k = dot(option_k embedding, joint embedding) —
-and the once-per-pool option-embedding table the serving path ranks with.
+Ported: the discriminative decoder — candidate answers through a shared
+option LSTM, score_k = dot(option_k embedding, joint embedding), the 100-way
+NLL loss in both batch layouts — and the once-per-pool option-embedding
+table the serving path ranks with.
 init covers the gen decoder too, so gen checkpoints load; its LM and
 decoding are not ported yet (ROADMAP.md).
 """
@@ -13,7 +14,7 @@ import torch
 
 from visdial_tpu.config import Config
 
-from ..ops.lstm import lstm_init, masked_lstm
+from ..ops.lstm import lstm_init, lstm_keep_masks, masked_lstm
 from .core import embed, linear_init
 
 SCORE_CHUNK_ROWS = 8192     # option-table rows per LSTM call
@@ -44,19 +45,31 @@ def _length_sorted(tokens: torch.Tensor):
 
 
 def disc_option_embeddings(params, embed_params, opt_tokens, cfg: Config,
-                           *, impl="plain"):
+                           *, train: bool = False,
+                           gen: torch.Generator | None = None, impl="plain"):
     """(N, K, T) candidate tokens -> (N, K, H) final LSTM states.  On the
     kernel path, large row counts go through K1 length-sorted and come back
-    in their original order."""
+    in their original order.  In train mode the option LSTM's inter-layer
+    dropout masks are drawn from `gen` in the rows' original order and
+    sorted with them, so both paths apply the same mask to each row."""
     N, K, T = opt_tokens.shape
     flat = opt_tokens.reshape(N * K, T)
+    rate = cfg.dropout if train and gen is not None else 0.0
+    keep = None
+    if rate > 0.0:
+        H = params["opt_lstm"]["layers"][0]["w"].shape[1] // 4
+        keep = lstm_keep_masks(gen, len(params["opt_lstm"]["layers"]),
+                               (N * K, T, H), rate)
     rank = None
     if impl == "cuda" and N * K >= LENGTH_SORT_MIN_ROWS:
         order, rank = _length_sorted(flat)
         flat = flat[order]
+        if keep is not None:
+            keep = [m[order] for m in keep]
     vecs = embed(embed_params, flat).to(getattr(torch, cfg.compute_dtype))
     mask = (flat != 0).to(vecs.dtype)
-    _, (h_fin, _) = masked_lstm(params["opt_lstm"], vecs, mask, impl=impl)
+    _, (h_fin, _) = masked_lstm(params["opt_lstm"], vecs, mask, impl=impl,
+                                dropout_rate=rate, keep_masks=keep)
     h = h_fin[-1]
     if rank is not None:
         h = h[rank]
@@ -81,10 +94,38 @@ def disc_scores_from_table(joint, table, opt_inds):
 
 
 def disc_scores(params, embed_params, joint, opt_tokens, cfg: Config, *,
+                train: bool = False, gen: torch.Generator | None = None,
                 impl="plain"):
     """score_k = dot(option_k, joint) with the option LSTM run on the
     (N, K, T) candidate tokens."""
     opt_emb = disc_option_embeddings(params, embed_params, opt_tokens, cfg,
-                                     impl=impl)
+                                     train=train, gen=gen, impl=impl)
     return torch.einsum("nh,nkh->nk", joint.to(opt_emb.dtype).float(),
                         opt_emb.float())
+
+
+def disc_loss(params, embed_params, joint, batch, cfg: Config, *,
+              train: bool = False, gen: torch.Generator | None = None,
+              impl="plain") -> torch.Tensor:
+    """Mean 100-way NLL of the ground-truth candidate (decoders.py::
+    disc_loss) over the rounds with round_valid set.  Takes the batch's
+    unique candidate rows (opt_uniq) plus the gather map opt_row when the
+    loader deduplicated them (Config.disc_dedup_options), else the expanded
+    opt tokens."""
+    N, K = joint.shape[0], cfg.num_options
+    if "opt_uniq" in batch:
+        emb = disc_option_embeddings(params, embed_params,
+                                     batch["opt_uniq"][None], cfg,
+                                     train=train, gen=gen, impl=impl)[0]
+        scores = disc_scores_from_table(joint, emb,
+                                        batch["opt_row"].reshape(N, K))
+    else:
+        scores = disc_scores(params, embed_params, joint,
+                             batch["opt"].reshape(N, K, -1), cfg,
+                             train=train, gen=gen, impl=impl)
+    logp = torch.log_softmax(scores, dim=-1)
+    nll = -logp.gather(1, batch["gt_ind"].reshape(N, 1))[:, 0]
+    if "round_valid" not in batch:
+        return nll.mean()
+    v = batch["round_valid"].reshape(N).to(nll.dtype)
+    return (nll * v).sum() / v.sum().clamp(min=1.0)

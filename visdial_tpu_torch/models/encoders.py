@@ -1,7 +1,7 @@
 """Dialog encoders (port of visdial_tpu/models/encoders.py).
 
-Ported: the Memory Network family (mn-ques-im-hist, mn-ques-hist) in eval
-mode with the fc7 image feature.  Shapes as in the reference:
+Ported: the Memory Network family (mn-ques-im-hist, mn-ques-hist) with the
+fc7 image feature, in eval and train mode.  Shapes as in the reference:
 B dialogs, R rounds, N = B*R rows, H hidden, E embed.  Facts (caption,
 QA_1, ...) are embedded once per dialog and every round attends over slots
 0..t of them.  init covers every family, so checkpoints of any encoder load;
@@ -16,21 +16,30 @@ from visdial_tpu.config import (Config, encoder_family, encoder_uses_history,
                                 encoder_uses_image)
 
 from ..ops.attention import masked_slot_attention
-from ..ops.attention_cuda import attention_fusion
-from ..ops.lstm import lstm_init, masked_lstm
-from .core import embed, linear, linear_init
+from ..ops.attention_cuda import AttentionFn, attention_fusion
+from ..ops.lstm import lstm_init, lstm_keep_masks, masked_lstm
+from .core import dropout, embed, linear, linear_init
 
 
 def _dt(cfg: Config) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def _run_lstm(lstm_params, embed_params, tokens, cfg: Config, impl):
-    """Embed right-aligned tokens (N, L), run the masked LSTM, return the
-    top layer's final h (N, H) in the compute dtype."""
+def _run_lstm(lstm_params, embed_params, tokens, cfg: Config, impl,
+              train: bool = False, gen: torch.Generator | None = None):
+    """Embed right-aligned tokens (N, L), run the masked LSTM (inter-layer
+    dropout in train mode, masks drawn from `gen`), return the top layer's
+    final h (N, H) in the compute dtype."""
     vecs = embed(embed_params, tokens).to(_dt(cfg))
     mask = (tokens != 0).to(vecs.dtype)
-    _, (h_fin, _) = masked_lstm(lstm_params, vecs, mask, impl=impl)
+    rate = cfg.dropout if train and gen is not None else 0.0
+    keep = None
+    if rate > 0.0:
+        H = lstm_params["layers"][0]["w"].shape[1] // 4
+        keep = lstm_keep_masks(gen, len(lstm_params["layers"]),
+                               tokens.shape + (H,), rate)
+    _, (h_fin, _) = masked_lstm(lstm_params, vecs, mask, impl=impl,
+                                dropout_rate=rate, keep_masks=keep)
     return h_fin[-1]
 
 
@@ -74,21 +83,27 @@ def check_ported(cfg: Config) -> None:
 
 
 def encoder_apply(params: dict, embed_params: dict, batch: dict, cfg: Config,
-                  *, impl: str = "plain") -> torch.Tensor:
-    """Encode a batch to joint embeddings (N, H), N = B*R, eval mode
-    (encoders.py::encoder_apply with train=False).  impl='cuda' runs the
-    LSTMs through kernel K1 and the attention + fusion tail through K4;
-    impl='plain' runs the unfused chain attention -> concat -> fusion ->
-    tanh."""
+                  *, train: bool = False, gen: torch.Generator | None = None,
+                  impl: str = "plain") -> torch.Tensor:
+    """Encode a batch to joint embeddings (N, H), N = B*R
+    (encoders.py::encoder_apply).  With train and a generator `gen` (on the
+    batch's device) dropout is drawn from it in this order: the question
+    LSTM's inter-layer masks, the fact LSTM's, then the [query; ctx] concat
+    mask.  impl='cuda' runs the LSTMs through kernels K1 (and K2 in the
+    backward), the attention through K3 followed by the unfused fusion in
+    train mode, and the attention + fusion tail through K4 in eval mode;
+    impl='plain' runs the plain versions with the unfused chain attention
+    -> concat -> fusion -> tanh."""
     check_ported(cfg)
     B, R = batch["ques"].shape[:2]
     dt = _dt(cfg)
 
     q = _run_lstm(params["ques_lstm"], embed_params,
-                  batch["ques"].reshape(B * R, -1), cfg, impl)       # (N, H)
+                  batch["ques"].reshape(B * R, -1), cfg, impl, train,
+                  gen)                                               # (N, H)
     facts = _run_lstm(params["fact_lstm"], embed_params,
-                      batch["facts"].reshape(B * R, -1), cfg,
-                      impl).reshape(B, R, -1)                        # (B, R, H)
+                      batch["facts"].reshape(B * R, -1), cfg, impl, train,
+                      gen).reshape(B, R, -1)                         # (B, R, H)
 
     if encoder_uses_image(cfg.encoder):
         img = linear(params["img_proj"], batch["img"].to(dt))        # (B, H)
@@ -104,10 +119,14 @@ def encoder_apply(params: dict, embed_params: dict, batch: dict, cfg: Config,
     valid = (slot[None, :] <= slot[:, None]).to(facts.dtype)
     valid = valid[None].expand(B, R, R)
 
-    if impl == "cuda":
+    if impl == "cuda" and not train:
         joint = attention_fusion(query_r.contiguous(), facts.contiguous(), valid,
                                  params["fusion"]["w"], params["fusion"]["b"])
         return joint.reshape(B * R, -1)
-    mem = masked_slot_attention(query_r, facts, valid)
+    if impl == "cuda":
+        mem = AttentionFn.apply(query_r.contiguous(), facts.contiguous(), valid)
+    else:
+        mem = masked_slot_attention(query_r, facts, valid)
     cat = torch.cat([query, mem.reshape(B * R, -1)], dim=-1)
+    cat = dropout(cat, cfg.dropout, gen, train)
     return torch.tanh(linear(params["fusion"], cat))

@@ -1,5 +1,5 @@
-"""Model assembly: init and candidate scoring (port of
-visdial_tpu/models/model.py, disc eval path).
+"""Model assembly: init, the training loss and candidate scoring (port of
+visdial_tpu/models/model.py, disc decoder).
 
 Kernel dispatch follows the device, as models/model.py::_impl follows the
 backend: on a CUDA device with cfg.use_pallas the LSTMs and the attention
@@ -11,12 +11,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from visdial_tpu.config import Config
 
 from ..utils.params import flatten, unflatten
-from .core import embedding_init
-from .decoders import (decoder_init, disc_option_table, disc_scores,
+from .core import embedding_init, seeded, split_seeds
+from .decoders import (decoder_init, disc_loss, disc_option_table, disc_scores,
                        disc_scores_from_table)
 from .encoders import encoder_apply, encoder_init
 
@@ -55,6 +56,42 @@ def batch_to_device(batch: dict, device) -> dict:
             a = a.astype(np.int64)
         out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return out
+
+
+def model_loss(params, batch, cfg: Config, *, train: bool = True,
+               gen: torch.Generator | None = None,
+               impl: str | None = None) -> torch.Tensor:
+    """The disc training loss (model.py::model_loss).  `gen` is a CPU
+    torch.Generator (the train state's); in train mode two seeds are drawn
+    from it, one for the encoder's dropout and one for the decoder's (the
+    roles of jax.random.split(rng)), each seeding a generator on the
+    batch's device where it is used.
+
+    cfg.remat checkpoints the encoder (torch.utils.checkpoint, non-reentrant)
+    and recomputes it in the backward.  The recomputation makes its
+    generator anew from the same seed, so it draws the forward's dropout
+    masks again: checkpoint's preserve_rng_state restores only the default
+    generators, never an explicit one, so it is not relied on (and off)."""
+    if cfg.decoder != "disc":
+        raise NotImplementedError(
+            "gen decoder training is not ported yet (see ROADMAP.md, queue 1)")
+    impl = impl or _impl(cfg, batch["ques"].device)
+    device = batch["ques"].device
+    enc_seed = dec_seed = None
+    if train and gen is not None:
+        enc_seed, dec_seed = split_seeds(gen)
+
+    def encode(enc_params, embed_params):
+        return encoder_apply(enc_params, embed_params, batch, cfg, train=train,
+                             gen=seeded(enc_seed, device), impl=impl)
+
+    if cfg.remat and train:
+        joint = checkpoint(encode, params["encoder"], params["embed"],
+                           use_reentrant=False, preserve_rng_state=False)
+    else:
+        joint = encode(params["encoder"], params["embed"])
+    return disc_loss(params["decoder"], params["embed"], joint, batch, cfg,
+                     train=train, gen=seeded(dec_seed, device), impl=impl)
 
 
 def model_scores(params, batch, cfg: Config, *, impl: str | None = None):

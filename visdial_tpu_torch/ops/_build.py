@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-The sources have a plain C interface and are compiled by nvcc into one
-shared library, loaded with ctypes (no PyTorch headers, so a build takes
-seconds).  The library lands in build/visdial_tpu_torch/<hash>/ at the root
-of the checkout, keyed by a hash of the sources and the flags, so a changed
-source rebuilds and an unchanged one loads the existing library.
+The sources have a plain C interface and are compiled by nvcc (one process
+per .cu file, all started together, then one link) into one shared
+library, loaded with ctypes (no PyTorch headers, so a build takes seconds).
+The library lands in build/visdial_tpu_torch/<hash>/ at the root of the
+checkout, keyed by a hash of the sources and the flags, so a changed source
+rebuilds and an unchanged one loads the existing library.
 
 Importing this module needs no nvcc and no GPU; `library()` does.
 """
@@ -26,13 +27,17 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                           "visdial_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _SIGNATURES = {
-    # dtype, x, mask, w, b, h0, c0, hbuf, cbuf, hs, N, T, E, H, stream
-    "vd_lstm_layer_fwd": [_i] + [_p] * 9 + [_i] * 4 + [_p],
+    # dtype, x, mask, w, b, h0, c0, hbuf, cbuf, hs, cs, N, T, E, H, stream
+    "vd_lstm_layer_fwd": [_i] + [_p] * 10 + [_i] * 4 + [_p],
+    # dtype, x, hprev, cprev, mask, w, b, ghs, dh, dc, dgp, N, T, E, H, stream
+    "vd_lstm_layer_bwd": [_i] + [_p] * 10 + [_i] * 4 + [_p],
+    # dtype, q, slots, valid, out, B, R, S, H, stream
+    "vd_attention": [_i] + [_p] * 4 + [_i] * 4 + [_p],
     # dtype, q, slots, valid, wf, bias, out, B, R, S, H, stream
     "vd_attention_fusion": [_i] + [_p] * 6 + [_i] * 4 + [_p],
 }
@@ -66,16 +71,27 @@ def library_path() -> str:
     if os.path.exists(lib):
         return lib
     os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in (s for s in srcs if s.endswith(".cu")):
+        obj = os.path.join(out_dir, os.path.basename(src) + ".o")
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
+    with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+        f.write("".join(logs))
+    failed = [log for p, log in zip(procs, logs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cu = [s for s in srcs if s.endswith(".cu")]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+    proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
                           capture_output=True, text=True)
-    with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
     return lib
 

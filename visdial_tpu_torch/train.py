@@ -1,0 +1,270 @@
+"""Training CLI on one GPU (port of visdial_tpu/train.py).
+
+Usage:
+    python -m visdial_tpu_torch.train --encoder mn-ques-im-hist --decoder disc \
+        --data_dir data --num_epochs 15
+    python -m visdial_tpu_torch.train --synthetic 64 --max_steps 20  # no data
+
+The flags are the JAX CLI's (built from the Config fields) plus --device
+(default cuda; there is no silent move to the CPU).  Every run writes JSONL
+metrics (events config, train, eval, checkpoint, non_finite_loss, done, and
+notice/resumed/step_time/profile) to stdout and <save_path>/<run_name>/
+metrics.jsonl, and full resumable checkpoints (params, optimizer moments,
+step, dropout generator, config) in the JAX package's format.  Ported: the
+MN encoders with the disc decoder (ROADMAP.md lists the rest).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from visdial_tpu.config import (RESUME_OVERRIDABLE, Config,
+                                resume_config_mismatches)
+from visdial_tpu.data.dataset import load_split
+from visdial_tpu.data.loader import TrainLoader
+from visdial_tpu.data.synthetic import make_synthetic_split
+
+from .eval_harness import evaluate_split
+from .models.encoders import check_ported
+from .models.model import batch_to_device
+from .parallel.train_step import init_train_state, multi_train_step, train_step
+from .utils.checkpoint import latest_checkpoint, load_train_state, save_checkpoint
+from .utils.logging import MetricsLogger
+
+
+def _flag_bool(s: str) -> bool:
+    return s.lower() in ("1", "true", "yes")
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    for f in dataclasses.fields(Config):
+        name = "--" + f.name
+        if f.type == "bool" or isinstance(f.default, bool):
+            p.add_argument(name, type=_flag_bool, default=f.default)
+        else:
+            p.add_argument(name, type=type(f.default), default=f.default)
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="train on N synthetic dialogs instead of real data")
+    p.add_argument("--max_steps", type=int, default=0,
+                   help="stop after N steps (0 = run num_epochs)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in save_path")
+    p.add_argument("--run_name", type=str, default="")
+    p.add_argument("--profile_steps", type=str, default="",
+                   help="'start,stop' step range traced with torch.profiler "
+                        "(a Chrome trace lands in the run directory)")
+    p.add_argument("--time_steps", type=int, default=0,
+                   help="log per-step wall-clock ('step_time' events, the "
+                        "device synchronised each step) for the first N steps")
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="optimizer steps per call (>1 runs G steps in one "
+                        "multi_train_step over a stacked batch group; "
+                        "metrics/eval/checkpoint cadences quantize to group "
+                        "boundaries)")
+    p.add_argument("--eval_resident", type=_flag_bool, default=True,
+                   help="accepted for the JAX CLI's surface; the resident "
+                        "eval is not ported (ROADMAP.md, M8): eval streams")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="torch.autograd.set_detect_anomaly: raise with a "
+                        "traceback at the op that makes a NaN in the backward")
+    p.add_argument("--device", type=str, default="cuda")
+    return p
+
+
+def config_from_args(args) -> Config:
+    fields = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in vars(args).items() if k in fields})
+
+
+def main(argv=None) -> dict:
+    args = build_argparser().parse_args(argv)
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    cfg = config_from_args(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device (pass --device cpu to "
+                         "train with the plain versions on the CPU)")
+
+    if args.synthetic:
+        train_data, vocab = make_synthetic_split(cfg, num_dialogs=args.synthetic,
+                                                 seed=cfg.seed)
+        val_data, _ = make_synthetic_split(cfg, num_dialogs=max(8, args.synthetic // 4),
+                                           vocab=vocab, seed=cfg.seed + 1)
+    else:
+        train_data, vocab = load_split(cfg.data_dir, "train")
+        val_data, _ = load_split(cfg.data_dir, "val")
+    cfg = cfg.replace(vocab_size=vocab.size).validate()
+    check_ported(cfg)
+    if cfg.decoder != "disc":
+        raise NotImplementedError(
+            "gen decoder training is not ported yet (see ROADMAP.md, M7)")
+
+    run_name = args.run_name or f"{cfg.encoder}-{cfg.decoder}-{int(time.time())}"
+    ckpt_dir = os.path.join(cfg.save_path, run_name)
+    log = MetricsLogger(os.path.join(ckpt_dir, "metrics.jsonl"))
+    log.log({"event": "config", **dataclasses.asdict(cfg),
+             "device": str(device),
+             "device_name": (torch.cuda.get_device_name(device)
+                             if device.type == "cuda" else "cpu")})
+    if cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1:
+        log.log({"event": "notice",
+                 "msg": "mesh_data/mesh_model: multi-device training is not "
+                        "ported (ROADMAP.md, M10); training on one device"})
+    if args.eval_resident:
+        log.log({"event": "notice",
+                 "msg": "eval_resident: the resident eval is not ported "
+                        "(ROADMAP.md, M8); periodic eval streams batches"})
+    if args.resume and (path := latest_checkpoint(ckpt_dir)):
+        state, cfg_saved, _ = load_train_state(path, device)
+        if diffs := resume_config_mismatches(cfg_saved, cfg):
+            raise SystemExit(
+                f"--resume config mismatch vs {path}: the checkpoint was "
+                "trained under different structural settings — "
+                + ", ".join(f"{k}: saved={a!r} flag={b!r}"
+                            for k, (a, b) in sorted(diffs.items()))
+                + ". Re-run with matching flags (only "
+                + ", ".join(sorted(RESUME_OVERRIDABLE))
+                + " may differ on resume).")
+        log.log({"event": "resumed", "from": path})
+    else:
+        state = init_train_state(cfg, device=device)
+
+    # assembled in float32: the shared assembler needs ml_dtypes for
+    # bfloat16 image features; the encoder casts on the device
+    loader = TrainLoader(train_data, vocab, cfg.replace(compute_dtype="float32"))
+    steps_per_epoch = loader.steps_per_epoch
+    eval_every = cfg.eval_every or steps_per_epoch
+    save_every = cfg.save_every or steps_per_epoch
+    max_steps = args.max_steps or cfg.num_epochs * steps_per_epoch
+    group = max(1, args.steps_per_dispatch)
+    prof_range = (tuple(int(x) for x in args.profile_steps.split(","))
+                  if args.profile_steps else None)
+    prof = None
+
+    step = state.opt.step
+    t_last, s_last = time.time(), step
+    rounds_per_batch = cfg.batch_size * cfg.num_rounds
+    running = None
+    loss_buf: list = []
+    last_eval: dict = {}
+    epoch = step // steps_per_epoch
+    # Deterministic mid-epoch resume: the epoch's batch order is a pure
+    # function of (seed, epoch), so skipping the consumed prefix reproduces
+    # the unbroken run's batches.
+    skip = step % steps_per_epoch
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def flush_losses():
+        # losses stay on the device between log points (no per-step sync);
+        # read before every checkpoint/eval so a NaN never reaches a
+        # checkpoint unnoticed
+        nonlocal running
+        if not loss_buf:
+            return None
+        losses = torch.cat([x.reshape(-1) for x in loss_buf]).double().cpu().numpy()
+        loss_buf.clear()
+        for loss in losses:
+            running = loss if running is None else 0.95 * running + 0.05 * loss
+        bad = losses[~np.isfinite(losses)]
+        if bad.size:
+            log.log({"event": "non_finite_loss", "step": step,
+                     "loss": float(bad[0])})
+            raise FloatingPointError(
+                f"non-finite loss {bad[0]} by step {step}; "
+                "re-run with --debug_nans to locate the origin")
+        return float(losses[-1])
+
+    def crossed(every, prev):
+        return prev // every != step // every
+
+    while step < max_steps:
+        batch_iter = (b for i, b in enumerate(loader.epoch(seed=cfg.seed + epoch))
+                      if i >= skip)
+        while step < max_steps:
+            pending = []
+            for b in batch_iter:
+                pending.append(b.as_dict())
+                if len(pending) >= min(group, max_steps - step):
+                    break
+            if not pending:
+                break                       # epoch exhausted
+            if prof_range and prof is None and step <= prof_range[0] < step + len(pending):
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=acts)
+                prof.start()
+            timing = args.time_steps and step < args.time_steps
+            if timing:
+                sync()
+                t0 = time.time()
+            prev = step
+            if len(pending) == group and group > 1:
+                stacked = batch_to_device(
+                    {k: np.stack([bd[k] for bd in pending]) for k in pending[0]},
+                    device)
+                state, m = multi_train_step(state, stacked, cfg)
+                step += len(pending)
+                loss_buf.append(m["loss"])
+            else:  # group == 1, epoch tail, or max_steps trim
+                for bd in pending:
+                    state, m = train_step(state, batch_to_device(bd, device), cfg)
+                    step += 1
+                    loss_buf.append(m["loss"])
+            if timing:
+                sync()
+                log.log({"event": "step_time", "step": step,
+                         "seconds": (time.time() - t0) / len(pending),
+                         "steps_per_dispatch": len(pending),
+                         "loss": float(m["loss"].reshape(-1)[-1])})
+            if prof is not None and prev < prof_range[1] <= step:
+                sync()
+                prof.stop()
+                trace = os.path.join(ckpt_dir, "trace.json")
+                prof.export_chrome_trace(trace)
+                log.log({"event": "profile", "steps": list(prof_range),
+                         "path": trace})
+                prof, prof_range = None, None
+
+            if crossed(cfg.log_every, prev) or step >= max_steps:
+                last_loss = flush_losses()
+                dt = time.time() - t_last
+                rps = (step - s_last) * rounds_per_batch / max(dt, 1e-9)
+                log.log({"event": "train", "step": step, "epoch": epoch,
+                         "loss": last_loss, "running_loss": running,
+                         "lr": float(np.asarray(m["lr"]).reshape(-1)[-1]),
+                         "grad_norm": float(m["grad_norm"].reshape(-1)[-1]),
+                         "rounds_per_sec": rps})
+                t_last, s_last = time.time(), step
+            if crossed(eval_every, prev) or step >= max_steps:
+                flush_losses()
+                metrics = evaluate_split(state.params, val_data, vocab, cfg,
+                                         device)
+                last_eval = metrics
+                log.log({"event": "eval", "step": step, **metrics})
+            if crossed(save_every, prev) or step >= max_steps:
+                flush_losses()   # never checkpoint past an undetected NaN
+                path = save_checkpoint(ckpt_dir, state, cfg)
+                log.log({"event": "checkpoint", "step": step, "path": path})
+        epoch += 1
+        skip = 0
+    log.log({"event": "done", "step": step, **{f"final_{k}": v
+                                               for k, v in last_eval.items()}})
+    log.close()
+    return last_eval
+
+
+if __name__ == "__main__":
+    main()
