@@ -4,21 +4,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ and holds each against its plain
-PyTorch version on the card at the shapes the serving and training paths
-give it: K1 (LSTM forward, with and without cell states), K2 (LSTM
-backward, through LSTMLayerFn), K3 (slot attention, through AttentionFn)
-and K4 (attention + fusion).  Then it drives both main paths of the
-flagship MN-QIH-disc model (random weights from a seed, full width):
-serving over a 50,000-answer pool through InferenceEngine and the
-JSON-lines CLI, and training through train_step (kernel path against the
-plain path at dropout 0 and 0.5, then 20 steps) and the train CLI with a
-resume.  Each path must have gone through its kernels and agree with a run
-of the plain versions on the same card.
+PyTorch version on the card at the shapes the serving, training and
+evaluation paths give it: K1 (LSTM forward, with and without cell states),
+K2 (LSTM backward, through LSTMLayerFn), K3 (slot attention, through
+AttentionFn), K4 (attention + fusion), K5 (LM-head log-probs and row
+logsumexp) and K6 (LM-head d-logits, and TokenLogprobFn's gradients).  Then
+it drives the main paths of the flagship MN-QIH models (random weights from
+a seed, full width): disc served over a 50,000-answer pool through
+InferenceEngine and the JSON-lines CLI, disc trained through train_step
+(kernel path against the plain path at dropout 0 and 0.5, then 20 steps),
+gen trained the same way, gen evaluated through evaluate_split over 100
+candidates a round, gen served (greedy and beam 5), and the train CLI for
+both decoders with a resume.  Each path must have gone through its kernels
+and agree with a run of the plain versions on the same card.
 
 Each phase prints one JSON line.  Then come the raw nvidia-smi line (card
-name, power limit), the kernel summary line, and, last, the result line
-{"ok": true, "device": {...}}.  Any failed check raises, and the exit code
-is non-zero.  Without a CUDA device the script exits non-zero at once.
+name, power limit), the kernel summary line (each kernel's launches on its
+main path, error, time, plain time, bound and library time), and, last, the
+result line {"ok": true, "device": {...}}.  Any failed check raises, and the
+exit code is non-zero.  Without a CUDA device the script exits non-zero at
+once.
 """
 
 from __future__ import annotations
@@ -60,6 +65,31 @@ ATTN3_SHAPES = [(32, 10, 10, 512), (1, 10, 10, 512), (4, 10, 10, 512)]
 # sums in another order (K2 and the f32 contractions vs autograd + cuBLAS)
 LOSS_TOL, GNORM_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
 TRAIN_STEPS = 20
+# gen eval's rate: runs of each path over 8 full 32-dialog batches
+EVAL_DIALOGS, EVAL_REPS = 256, 3
+# K5 / K6 (NT, H, V): gen training's 320 x 9 tokens, one 8,192-row scoring
+# chunk of gen eval (x 9 steps), ragged rows with the flagship vocab's
+# ragged tail, and one row over a vocab narrower than a tile
+LM_SHAPES = [(2880, 512, 8804), (73728, 512, 8804), (513, 512, 8848),
+             (1, 512, 10)]
+# K5, relative to the largest |logp|, in either dtype: the products are exact
+# in f32 on both sides (bf16 operands widened) and accumulated in f32, so only
+# the order of the 512-term sums and of the vocab's logsumexp differs
+LM_TOL = 1e-5
+# K6, per element: f32 within 1e-5 of |ref|; bf16 within one bf16 ulp of ref
+# (both sides round the same f32 value, up to a sum-order difference, to
+# bf16); plus DLOG_FLOOR x |g_i| / V for entries whose p underflows
+DLOG_RTOL, DLOG_FLOOR = 1e-5, {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+# the planted control: logits whose running sum over H is rounded to bf16
+# after every 16 products (K5/K6's shared-tile depth), as a kernel that kept
+# its accumulator in bf16 would give; the limits above must refuse it
+CONTROL_DEPTH = 16
+# the least time of a call: operations at the card's peak for the operand
+# type (float32 on the CUDA cores, bfloat16 on the tensor cores) or bytes at
+# its memory rate, whichever is larger (H100 SXM data sheet, at 700 W)
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BYTES = 3.35e12
+SIZE = {"float32": 4, "bfloat16": 2}
 REQUESTS = [
     ("is it sunny ?", "a park photo", []),
     ("what color is it ?", "w101 w202 w303", [("is there a dog ?", "yes")]),
@@ -130,6 +160,54 @@ def rel_err(got, want) -> float:
                for g, r in zip(got, want))
 
 
+def bound(ops: float, nbytes: float, dtype: str) -> dict:
+    """bound_ms and what bounds it, for `ops` operations on `dtype`
+    operands that must move `nbytes` bytes (each input read once, each
+    output written once)."""
+    t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def lstm_bound(mask, N, T, E, H, dtype, save_cell=False, backward=False):
+    """K1 (K2 with backward): the gate products of the real steps only (the
+    kernels skip a row tile's all-pad steps; a pad step carries its state),
+    plus K2's dh product; the bytes of x, mask, W, b, the states and the
+    outputs."""
+    real = float(mask.sum())
+    G, sz = 4 * H, SIZE[dtype]
+    if backward:
+        ops = real * (2 * (E + H) * G + 2 * G * H)
+        nbytes = sz * (N * T * (E + 3 * H) + N * T * G) + 4 * (
+            (E + H) * G + G + N * T + 4 * N * H)
+    else:
+        ops = real * 2 * (E + H) * G
+        nbytes = sz * N * T * (E + H * (2 if save_cell else 1)) + 4 * (
+            (E + H) * G + G + N * T + 4 * N * H)
+    return bound(ops, nbytes, dtype)
+
+
+def attention_bound(B, R, S, H, dtype, fusion=False):
+    """K3 (K4 with fusion): scores and the weighted sum over S slots, plus
+    K4's (2H, H) fusion product; the bytes of q, slots, valid, out (and
+    K4's Wf and bias)."""
+    sz = SIZE[dtype]
+    ops = 4 * B * R * S * H + (4 * B * R * H * H if fusion else 0)
+    nbytes = sz * (2 * B * R * H + B * S * H) + 4 * B * R * S + (
+        4 * (2 * H * H + H) if fusion else 0)
+    return bound(ops, nbytes, dtype)
+
+
+def lm_bound(NT, H, V, dtype, dlogits=False):
+    """K5 (K6 with dlogits): the (NT, H) x (H, V) logits product; the bytes
+    of x, W, b, tgt and the outputs (K5's logp and lse, K6's lse and g in
+    and its (NT, V) d-logits out)."""
+    sz = SIZE[dtype]
+    nbytes = sz * NT * H + 4 * (H * V + V + NT) + (
+        8 * NT + sz * NT * V if dlogits else 8 * NT)
+    return bound(2 * NT * H * V, nbytes, dtype)
+
+
 def lstm_checks(dev, gen) -> list[dict]:
     from visdial_tpu_torch.ops.lstm import lstm_layer_plain
     from visdial_tpu_torch.ops.lstm_cuda import lstm_layer
@@ -164,7 +242,8 @@ def lstm_checks(dev, gen) -> list[dict]:
                    "plain_ms": time_ms(lambda: lstm_layer_plain(*args)),
                    "cs_ms": time_ms(lambda: lstm_layer(*args, save_cell=True)),
                    "cs_plain_ms": time_ms(
-                       lambda: lstm_layer_plain(*args, save_cell=True))}
+                       lambda: lstm_layer_plain(*args, save_cell=True)),
+                   **lstm_bound(mask, N, T, E, H, name)}
             emit(row)
             rows.append(row)
     return rows
@@ -200,7 +279,8 @@ def attention_checks(dev, gen) -> list[dict]:
                    "dtype": name, "max_abs_err": err, "tol": TOL[name],
                    "ms": time_ms(lambda: attention_fusion(*args), 50),
                    "plain_ms": time_ms(
-                                       lambda: attention_fusion_ref(*args), 50)}
+                                       lambda: attention_fusion_ref(*args), 50),
+                   **attention_bound(B, R, S, H, name, fusion=True)}
             emit(row)
             rows.append(row)
     return rows
@@ -258,12 +338,22 @@ def lstm_bwd_checks(dev, gen) -> list[dict]:
                    "bwd_ms": ms[0], "bwd_plain_ms": ms[1],
                    "ms": time_ms(lambda: lstm_layer_bwd(*args), reps=5),
                    "plain_ms": time_ms(lambda: lstm_layer_bwd_plain(*args),
-                                       reps=5)}
+                                       reps=5),
+                   **lstm_bound(mask, N, T, E, H, name, backward=True)}
             del args, hs, cs, h_prev, c_prev
             emit(row)
             rows.append(row)
     torch.cuda.empty_cache()
     return rows
+
+
+def sdpa_attention(q, s, valid):
+    """K3's function as one PyTorch call, the yardstick `library_ms` (the
+    port never calls it): unscaled softmax over the slots with an additive
+    -1e30 mask, one head."""
+    mask = torch.where(valid > 0, 0.0, -1e30).to(q.dtype)[:, None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[:, None], s[:, None], s[:, None], attn_mask=mask, scale=1.0)[:, 0]
 
 
 def attention_only_checks(dev, gen) -> list[dict]:
@@ -307,30 +397,161 @@ def attention_only_checks(dev, gen) -> list[dict]:
                    "grad_max_rel_err": grad_err,
                    "tol": TOL[name], "grad_tol": GRAD_TOL[name],
                    "ms": time_ms(lambda: masked_slot_attention(*args), 50),
-                   "plain_ms": time_ms(lambda: attention_plain(*args), 50)}
+                   "plain_ms": time_ms(lambda: attention_plain(*args), 50),
+                   "library_ms": time_ms(lambda: sdpa_attention(*args), 50),
+                   **attention_bound(B, R, S, H, name)}
             emit(row)
             rows.append(row)
     return rows
 
 
-def kernel_launches() -> dict:
+def bf16_accum_logits(x, w, b):
+    """The planted control's (NT, V) logits: products exact in f32, but the
+    running sum over H rounded to bf16 after every CONTROL_DEPTH of them."""
+    xf, wf = x.float(), w.to(x.dtype).float()
+    acc = torch.zeros(x.shape[0], w.shape[1], dtype=torch.bfloat16,
+                      device=x.device)
+    for k in range(0, x.shape[1], CONTROL_DEPTH):
+        acc = (acc.float() + xf[:, k:k + CONTROL_DEPTH]
+               @ wf[k:k + CONTROL_DEPTH]).bfloat16()
+    return acc.float() + b.float()
+
+
+def dlogits_over_limit(got, ref, g, dtype) -> float:
+    """The largest ratio of K6's per-element error to its limit (<= 1
+    passes): DLOG_RTOL x |ref| in f32, one bf16 ulp of ref in bf16, plus
+    DLOG_FLOOR x |g_i| / V; g = 0 rows must give exact zeros."""
+    r = ref.float().abs()
+    if dtype == torch.bfloat16:
+        ulp = torch.exp2((torch.frexp(r).exponent - 8).float())
+        lim = torch.where(r > 0, ulp, 0.0)
+    else:
+        lim = DLOG_RTOL * r
+    lim += DLOG_FLOOR[str(dtype).split(".")[1]] * g.abs()[:, None] / r.shape[1]
+    err = (got.float() - ref.float()).abs()
+    return float(torch.where(err > 0, err / lim, 0.0).max())
+
+
+def lm_checks(dev, gen) -> tuple[list[dict], list[dict]]:
+    """K5 and K6 against their plain versions at LM_SHAPES, f32 and bf16,
+    each beside the planted bf16-accumulation control, which its limit must
+    refuse (at more than one row), and TokenLogprobFn's dx / dW / db against
+    autograd through the plain masked NLL at the training shape."""
+    from visdial_tpu_torch.ops.lm_loss import masked_nll_fused, masked_nll_ref
+    from visdial_tpu_torch.ops.lm_score import (lm_dlogits_plain,
+                                                lm_token_logprobs_lse_plain)
+    from visdial_tpu_torch.ops.lm_score_cuda import (lm_dlogits,
+                                                     lm_token_logprobs_lse)
+
+    k5, k6 = [], []
+    for NT, H, V in LM_SHAPES:
+        x = torch.tanh(torch.randn(NT, H, generator=gen))   # LSTM states
+        w = torch.randn(H, V, generator=gen) * 0.1
+        b = torch.randn(V, generator=gen) * 0.1
+        tgt = torch.randint(0, V, (NT,), generator=gen)
+        tgt[::4] = 0                                        # pad targets
+        g = torch.randn(NT, generator=gen)
+        g[tgt == 0] = 0.0                                   # as the loss gives
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            args = [x.to(dev, dt), w.to(dev), b.to(dev), tgt.to(dev)]
+            got = lm_token_logprobs_lse(*args)
+            want = lm_token_logprobs_lse_plain(*args)
+            logits_c = bf16_accum_logits(*args[:3])
+            lse_c = torch.logsumexp(logits_c, dim=-1)
+            control = (logits_c.gather(1, args[3][:, None])[:, 0] - lse_c, lse_c)
+            torch.cuda.synchronize()
+            tol = LM_TOL * max(1.0, float(want[0].abs().max()))
+            err, control_err = abs_err(got, want), abs_err(control, want)
+            del control
+            check(all(bool(torch.isfinite(t).all()) for t in got),
+                  f"lm_score non-finite at {(NT, H, V)} {name}")
+            check(err <= tol, f"lm_score {(NT, H, V)} {name}: max abs err "
+                  f"{err} > {tol}")
+            check(NT == 1 or control_err > tol, f"lm_score {(NT, H, V)} "
+                  f"{name}: the bf16-accumulation control passes ({control_err}"
+                  f" <= {tol})")
+            row = {"phase": "lm_score", "shape": [NT, H, V], "dtype": name,
+                   "max_abs_err": err, "tol": tol, "control_err": control_err,
+                   "ms": time_ms(lambda: lm_token_logprobs_lse(*args)),
+                   "plain_ms": time_ms(lambda: lm_token_logprobs_lse_plain(*args)),
+                   **lm_bound(NT, H, V, name)}
+            emit(row)
+            k5.append(row)
+            lse, gd = want[1], g.to(dev)
+            got = lm_dlogits(*args, lse, gd)
+            ref = lm_dlogits_plain(*args, lse, gd)
+            d_c = -torch.exp(logits_c - lse[:, None])
+            d_c.scatter_add_(1, args[3][:, None], torch.ones_like(d_c[:, :1]))
+            d_c = (gd[:, None] * d_c).to(dt)
+            del logits_c
+            torch.cuda.synchronize()
+            err = abs_err([got], [ref])
+            over = dlogits_over_limit(got, ref, gd, dt)
+            control_over = dlogits_over_limit(d_c, ref, gd, dt)
+            check(bool(torch.isfinite(got.float()).all()) and got.dtype == dt,
+                  f"lm_dlogits non-finite or not {name} at {(NT, H, V)}")
+            check(over <= 1.0, f"lm_dlogits {(NT, H, V)} {name}: an error "
+                  f"{over} x its per-element limit (max abs err {err})")
+            check(NT == 1 or control_over > 1.0, f"lm_dlogits {(NT, H, V)} "
+                  f"{name}: the bf16-accumulation control passes ({control_over}"
+                  " x the limit)")
+            del got, ref, d_c
+            row = {"phase": "lm_dlogits", "shape": [NT, H, V], "dtype": name,
+                   "max_abs_err": err, "err_over_limit": over,
+                   "control_over_limit": control_over,
+                   "ms": time_ms(lambda: lm_dlogits(*args, lse, gd), reps=5),
+                   "plain_ms": time_ms(lambda: lm_dlogits_plain(*args, lse, gd),
+                                       reps=5),
+                   **lm_bound(NT, H, V, name, dlogits=True)}
+            torch.cuda.empty_cache()
+            emit(row)
+            k6.append(row)
+    # the training loss head: 320 rows x 9 steps, ragged targets
+    N, T, (_, H, V) = 320, 9, LM_SHAPES[0]
+    outs = torch.tanh(torch.randn(N, T, H, generator=gen))
+    w = torch.randn(H, V, generator=gen) * 0.1
+    b = torch.randn(V, generator=gen) * 0.1
+    tgt = torch.randint(1, V, (N, T), generator=gen)
+    tgt *= torch.arange(T)[None] < torch.randint(1, T + 1, (N, 1), generator=gen)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        vals, grads = [], []
+        for fn in (masked_nll_fused, masked_nll_ref):
+            ins = [t.to(dev).requires_grad_() for t in (outs.to(dt), w, b)]
+            v = fn(*ins, tgt.to(dev))
+            grads.append(torch.autograd.grad(v, ins))
+            vals.append(float(v.detach()))
+        err, loss_err = rel_err(*grads), abs(vals[0] - vals[1])
+        check(loss_err <= LOSS_TOL * max(1.0, abs(vals[1]))
+              and err <= GRAD_TOL[name], f"TokenLogprobFn {name}: loss "
+              f"{vals[0]} vs {vals[1]}, grad rel err {err} > {GRAD_TOL[name]}")
+        emit({"phase": "lm_head_grads", "shape": [N, T, H, V], "dtype": name,
+              "loss": vals[0], "loss_err": loss_err, "grad_max_rel_err": err,
+              "tol": GRAD_TOL[name]})
+    return k5, k6
+
+
+def _wrappers() -> dict:
     from visdial_tpu_torch.ops.attention_cuda import (attention_fusion,
                                                       masked_slot_attention)
+    from visdial_tpu_torch.ops.lm_score_cuda import (lm_dlogits,
+                                                     lm_token_logprobs_lse)
     from visdial_tpu_torch.ops.lstm_cuda import lstm_layer, lstm_layer_bwd
 
-    return {"lstm_layer": lstm_layer.launches,
-            "lstm_layer_bwd": lstm_layer_bwd.launches,
-            "attention": masked_slot_attention.launches,
-            "attention_fusion": attention_fusion.launches}
+    return {"lstm_layer": lstm_layer, "lstm_layer_bwd": lstm_layer_bwd,
+            "attention": masked_slot_attention,
+            "attention_fusion": attention_fusion,
+            "lm_score": lm_token_logprobs_lse, "lm_dlogits": lm_dlogits}
+
+
+def kernel_launches() -> dict:
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def reset_launches() -> None:
-    from visdial_tpu_torch.ops.attention_cuda import (attention_fusion,
-                                                      masked_slot_attention)
-    from visdial_tpu_torch.ops.lstm_cuda import lstm_layer, lstm_layer_bwd
-
-    lstm_layer.launches = lstm_layer_bwd.launches = 0
-    masked_slot_attention.launches = attention_fusion.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def compare_steps(cfg, state0, batch, seed: int) -> dict:
@@ -376,18 +597,28 @@ def compare_steps(cfg, state0, batch, seed: int) -> dict:
             "grad_max_rel_err": grad_err, "param_max_abs_err": param_err}
 
 
-def train(dev) -> dict:
-    """The training path: flagship MN-QIH-disc at full width, f32."""
+def train(dev, decoder: str = "disc") -> dict:
+    """A training path: flagship MN-QIH-<decoder> at full width, f32."""
     from visdial_tpu_torch.parallel.train_step import train_step
     from visdial_tpu_torch.profile_train import flagship_setup
 
-    cfg, batches, state0 = flagship_setup(dev, TRAIN_STEPS)
-    check(cfg.vocab_size == 8804 and "opt_uniq" in batches[0],
-          "train batches: vocab 8,804 and the dedup layout")
-    row = {"phase": "train", "model": "mn-ques-im-hist-disc",
-           "vocab": cfg.vocab_size, "batch_dialogs": cfg.batch_size,
-           "candidate_rows": int(batches[0]["opt_uniq"].shape[0]),
-           "unique_rows": int((batches[0]["opt_uniq"] != 0).any(1).sum())}
+    cfg, batches, state0 = flagship_setup(dev, TRAIN_STEPS, decoder=decoder)
+    row = {"phase": "train" if decoder == "disc" else "gen_train",
+           "model": f"mn-ques-im-hist-{decoder}", "vocab": cfg.vocab_size,
+           "batch_dialogs": cfg.batch_size}
+    if decoder == "disc":
+        check(cfg.vocab_size == 8804 and "opt_uniq" in batches[0],
+              "train batches: vocab 8,804 and the dedup layout")
+        row.update({"candidate_rows": int(batches[0]["opt_uniq"].shape[0]),
+                    "unique_rows": int((batches[0]["opt_uniq"] != 0).any(1).sum())})
+        kernels = ("lstm_layer", "lstm_layer_bwd", "attention")
+    else:
+        check(cfg.vocab_size == 8804 and "ans_out" in batches[0]
+              and "opt" not in batches[0], "gen train batches: vocab 8,804 and "
+              "teacher-forced answers without candidates")
+        row["lm_tokens"] = int(batches[0]["ans_out"].numel())
+        kernels = ("lstm_layer", "lstm_layer_bwd", "attention", "lm_score",
+                   "lm_dlogits")
     row["dropout0"] = compare_steps(cfg, state0, batches[0], seed=1)
     cfg = cfg.replace(dropout=0.5)
     row["dropout05"] = compare_steps(cfg, state0, batches[0], seed=2)
@@ -408,9 +639,8 @@ def train(dev) -> dict:
     launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
-    check(all(launches[k] > 0 for k in ("lstm_layer", "lstm_layer_bwd",
-                                        "attention")),
-          f"a kernel of the training path never launched: {launches}")
+    check(all(launches[k] > 0 for k in kernels),
+          f"a kernel of the {row['phase']} path never launched: {launches}")
     torch.cuda.reset_peak_memory_stats(dev)
     _, plain_ms = run(state0, "plain", 5)
     rounds = cfg.batch_size * cfg.num_rounds
@@ -422,6 +652,130 @@ def train(dev) -> dict:
                 "plain_rounds_per_s": rounds / plain_ms * 1e3,
                 "peak_mem_gb": peak / 2 ** 30,
                 "plain_peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
+    emit(row)
+    return row
+
+
+def gen_eval(dev) -> dict:
+    """The gen evaluation path: evaluate_split (width-bucketed) of the
+    flagship MN-QIH-gen over 48 dialogs x 10 rounds x 100 candidates, the
+    kernel path against the plain path (ranks equal; this run also warms
+    both paths up).  Then the rate: EVAL_REPS runs of each path, in turn,
+    over EVAL_DIALOGS dialogs (full 32-dialog batches)."""
+    import numpy as np
+
+    from visdial_tpu_torch.config import Config
+    from visdial_tpu_torch.data.synthetic import make_random_split
+    from visdial_tpu_torch.eval_harness import evaluate_split
+    from visdial_tpu_torch.models.model import model_init
+
+    base = Config(encoder="mn-ques-im-hist", decoder="gen", dropout=0.0)
+    split, vocab = make_random_split(base, num_dialogs=48, seed=0)
+    cfg = base.replace(vocab_size=vocab.size)
+    check(cfg.gen_eval_bucketed, "gen eval takes the bucketed path")
+    params = model_init(cfg, seed=0, device=dev)
+    reset_launches()
+    mk, rk = evaluate_split(params, split, vocab, cfg, dev, impl="cuda",
+                            return_ranks=True)
+    launches = kernel_launches()
+    check(all(launches[k] > 0 for k in ("lstm_layer", "attention_fusion",
+                                        "lm_score")),
+          f"a kernel of the gen eval path never launched: {launches}")
+    check(launches["lstm_layer_bwd"] == launches["lm_dlogits"] == 0,
+          f"gen eval launched a training kernel: {launches}")
+    mp, rp = evaluate_split(params, split, vocab, cfg, dev, impl="plain",
+                            return_ranks=True)
+    check(len(rk) == 48 * cfg.num_rounds and math.isfinite(mk["mrr"]),
+          f"gen eval ranked {len(rk)} rounds, mrr {mk['mrr']}")
+    mismatched = int((rk != rp).sum())
+    check(mismatched == 0, f"gen eval: {mismatched} ranks differ from the "
+          "plain path's")
+    row = {"phase": "gen_eval", "model": "mn-ques-im-hist-gen",
+           "vocab": cfg.vocab_size, "dialogs": 48, "rounds": int(len(rk)),
+           "candidates": cfg.num_options, "launches": launches,
+           "mrr": mk["mrr"], "mean_rank": mk["mean_rank"],
+           "ranks_equal": bool(np.array_equal(rk, rp))}
+    split, _ = make_random_split(base, num_dialogs=EVAL_DIALOGS, seed=1)
+    runs = {"cuda": [], "plain": []}
+    for _ in range(EVAL_REPS):
+        for impl in runs:
+            runs[impl].append(evaluate_split(params, split, vocab, cfg, dev,
+                                             impl=impl, return_ranks=True))
+    rounds = len(runs["cuda"][0][1])
+    check(rounds == EVAL_DIALOGS * cfg.num_rounds, f"gen eval timed {rounds} "
+          "rounds")
+    for impl, rs in runs.items():
+        check(all(np.array_equal(r, rs[0][1]) for _, r in rs),
+              f"gen eval ({impl}): ranks differ between repeated runs")
+    # an unchecked near tie may move a rank by one; the 48-dialog run above
+    # holds the ranks equal
+    diff = np.abs(runs["cuda"][0][1] - runs["plain"][0][1])
+    check(diff.max() <= 1 and (diff > 0).sum() <= rounds // 1000,
+          f"gen eval: ranks of {int((diff > 0).sum())} of {rounds} timed "
+          f"rounds differ from the plain path's, by up to {diff.max()}")
+    rates = {impl: [m["evals_per_sec"] for m, _ in rs] for impl, rs in runs.items()}
+    row.update({"timed_dialogs": EVAL_DIALOGS, "timed_rounds": rounds,
+                "timed_reps": EVAL_REPS, "timed_rank_mismatches": int((diff > 0).sum()),
+                "timed_mrr": runs["cuda"][0][0]["mrr"],
+                "evals_per_sec": statistics.median(rates["cuda"]),
+                "plain_evals_per_sec": statistics.median(rates["plain"]),
+                "evals_per_sec_runs": rates["cuda"],
+                "plain_evals_per_sec_runs": rates["plain"]})
+    emit(row)
+    return row
+
+
+def gen_serve(dev) -> dict:
+    """The gen serving path: InferenceEngine on flagship MN-QIH-gen weights
+    answers REQUESTS greedily and by beam search (5); tokens equal the
+    plain path's on the card."""
+    from visdial_tpu_torch.config import Config
+    from visdial_tpu_torch.data.synthetic import make_random_split
+    from visdial_tpu_torch.infer import InferenceEngine
+    from visdial_tpu_torch.models.model import model_init
+
+    base = Config(encoder="mn-ques-im-hist", decoder="gen", dropout=0.0)
+    split, vocab = make_random_split(base, num_dialogs=8,
+                                     num_unique_answers=50_000, seed=0)
+    cfg = base.replace(vocab_size=vocab.size)
+    params = model_init(cfg, seed=0, device=dev)
+    reset_launches()
+    eng = InferenceEngine(params=params, cfg=cfg, data=split, vocab=vocab,
+                          device=dev)
+    eng.generate_answer("is it sunny ?")                         # warm-up
+    answers, lat_ms = {0: [], 5: []}, {0: [], 5: []}
+    for beam in (0, 5):
+        for question, caption, history in REQUESTS:
+            t0 = time.perf_counter()
+            answers[beam].append(eng.generate_answer(question, caption, history,
+                                                     beam_size=beam))
+            lat_ms[beam].append((time.perf_counter() - t0) * 1e3)
+    launches = kernel_launches()
+    check(launches["lstm_layer"] > 0 and launches["attention_fusion"] > 0,
+          f"a kernel of the gen serving path never launched: {launches}")
+    plain = InferenceEngine(params=params, cfg=cfg.replace(use_pallas=False),
+                            data=split, vocab=vocab, device=dev)
+    check(plain.impl == "plain" and eng.impl == "cuda", "impl routing")
+    lp_err = 0.0
+    for beam in (0, 5):
+        for (question, caption, history), got in zip(REQUESTS, answers[beam]):
+            want = plain.generate_answer(question, caption, history,
+                                         beam_size=beam)
+            # decoded words carry no spaces: equal answers, equal tokens
+            check(got["answer"] == want["answer"], f"gen answer (beam {beam}) "
+                  f"differs from the plain path's: {got} vs {want}")
+            check(math.isfinite(got["log_prob"]),
+                  f"non-finite log-prob {got['log_prob']}")
+            lp_err = max(lp_err, abs(got["log_prob"] - want["log_prob"]))
+    check(lp_err <= SCORE_TOL, f"gen log-prob err {lp_err} > {SCORE_TOL}")
+    row = {"phase": "gen_serve", "model": "mn-ques-im-hist-gen",
+           "vocab": cfg.vocab_size, "requests": len(REQUESTS),
+           "launches": launches, "log_prob_max_abs_err": lp_err}
+    for beam, name in ((0, "greedy"), (5, "beam5")):
+        lat = sorted(lat_ms[beam])
+        row[name] = {"p50_ms": lat[len(lat) // 2], "max_ms": lat[-1],
+                     "answer0": answers[beam][0]["answer"],
+                     "log_prob0": answers[beam][0]["log_prob"]}
     emit(row)
     return row
 
@@ -465,18 +819,34 @@ def train_cli() -> dict:
           and steps == [5, 6] and second[-1]["event"] == "done"
           and second[-1]["step"] == 6,
           f"train CLI resume: {resumed} train steps {steps}")
+    # gen: 2 steps with an eval at the end
+    gen = [a if a != "disc" else "gen" for a in base]
+    gen[gen.index("smoke")] = "smoke_gen"
+    proc = subprocess.run(gen + ["--max_steps", "2", "--eval_every", "2"],
+                          capture_output=True, text=True, timeout=600, cwd=ROOT,
+                          env=env)
+    check(proc.returncode == 0, f"gen train CLI exited {proc.returncode}:\n"
+          f"{proc.stderr[-4000:]}")
+    gen_events = read_jsonl(proc.stdout)
+    gen_evals = [e for e in gen_events if e["event"] == "eval"]
+    check(len(gen_evals) == 1 and gen_evals[0]["step"] == 2
+          and math.isfinite(gen_evals[0]["mrr"])
+          and gen_events[-1]["event"] == "done",
+          f"gen train CLI: {gen_evals} {gen_events[-1:]}")
     row = {"phase": "train_cli", "losses": [e["loss"] for e in first + second
                                             if e["event"] == "train"],
            "mrr": evals[0]["mrr"], "resumed_from": 4,
-           "final_step": second[-1]["step"], "final_mrr": second[-1]["final_mrr"]}
+           "final_step": second[-1]["step"], "final_mrr": second[-1]["final_mrr"],
+           "gen_losses": [e["loss"] for e in gen_events if e["event"] == "train"],
+           "gen_mrr": gen_evals[0]["mrr"]}
     emit(row)
     return row
 
 
 def serve(dev) -> dict:
     """The main path: flagship MN-QIH-disc served over a 50k-answer pool."""
-    from visdial_tpu.config import Config
-    from visdial_tpu.data.synthetic import make_random_split
+    from visdial_tpu_torch.config import Config
+    from visdial_tpu_torch.data.synthetic import make_random_split
     from visdial_tpu_torch.infer import InferenceEngine
     from visdial_tpu_torch.models.model import model_init
 
@@ -593,6 +963,7 @@ def main() -> None:
           "allow_tf32": False})
 
     gen = torch.Generator().manual_seed(0)
+    k5, k6 = lm_checks(dev, gen)
     k1 = lstm_checks(dev, gen)
     k2 = lstm_bwd_checks(dev, gen)
     k3 = attention_only_checks(dev, gen)
@@ -601,24 +972,32 @@ def main() -> None:
     serve_cli(served["params"], served["cfg"])
     del served["params"]
     trained = train(dev)
+    gen_trained = train(dev, "gen")
+    gen_evaluated = gen_eval(dev)
+    gen_served = gen_serve(dev)
     train_cli()
 
-    # launches: each kernel's count from the run of the main path it
-    # belongs to (training for K1-K3, serving for K4), both listed
-    by_path = {"serve": served["row"]["launches"], "train": trained["launches"]}
+    # launches: each kernel's count from the run of the main path it is
+    # listed under (training for K1-K3, serving for K4, gen training for K5
+    # and K6), and from every path's run in launches_by_path
+    by_path = {"serve": served["row"]["launches"], "train": trained["launches"],
+               "gen_train": gen_trained["launches"],
+               "gen_eval": gen_evaluated["launches"],
+               "gen_serve": gen_served["launches"]}
 
     def summary(rows, head_shape, path, **fixed):
         head = next(r for r in rows if r["shape"] == head_shape
                     and r["dtype"] == "float32")
         return {**fixed, "route": "cuda",
                 "launches": by_path[path][fixed["name"]],
-                "launches_by_path": {p: n[fixed["name"]] for p, n in by_path.items()
-                                     if fixed["name"] in n},
+                "launches_by_path": {p: n[fixed["name"]] for p, n in by_path.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in rows
                                    if r["dtype"] == "float32"),
                 "max_abs_err_bf16": max(r["max_abs_err"] for r in rows
                                         if r["dtype"] == "bfloat16"),
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": head.get("library_ms"),
                 "shape": head_shape, "dtype": "float32"}
 
     print(smi, flush=True)
@@ -635,6 +1014,12 @@ def main() -> None:
         summary(k4, [1, 10, 10, 512], "serve", name="attention_fusion",
                 source="visdial_tpu_torch/csrc/attention_fusion.cu",
                 replaces="visdial_tpu/ops/attention_pallas.py:115"),
+        summary(k5, [2880, 512, 8804], "gen_train", name="lm_score",
+                source="visdial_tpu_torch/csrc/lm_score.cu",
+                replaces="visdial_tpu/ops/lm_score_pallas.py:37"),
+        summary(k6, [2880, 512, 8804], "gen_train", name="lm_dlogits",
+                source="visdial_tpu_torch/csrc/lm_score.cu",
+                replaces="visdial_tpu/ops/lm_score_pallas.py:161"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,10 @@ import torch
 from visdial_tpu_torch.ops.attention import attention_fusion_ref, attention_plain
 from visdial_tpu_torch.ops.attention_cuda import (AttentionFn, attention_fusion,
                                                   masked_slot_attention)
+from visdial_tpu_torch.ops.lm_loss import masked_nll_fused, masked_nll_ref
+from visdial_tpu_torch.ops.lm_score import (lm_dlogits_plain,
+                                            lm_token_logprobs_lse_plain)
+from visdial_tpu_torch.ops.lm_score_cuda import lm_dlogits, lm_token_logprobs_lse
 from visdial_tpu_torch.ops.lstm import lstm_layer_bwd_plain, lstm_layer_plain
 from visdial_tpu_torch.ops.lstm_cuda import LSTMLayerFn, lstm_layer, lstm_layer_bwd
 
@@ -165,6 +169,80 @@ def test_attention_only_kernel_matches_plain(dev, B, R, S, H, dtype):
         assert float((a.float() - r.float()).abs().max()) <= TOL[dtype]
 
 
+def _lm_case(NT, H, V, dtype):
+    g = torch.Generator().manual_seed(NT + V)
+    x = torch.randn(NT, H, generator=g).to(dtype)
+    w = torch.randn(H, V, generator=g) * 0.3
+    b = torch.randn(V, generator=g) * 0.1
+    tgt = torch.randint(0, V, (NT,), generator=g)
+    tgt[::5] = 0                                     # pad targets
+    cot = torch.randn(NT, generator=g)
+    cot[tgt == 0] = 0.0
+    return x, w, b, tgt, cot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("NT,H,V", [(1, 8, 10), (70, 33, 2000), (513, 40, 1030),
+                                    (300, 16, 129)])
+def test_lm_score_kernels_match_plain(dev, NT, H, V, dtype):
+    """K5 (one vocab split, and 16 splits at NT 70) and K6 at row and vocab
+    counts off their 64 x 128 tiles.  K5's products are exact in f32 on both
+    sides in either dtype, so log-probs and lse are held to 1e-5 of the
+    largest |logp|; K6 per element to 1e-5 of |ref| in f32 and one bf16 ulp
+    of ref in bf16 (both sides round the same f32 value), plus a floor of
+    that size times |g_i| / V."""
+    x, w, b, tgt, cot = _lm_case(NT, H, V, dtype)
+    args = [t.to(dev) for t in (x, w, b, tgt)]
+    before = (lm_token_logprobs_lse.launches, lm_dlogits.launches)
+    lp, lse = lm_token_logprobs_lse(*args)
+    want_lp, want_lse = lm_token_logprobs_lse_plain(*args)
+    dl = lm_dlogits(*args, want_lse, cot.to(dev))
+    want_dl = lm_dlogits_plain(*args, want_lse, cot.to(dev))
+    torch.cuda.synchronize()
+    assert (lm_token_logprobs_lse.launches, lm_dlogits.launches) == (
+        before[0] + 1, before[1] + 1)
+    scale = max(1.0, float(want_lp.abs().max()))
+    assert lp.dtype == lse.dtype == torch.float32
+    assert float((lp - want_lp).abs().max()) <= 1e-5 * scale
+    assert float((lse - want_lse).abs().max()) <= 1e-5 * scale
+    assert dl.dtype == dtype and dl.shape == (NT, V)
+    r = want_dl.float().abs()
+    if dtype == torch.bfloat16:
+        lim = torch.where(r > 0, torch.exp2((torch.frexp(r).exponent - 8).float()),
+                          0.0) + 2.0 ** -8 * cot.to(dev).abs()[:, None] / V
+    else:
+        lim = 1e-5 * (r + cot.to(dev).abs()[:, None] / V)
+    assert bool(((dl.float() - want_dl.float()).abs() <= lim).all())
+    assert not dl[cot.to(dev) == 0].any()            # g = 0 rows: no NaN
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_token_logprob_fn_grads_match_autograd(dev, dtype):
+    """masked_nll_fused (K5 forward, K6 backward) against autograd through
+    the materialized-logits twin: value, dx, dW, db relative to the largest
+    reference value."""
+    g = torch.Generator().manual_seed(3)
+    N, T, H, V = 40, 9, 48, 1037
+    outs = torch.randn(N, T, H, generator=g).to(dtype)
+    w = torch.randn(H, V, generator=g) * 0.3
+    b = torch.randn(V, generator=g) * 0.1
+    tgt = torch.randint(1, V, (N, T), generator=g)
+    tgt[:, 5:] = 0
+    tgt[3] = 0
+    vals, grads = [], []
+    for fn in (masked_nll_fused, masked_nll_ref):
+        ins = [t.to(dev).requires_grad_() for t in (outs, w, b)]
+        v = fn(*ins, tgt.to(dev))
+        grads.append(torch.autograd.grad(v, ins))
+        vals.append(float(v.detach()))
+    torch.cuda.synchronize()
+    assert abs(vals[0] - vals[1]) <= 1e-5 * max(1.0, abs(vals[1]))
+    for a, r in zip(*grads):
+        assert a.dtype == r.dtype
+        assert float((a.float() - r.float()).abs().max()) <= \
+            TOL[dtype] * float(r.float().abs().max())
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 3, 8, device=dev)
     w, b = torch.zeros(8 + 6, 24, device=dev), torch.zeros(24, device=dev)
@@ -197,3 +275,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         masked_slot_attention(q, q.bfloat16(), torch.ones(1, 2, 2, device=dev))
     with pytest.raises(ValueError, match="valid"):
         masked_slot_attention(q, q, torch.ones(1, 2, 3, device=dev))
+    x, w, b, tgt, cot = (t.to(dev) for t in _lm_case(8, 4, 20, torch.float32))
+    with pytest.raises(TypeError):
+        lm_token_logprobs_lse(x.half(), w, b, tgt)
+    with pytest.raises(ValueError, match="contiguous"):
+        lm_token_logprobs_lse(x[None], w, b, tgt)
+    with pytest.raises(ValueError, match="do not fit"):
+        lm_token_logprobs_lse(x, w[:3], b, tgt)
+    with pytest.raises(ValueError, match="b "):
+        lm_dlogits(x, w, b[:5], tgt, cot, cot)
+    with pytest.raises(ValueError, match="lse"):
+        lm_dlogits(x, w, b, tgt, cot[:3], cot)

@@ -3,7 +3,8 @@ visdial_tpu/data/prepro.py::tokenize).
 
 The shared tokenizer lowercases and runs nltk's word tokenizer, and the
 machine with the card has no nltk.  This module carries the same rules:
-the shared module's regex sentence split, then, per sentence, the regex
+its own copy of the shared module's regex sentence split, then, per
+sentence, the regex
 passes of nltk's NLTKWordTokenizer (the tokenizer behind word_tokenize;
 parentheses are not converted).  Where nltk's punkt data is installed the
 shared tokenizer splits sentences with punkt instead, which can differ on
@@ -15,7 +16,27 @@ from __future__ import annotations
 
 import re
 
-from visdial_tpu.data.prepro import _sentences
+# visdial_tpu/data/prepro.py's data-free sentence split: after sentence-final
+# punctuation and whitespace, except after the abbreviations punkt keeps
+# mid-sentence (the input is lowercased)
+_SENT_RE = re.compile(r"(?<=[.!?])\s+")
+_ABBREVS = frozenset((
+    "mr.", "mrs.", "ms.", "dr.", "prof.", "st.", "mt.", "u.s.", "u.k.",
+    "a.m.", "p.m.", "e.g.", "i.e.", "etc.", "vs.", "approx.", "ft.", "in.",
+))
+
+
+def _sentences(text: str) -> list[str]:
+    parts = []
+    for p in _SENT_RE.split(text):
+        if not p:
+            continue
+        if parts and parts[-1].rsplit(None, 1)[-1] in _ABBREVS:
+            parts[-1] = parts[-1] + " " + p
+        else:
+            parts.append(p)
+    return parts
+
 
 _STARTING_QUOTES = [
     (re.compile("([\u00ab\u201c\u2018\u201e]|[`]+)"), r" \1 "),

@@ -1,17 +1,20 @@
-"""Interactive / serving inference on a GPU (port of visdial_tpu/infer.py,
-disc decoder).
+"""Interactive / serving inference on a GPU (port of visdial_tpu/infer.py).
 
-Load a checkpoint once, embed the whole answer pool (the split's
-deduplicated option list) into a table, and answer ad-hoc (caption,
-history, question) queries: one encoder forward, one (1, H) x (H, M)
-product against the table, top-k.  Gen checkpoints are not served yet.
+Load a checkpoint once and answer ad-hoc (caption, history, question)
+queries.  A disc checkpoint embeds the whole answer pool (the split's
+deduplicated option list) into a table once; a query is one encoder forward,
+one (1, H) x (H, M) product against the table, top-k.  A gen checkpoint
+decodes a free-form answer, greedily or by beam search: as in the JAX
+package every round of the one-dialog batch is decoded and the current
+round's answer is returned.
 
-CLI: one JSON query per stdin line, one JSON answer per stdout line:
+CLI: one JSON query per stdin line, one JSON answer per stdout line
+({"answers": [...]} for disc, {"answer", "log_prob"} for gen):
 
     echo '{"caption": "a man on a horse", "question": "is it sunny ?",
            "history": [["is the man old ?", "no"]]}' | \
     python -m visdial_tpu_torch.infer --load_path checkpoints/run/step_N \
-        --data_dir data [--top_k 5] [--device cuda]
+        --data_dir data [--top_k 5] [--beam_size 5] [--device cuda]
 """
 
 from __future__ import annotations
@@ -23,18 +26,20 @@ import sys
 import numpy as np
 import torch
 
-from visdial_tpu.data.dataset import VisDialSplit, load_split
-from visdial_tpu.data.loader import BatchAssembler
-from visdial_tpu.data.synthetic import make_synthetic_split
+from .data.dataset import VisDialSplit, load_split
+from .data.loader import BatchAssembler
+from .data.synthetic import make_synthetic_split
 
 from .data.prepro import tokenize
 from .models.encoders import check_ported, encoder_apply
-from .models.model import _impl, batch_to_device, model_option_table
+from .models.model import (_impl, batch_to_device, model_generate,
+                           model_option_table)
 from .utils.checkpoint import load_checkpoint
 
 
 class InferenceEngine:
-    """Params + vocabulary + the answer-pool table on one device."""
+    """Params + vocabulary (+ the answer-pool table for disc) on one
+    device."""
 
     def __init__(self, load_path: str = "", data_dir: str = "",
                  synthetic: int = 0, *, params=None, cfg=None, data=None,
@@ -54,15 +59,9 @@ class InferenceEngine:
                 data, vocab = load_split(cfg.data_dir, "val")
         if any(v is None for v in (params, cfg, data, vocab)):
             raise ValueError("need load_path or explicit (params, cfg, data, vocab)")
-        if cfg.decoder != "disc":
-            raise NotImplementedError(
-                "serving gen checkpoints is not ported yet (see ROADMAP.md, "
-                "queue 1: gen decoder)")
         check_ported(cfg)
         self.cfg = cfg
-        # The shared assembler casts image features to bfloat16 through
-        # ml_dtypes under a bfloat16 config; batches are assembled in
-        # float32 and the encoder casts on the device instead.
+        # batches are assembled in float32; the encoder casts on the device
         self._asm_cfg = cfg.replace(compute_dtype="float32")
         self.vocab = vocab
         self.params = params
@@ -70,10 +69,12 @@ class InferenceEngine:
         self.opt_list_len = data.opt_list_len
         self._feat_dim = data.img_feat.shape[1]
         self.impl = _impl(cfg, self.device)
-        with torch.inference_mode():
-            self.table = model_option_table(
-                params, torch.from_numpy(data.opt_list.astype(np.int64)).to(
-                    self.device), cfg, impl=self.impl)
+        self.table = None
+        if cfg.decoder == "disc":
+            with torch.inference_mode():
+                self.table = model_option_table(
+                    params, torch.from_numpy(data.opt_list.astype(np.int64)).to(
+                        self.device), cfg, impl=self.impl)
 
     # -- raw text -> one-dialog split (visdial_tpu/infer.py::_encode_dialog)
     def _encode_dialog(self, caption: str, history, question: str,
@@ -118,7 +119,10 @@ class InferenceEngine:
     @torch.inference_mode()
     def pool_scores(self, question: str, caption: str = "", history=None,
                     img_feat=None) -> torch.Tensor:
-        """(M,) float32 scores of every answer in the pool, on the device."""
+        """(M,) float32 scores of every answer in the pool, on the device
+        (disc decoder)."""
+        if self.table is None:
+            raise ValueError("pool scores need a disc checkpoint")
         batch, t = self._batch(caption, history, question, img_feat)
         joint = encoder_apply(self.params["encoder"], self.params["embed"],
                               batch, self.cfg, impl=self.impl)
@@ -135,6 +139,22 @@ class InferenceEngine:
                  "score": s}
                 for i, s in zip(top_i.tolist(), top_s.tolist())]
 
+    @torch.inference_mode()
+    def generate_answer(self, question: str, caption: str = "", history=None,
+                        img_feat=None, beam_size: int = 0) -> dict:
+        """Free-form decoded answer (gen decoder), greedy or by beam search
+        at beam_size > 1: {"answer", "log_prob"} (the summed log-prob of
+        the emitted tokens)."""
+        if self.cfg.decoder != "gen":
+            raise ValueError("generation needs a gen checkpoint")
+        batch, t = self._batch(caption, history, question, img_feat)
+        toks, logp = model_generate(self.params, batch, self.cfg,
+                                    start_token=self.vocab.start,
+                                    end_token=self.vocab.end,
+                                    beam_size=int(beam_size), impl=self.impl)
+        return {"answer": " ".join(self.vocab.decode(toks[0, t].cpu().numpy())),
+                "log_prob": float(logp[0, t])}
+
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
@@ -142,6 +162,8 @@ def main(argv=None) -> None:
     p.add_argument("--data_dir", type=str, default="")
     p.add_argument("--synthetic", type=int, default=0)
     p.add_argument("--top_k", type=int, default=5)
+    p.add_argument("--beam_size", type=int, default=0,
+                   help="gen checkpoints: beam width (<= 1 decodes greedily)")
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
 
@@ -156,9 +178,14 @@ def main(argv=None) -> None:
             continue
         try:  # one bad request -> one error line, never a dead server
             q = json.loads(line)
-            out = {"answers": engine.rank_answers(
-                q["question"], q.get("caption", ""), q.get("history"),
-                q.get("img_feat"), top_k=args.top_k)}
+            if engine.cfg.decoder == "disc":
+                out = {"answers": engine.rank_answers(
+                    q["question"], q.get("caption", ""), q.get("history"),
+                    q.get("img_feat"), top_k=args.top_k)}
+            else:
+                out = engine.generate_answer(
+                    q["question"], q.get("caption", ""), q.get("history"),
+                    q.get("img_feat"), beam_size=args.beam_size)
         except Exception as e:
             out = {"error": f"{type(e).__name__}: {e}"}
         print(json.dumps(out), flush=True)

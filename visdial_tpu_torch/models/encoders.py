@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from visdial_tpu.config import (Config, encoder_family, encoder_uses_history,
-                                encoder_uses_image)
+from ..config import (Config, encoder_family, encoder_uses_history,
+                      encoder_uses_image)
 
 from ..ops.attention import masked_slot_attention
 from ..ops.attention_cuda import AttentionFn, attention_fusion

@@ -1,5 +1,5 @@
-"""Model assembly: init, the training loss and candidate scoring (port of
-visdial_tpu/models/model.py, disc decoder).
+"""Model assembly: init, the training loss, candidate scoring and answer
+generation (port of visdial_tpu/models/model.py).
 
 Kernel dispatch follows the device, as models/model.py::_impl follows the
 backend: on a CUDA device with cfg.use_pallas the LSTMs and the attention
@@ -13,12 +13,13 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from visdial_tpu.config import Config
+from ..config import Config
 
 from ..utils.params import flatten, unflatten
 from .core import embedding_init, seeded, split_seeds
 from .decoders import (decoder_init, disc_loss, disc_option_table, disc_scores,
-                       disc_scores_from_table)
+                       disc_scores_from_table, gen_beam_decode,
+                       gen_candidate_scores, gen_decode, gen_loss)
 from .encoders import encoder_apply, encoder_init
 
 
@@ -61,7 +62,7 @@ def batch_to_device(batch: dict, device) -> dict:
 def model_loss(params, batch, cfg: Config, *, train: bool = True,
                gen: torch.Generator | None = None,
                impl: str | None = None) -> torch.Tensor:
-    """The disc training loss (model.py::model_loss).  `gen` is a CPU
+    """The training loss of either decoder (model.py::model_loss).  `gen` is a CPU
     torch.Generator (the train state's); in train mode two seeds are drawn
     from it, one for the encoder's dropout and one for the decoder's (the
     roles of jax.random.split(rng)), each seeding a generator on the
@@ -72,9 +73,6 @@ def model_loss(params, batch, cfg: Config, *, train: bool = True,
     generator anew from the same seed, so it draws the forward's dropout
     masks again: checkpoint's preserve_rng_state restores only the default
     generators, never an explicit one, so it is not relied on (and off)."""
-    if cfg.decoder != "disc":
-        raise NotImplementedError(
-            "gen decoder training is not ported yet (see ROADMAP.md, queue 1)")
     impl = impl or _impl(cfg, batch["ques"].device)
     device = batch["ques"].device
     enc_seed = dec_seed = None
@@ -90,21 +88,26 @@ def model_loss(params, batch, cfg: Config, *, train: bool = True,
                            use_reentrant=False, preserve_rng_state=False)
     else:
         joint = encode(params["encoder"], params["embed"])
-    return disc_loss(params["decoder"], params["embed"], joint, batch, cfg,
+    loss_fn = gen_loss if cfg.decoder == "gen" else disc_loss
+    return loss_fn(params["decoder"], params["embed"], joint, batch, cfg,
                      train=train, gen=seeded(dec_seed, device), impl=impl)
 
 
 def model_scores(params, batch, cfg: Config, *, impl: str | None = None):
-    """Candidate scores (B, R, K) from the batch's option tokens (disc)."""
-    if cfg.decoder != "disc":
-        raise NotImplementedError(
-            "gen decoder scoring is not ported yet (see ROADMAP.md, queue 1)")
+    """Candidate scores (B, R, K) from the batch's option tokens: opt for
+    disc, opt_in / opt_out for gen."""
     impl = impl or _impl(cfg, batch["ques"].device)
     joint = encoder_apply(params["encoder"], params["embed"], batch, cfg,
                           impl=impl)
     N, K = joint.shape[0], cfg.num_options
-    scores = disc_scores(params["decoder"], params["embed"], joint,
-                         batch["opt"].reshape(N, K, -1), cfg, impl=impl)
+    if cfg.decoder == "gen":
+        scores = gen_candidate_scores(
+            params["decoder"], params["embed"], joint,
+            batch["opt_in"].reshape(N, K, -1), batch["opt_out"].reshape(N, K, -1),
+            cfg, impl=impl)
+    else:
+        scores = disc_scores(params["decoder"], params["embed"], joint,
+                             batch["opt"].reshape(N, K, -1), cfg, impl=impl)
     return scores.reshape(batch["ques"].shape[0], cfg.num_rounds, K)
 
 
@@ -128,3 +131,30 @@ def model_scores_with_table(params, batch, table, cfg: Config, *,
     scores = disc_scores_from_table(joint, table,
                                     batch["opt_inds"].reshape(N, K))
     return scores.reshape(batch["ques"].shape[0], cfg.num_rounds, K)
+
+
+def model_generate(params, batch, cfg: Config, *, start_token: int,
+                   end_token: int, greedy: bool = True,
+                   gen: torch.Generator | None = None, temperature: float = 1.0,
+                   beam_size: int = 0, impl: str | None = None):
+    """Decode an answer for every (dialog, round) of the batch
+    (model.py::model_generate): tokens (B, R, La) and summed log-probs
+    (B, R).  Gen decoder only.  beam_size > 1 takes beam search, else
+    greedy decoding or, with greedy=False, sampling from `gen` (a generator
+    on the batch's device).  The encoder follows impl; the token-by-token
+    decode is plain PyTorch on either path, as in the JAX package."""
+    if cfg.decoder != "gen":
+        raise ValueError("generation needs the gen decoder")
+    impl = impl or _impl(cfg, batch["ques"].device)
+    joint = encoder_apply(params["encoder"], params["embed"], batch, cfg,
+                          impl=impl)
+    if beam_size and beam_size > 1:
+        toks, logp = gen_beam_decode(params["decoder"], params["embed"], joint,
+                                     cfg, start_token=start_token,
+                                     end_token=end_token, beam_size=beam_size)
+    else:
+        toks, logp = gen_decode(params["decoder"], params["embed"], joint, cfg,
+                                start_token=start_token, end_token=end_token,
+                                greedy=greedy, gen=gen, temperature=temperature)
+    B = batch["ques"].shape[0]
+    return toks.reshape(B, cfg.num_rounds, -1), logp.reshape(B, cfg.num_rounds)

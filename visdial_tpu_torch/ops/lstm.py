@@ -126,6 +126,23 @@ def lstm_keep_masks(gen: torch.Generator, num_layers: int, shape,
     return [keep_mask(gen, shape, rate) for _ in range(num_layers - 1)]
 
 
+def lstm_step(params: dict, x_t: torch.Tensor, h: torch.Tensor,
+              c: torch.Tensor):
+    """One unmasked step through the stacked LSTM (lstm.py::lstm_step, the
+    token-by-token decode path; plain PyTorch, as the JAX package runs it
+    outside any kernel).  x_t (N, E); h, c (L, N, H).  Returns (top-layer h,
+    new h, new c), the states in h's and c's dtypes."""
+    ones = torch.ones(x_t.shape[0], device=x_t.device)
+    layer_in, hs, cs = x_t, [], []
+    for li, lp in enumerate(params["layers"]):
+        h_new, c_new = lstm_cell(lp["w"], lp["b"], layer_in, h[li].float(),
+                                 c[li].float(), ones)
+        hs.append(h_new.to(h.dtype))
+        cs.append(c_new.to(c.dtype))
+        layer_in = hs[-1]
+    return layer_in, torch.stack(hs), torch.stack(cs)
+
+
 def masked_lstm(params: dict, x: torch.Tensor, mask: torch.Tensor,
                 h0: torch.Tensor | None = None, c0: torch.Tensor | None = None,
                 *, impl: str = "plain", dropout_rate: float = 0.0,

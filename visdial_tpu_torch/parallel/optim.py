@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from visdial_tpu.config import Config
+from ..config import Config
 
 from ..utils.params import flatten, unflatten
 

@@ -14,8 +14,9 @@ from typing import NamedTuple
 
 import torch
 
-from visdial_tpu.config import Config
+from ..config import Config
 
+from ..models.decoders import gen_score_rows
 from ..models.model import model_init, model_loss
 from ..utils.params import flatten, unflatten
 from .optim import OptState, apply_updates, init_opt_state, lr_at_step
@@ -75,3 +76,23 @@ def multi_train_step(state: TrainState, batches: dict, cfg: Config,
         "step": torch.tensor([m["step"] for m in rows], dtype=torch.int32),
     }
     return state, metrics
+
+
+def gen_rows_score(params, joint, opt_list, opt_list_len, opt_rows, row_idx,
+                   width: int, start_token: int, end_token: int, cfg: Config,
+                   *, impl: str = "plain"):
+    """Score candidate rows at `width` steps, their <START>/<END> rows built
+    on the device from the split's opt_list (train_step.py::gen_rows_score;
+    the same construction as the loader's _with_start_end).  opt_rows (C,)
+    rows into opt_list (M, La), row_idx (C,) rows into joint (N, H).  Returns
+    (C,) summed token log-probs.  The rows arrive width-bucketed by the
+    eval harness and are not length-sorted again."""
+    tok = opt_list[opt_rows][:, :width - 1]                      # (C, w-1)
+    lens = opt_list_len[opt_rows]                                # (C,)
+    start = torch.full_like(tok[:, :1], start_token)
+    opt_in = torch.cat([start, tok], dim=1)                      # (C, w)
+    base = torch.nn.functional.pad(tok, (0, 1))
+    pos = torch.arange(width, device=tok.device)[None, :]
+    opt_out = torch.where(pos == lens[:, None], end_token, base)
+    return gen_score_rows(params["decoder"], params["embed"], joint[row_idx],
+                          opt_in, opt_out, cfg, impl=impl, sort=False)

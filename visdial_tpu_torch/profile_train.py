@@ -1,13 +1,14 @@
 """Profile the flagship training step on one GPU with torch.profiler.
 
     python -m visdial_tpu_torch.profile_train [--steps 3] [--warmup 3] \
-        [--dropout 0.5] [--trace train_trace.json]
+        [--dropout 0.5] [--decoder disc|gen] [--trace train_trace.json]
 
-The workload is chip_smoke.py's `train` phase: MN-QIH-disc at full width
-(E 300, H 512, 2 layers, fc7 4096, batch 32 dialogs, f32), random weights
-from seed 0, batches from TrainLoader over make_random_split(num_dialogs=64,
-num_unique_answers=100_000, seed=0) (vocab 8,804, deduplicated candidate
-rows).  After the warm-up steps it traces --steps train steps and prints one
+The workload is chip_smoke.py's `train` phase (`gen_train` with --decoder
+gen): MN-QIH at full width (E 300, H 512, 2 layers, fc7 4096, batch 32
+dialogs, f32), random weights from seed 0, batches from TrainLoader over
+make_random_split(num_dialogs=64, num_unique_answers=100_000, seed=0)
+(vocab 8,804; disc batches carry deduplicated candidate rows, gen batches
+the teacher-forced answers).  After the warm-up steps it traces --steps train steps and prints one
 JSON line: wall ms per step, the device's busy share of the traced wall
 time, kernel launches per step, and the kernels with the most device time.
 Needs a CUDA device.
@@ -21,17 +22,18 @@ import time
 
 import torch
 
-from visdial_tpu.config import Config
-from visdial_tpu.data.loader import TrainLoader
-from visdial_tpu.data.synthetic import make_random_split
+from .config import Config
+from .data.loader import TrainLoader
+from .data.synthetic import make_random_split
 
 from .models.model import batch_to_device
 from .parallel.train_step import init_train_state, train_step
 
 
-def flagship_setup(device, steps: int, dropout: float = 0.0):
+def flagship_setup(device, steps: int, dropout: float = 0.0,
+                   decoder: str = "disc"):
     """(cfg, `steps` device batches cycling the epochs, fresh TrainState)."""
-    base = Config(encoder="mn-ques-im-hist", decoder="disc", dropout=dropout)
+    base = Config(encoder="mn-ques-im-hist", decoder=decoder, dropout=dropout)
     split, vocab = make_random_split(base, num_dialogs=64,
                                      num_unique_answers=100_000, seed=0)
     cfg = base.replace(vocab_size=vocab.size)
@@ -73,13 +75,14 @@ def main(argv=None) -> None:
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--dropout", type=float, default=0.5)
+    p.add_argument("--decoder", choices=("disc", "gen"), default="disc")
     p.add_argument("--trace", type=str, default="")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
     dev = torch.device("cuda:0")
     cfg, batches, state = flagship_setup(dev, args.warmup + args.steps,
-                                         args.dropout)
+                                         args.dropout, args.decoder)
     for b in batches[:args.warmup]:
         state, _ = train_step(state, b, cfg)
     torch.cuda.synchronize()
@@ -93,6 +96,7 @@ def main(argv=None) -> None:
     if args.trace:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({"phase": "train_profile", "steps": args.steps,
+                      "model": f"{cfg.encoder}-{cfg.decoder}",
                       "dropout": args.dropout,
                       "wall_ms_per_step": wall * 1e3 / args.steps,
                       **device_time_summary(prof, args.steps, wall)}), flush=True)

@@ -4,6 +4,7 @@ Usage:
     python -m visdial_tpu_torch.train --encoder mn-ques-im-hist --decoder disc \
         --data_dir data --num_epochs 15
     python -m visdial_tpu_torch.train --synthetic 64 --max_steps 20  # no data
+    python -m visdial_tpu_torch.train --synthetic 64 --max_steps 20 --decoder gen
 
 The flags are the JAX CLI's (built from the Config fields) plus --device
 (default cuda; there is no silent move to the CPU).  Every run writes JSONL
@@ -11,7 +12,7 @@ metrics (events config, train, eval, checkpoint, non_finite_loss, done, and
 notice/resumed/step_time/profile) to stdout and <save_path>/<run_name>/
 metrics.jsonl, and full resumable checkpoints (params, optimizer moments,
 step, dropout generator, config) in the JAX package's format.  Ported: the
-MN encoders with the disc decoder (ROADMAP.md lists the rest).
+MN encoders with the disc and gen decoders (ROADMAP.md lists the rest).
 """
 
 from __future__ import annotations
@@ -24,11 +25,10 @@ import time
 import numpy as np
 import torch
 
-from visdial_tpu.config import (RESUME_OVERRIDABLE, Config,
-                                resume_config_mismatches)
-from visdial_tpu.data.dataset import load_split
-from visdial_tpu.data.loader import TrainLoader
-from visdial_tpu.data.synthetic import make_synthetic_split
+from .config import RESUME_OVERRIDABLE, Config, resume_config_mismatches
+from .data.dataset import load_split
+from .data.loader import TrainLoader
+from .data.synthetic import make_synthetic_split
 
 from .eval_harness import evaluate_split
 from .models.encoders import check_ported
@@ -104,9 +104,6 @@ def main(argv=None) -> dict:
         val_data, _ = load_split(cfg.data_dir, "val")
     cfg = cfg.replace(vocab_size=vocab.size).validate()
     check_ported(cfg)
-    if cfg.decoder != "disc":
-        raise NotImplementedError(
-            "gen decoder training is not ported yet (see ROADMAP.md, M7)")
 
     run_name = args.run_name or f"{cfg.encoder}-{cfg.decoder}-{int(time.time())}"
     ckpt_dir = os.path.join(cfg.save_path, run_name)
@@ -138,8 +135,7 @@ def main(argv=None) -> dict:
     else:
         state = init_train_state(cfg, device=device)
 
-    # assembled in float32: the shared assembler needs ml_dtypes for
-    # bfloat16 image features; the encoder casts on the device
+    # assembled in float32; the encoder casts on the device
     loader = TrainLoader(train_data, vocab, cfg.replace(compute_dtype="float32"))
     steps_per_epoch = loader.steps_per_epoch
     eval_every = cfg.eval_every or steps_per_epoch

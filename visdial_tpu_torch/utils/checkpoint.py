@@ -24,7 +24,7 @@ import tempfile
 import numpy as np
 import torch
 
-from visdial_tpu.config import Config
+from ..config import Config
 
 from ..parallel.optim import OptState
 from ..parallel.train_step import TrainState

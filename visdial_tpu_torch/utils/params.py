@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from visdial_tpu.config import Config
+from ..config import Config
 
 
 def flatten(tree, prefix: str = "") -> dict:
