@@ -31,6 +31,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -53,7 +54,10 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SCORE_TOL = 1e-3   # served scores: 512-term dot products of f32 LSTM states
 LSTM_SHAPES = [(8192, 8, 300, 512), (8192, 8, 512, 512),
                (10, 40, 300, 512), (10, 16, 300, 512),
+               (320, 40, 300, 512), (320, 16, 300, 512),
                (32000, 8, 300, 512), (32000, 8, 512, 512)]   # N, T, E, H
+# the head shape of K1 and K2, where the single-pass TF32 control runs
+LSTM_HEAD = (32000, 8, 300, 512)
 # the training path: the option LSTM's 32,000 candidate rows (both layers),
 # the question and fact LSTMs' 320 rows (first layers)
 BWD_SHAPES = [(32000, 8, 300, 512), (32000, 8, 512, 512),
@@ -85,9 +89,12 @@ DLOG_RTOL, DLOG_FLOOR = 1e-5, {"float32": 1e-5, "bfloat16": 2.0 ** -8}
 # its accumulator in bf16 would give; the limits above must refuse it
 CONTROL_DEPTH = 16
 # the least time of a call: operations at the card's peak for the operand
-# type (float32 on the CUDA cores, bfloat16 on the tensor cores) or bytes at
-# its memory rate, whichever is larger (H100 SXM data sheet, at 700 W)
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+# type or bytes at its memory rate, whichever is larger (H100 SXM data
+# sheet, at 700 W).  bfloat16: the tensor cores' 989 TFLOP/s.  float32: an
+# f32-accurate product on the tensor cores takes three TF32 products a term
+# (3xTF32, as K1 and K2 compute it), so 495 / 3 = 165 TFLOP/s, above the
+# CUDA cores' 67; a kernel that beat this bound would not be f32-accurate.
+PEAK_OPS = {"float32": 165e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 SIZE = {"float32": 4, "bfloat16": 2}
 REQUESTS = [
@@ -208,7 +215,118 @@ def lm_bound(NT, H, V, dtype, dlogits=False):
     return bound(2 * NT * H * V, nbytes, dtype)
 
 
+def tf32_control(fn, args, want, err_fn, limit: float, kernel: str,
+                 shape) -> float:
+    """The planted control: fn (a plain version) run once with single-pass
+    TF32 matmuls, as a kernel that rounded its f32 products to TF32 would
+    compute; its error against the full-f32 reference must exceed the f32
+    limit.  allow_tf32 is restored to False afterwards."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err = err_fn(got, want)
+    emit({"phase": "tf32_control", "kernel": kernel, "shape": list(shape),
+          "err": err, "limit": limit, "over_limit": err > limit})
+    check(err > limit, f"{kernel} {shape}: the single-pass TF32 control passes "
+          f"the f32 limit ({err} <= {limit})")
+    return err
+
+
+def per_step_launches(fn):
+    """fn() with the LSTM wrappers held to one launch a step (no persistent
+    launch), for timing and checking that path beside the persistent one."""
+    from visdial_tpu_torch.ops import lstm_cuda
+
+    saved = lstm_cuda.PERSIST_ROWS
+    lstm_cuda.PERSIST_ROWS = 0
+    try:
+        return fn()
+    finally:
+        lstm_cuda.PERSIST_ROWS = saved
+
+
+def _demangle(names: list[str]) -> dict:
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+
+def lstm_kernel_report() -> list[dict]:
+    """For each K1 / K2 kernel: registers, shared memory and spills, as
+    ptxas -v wrote them into the build's nvcc.log (the dynamic shared memory
+    from the tile configuration in its template arguments, as
+    common.cuh::TileSmem sizes it), and the count of tensor-core
+    instructions (HGMMA, HMMA) in its SASS, by cuobjdump -sass.  Each
+    kernel's SASS must hold HGMMA where cuobjdump can tell."""
+    from visdial_tpu_torch.ops import _build
+
+    lib = _build.library_path()
+    with open(os.path.join(os.path.dirname(lib), "nvcc.log")) as f:
+        log = f.read()
+    res, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )"
+                      r"(\w+)", ln)
+        if m:
+            cur = m.group(1)
+            res.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if cur and m:
+            res[cur].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if cur and m:
+            s = re.search(r"(\d+) bytes smem", ln)
+            res[cur].update(registers=int(m[1]), static_smem=int(s[1]) if s else 0)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass, why = {}, None
+    if os.path.exists(tool):
+        proc = subprocess.run([tool, "-sass", lib], capture_output=True,
+                              text=True, timeout=300)
+        cur = None
+        for ln in proc.stdout.splitlines():
+            m = re.match(r"\s*Function : (\S+)", ln)
+            if m:
+                cur = m.group(1)
+                sass[cur] = {"hgmma": 0, "hmma": 0}
+            elif cur and "HGMMA" in ln:
+                sass[cur]["hgmma"] += 1
+            elif cur and "HMMA" in ln:
+                sass[cur]["hmma"] += 1
+        if proc.returncode != 0 or not sass:
+            why = f"cuobjdump -sass exited {proc.returncode}: {proc.stderr[-300:]}"
+    else:
+        why = "no cuobjdump in the CUDA toolkit"
+    names = sorted(n for n in res if "lstm_" in n)
+    plain = _demangle(names)
+    rows = []
+    for n in names:
+        row = {"phase": "kernel_resources", "kernel": plain[n], **res[n]}
+        m = re.search(r"<(float|__nv_bfloat16), (\d+), (\d+), (\d+)>", plain[n])
+        if m:
+            f32, bm, bn, stages = m[1] == "float", int(m[2]), int(m[3]), int(m[4])
+            ring = stages * (bm + bn * (2 if f32 else 1)) * 128 + (bm * 128 if f32 else 0)
+            row["dynamic_smem"] = max(ring, bm * (bn + 8) * 4) + 1024
+        if why:
+            row["tensor_core_sass"] = f"not known: {why}"
+        else:
+            check(n in sass, f"{plain[n]} not in cuobjdump's SASS")
+            row.update(sass[n])
+            check(sass[n]["hgmma"] > 0, f"{plain[n]}: no HGMMA in its SASS")
+        emit(row)
+        rows.append(row)
+    check(len(rows) >= 6, f"ptxas reported {len(rows)} K1/K2 kernels")
+    return rows
+
+
 def lstm_checks(dev, gen) -> list[dict]:
+    from visdial_tpu_torch.ops import lstm_cuda
     from visdial_tpu_torch.ops.lstm import lstm_layer_plain
     from visdial_tpu_torch.ops.lstm_cuda import lstm_layer
 
@@ -229,7 +347,7 @@ def lstm_checks(dev, gen) -> list[dict]:
                   f"max abs err {err} > {TOL[name]}")
             # the training forward: cs (and the rest) against the plain one
             got_cs = lstm_layer(*args, save_cell=True)
-            want_cs = lstm_layer_plain(*args, save_cell=True)
+            want_cs = want_full = lstm_layer_plain(*args, save_cell=True)
             torch.cuda.synchronize()
             cs_err = abs_err(got_cs, want_cs)
             check(cs_err <= TOL[name], f"lstm_layer save_cell {(N, T, E, H)} "
@@ -244,6 +362,21 @@ def lstm_checks(dev, gen) -> list[dict]:
                    "cs_plain_ms": time_ms(
                        lambda: lstm_layer_plain(*args, save_cell=True)),
                    **lstm_bound(mask, N, T, E, H, name)}
+            if N <= lstm_cuda.PERSIST_ROWS:
+                # the persistent launch above; one launch a step here
+                step_err = abs_err(per_step_launches(
+                    lambda: lstm_layer(*args, save_cell=True)), want_full)
+                check(step_err <= TOL[name], f"lstm_layer per-step launches "
+                      f"{(N, T, E, H)} {name}: max abs err {step_err}")
+                row.update({"per_step_max_abs_err": step_err,
+                            "per_step_ms": time_ms(lambda: per_step_launches(
+                                lambda: lstm_layer(*args))),
+                            "persistent_ms": time_ms(lambda: lstm_layer(*args))})
+            if (N, T, E, H) == LSTM_HEAD and dt == torch.float32:
+                row["tf32_control_err"] = tf32_control(
+                    lstm_layer_plain, args, want, abs_err, TOL[name],
+                    "lstm_layer", (N, T, E, H))
+            del want_full
             emit(row)
             rows.append(row)
     return rows
@@ -289,6 +422,7 @@ def attention_checks(dev, gen) -> list[dict]:
 def lstm_bwd_checks(dev, gen) -> list[dict]:
     """K2 through LSTMLayerFn against autograd through the plain forward,
     and K2 alone against its plain version on the same residuals."""
+    from visdial_tpu_torch.ops import lstm_cuda
     from visdial_tpu_torch.ops.lstm import lstm_layer_bwd_plain, lstm_layer_plain
     from visdial_tpu_torch.ops.lstm_cuda import (LSTMLayerFn, lstm_layer,
                                                  lstm_layer_bwd)
@@ -330,8 +464,24 @@ def lstm_bwd_checks(dev, gen) -> list[dict]:
             k2_err, k2_abs = rel_err(k2, k2_plain), abs_err(k2, k2_plain)
             check(k2_err <= GRAD_TOL[name], f"K2 {(N, T, E, H)} {name}: "
                   f"rel err {k2_err} > {GRAD_TOL[name]}")
+            extra = {}
+            if N <= lstm_cuda.PERSIST_ROWS:
+                # the persistent launch above; one launch a phase here
+                step_err = rel_err(per_step_launches(
+                    lambda: lstm_layer_bwd(*args)), k2_plain)
+                check(step_err <= GRAD_TOL[name], f"K2 per-step launches "
+                      f"{(N, T, E, H)} {name}: rel err {step_err}")
+                extra = {"per_step_max_rel_err": step_err,
+                         "per_step_ms": time_ms(lambda: per_step_launches(
+                             lambda: lstm_layer_bwd(*args)), reps=5),
+                         "persistent_ms": time_ms(lambda: lstm_layer_bwd(*args),
+                                                  reps=5)}
+            if (N, T, E, H) == LSTM_HEAD and dt == torch.float32:
+                extra["tf32_control_err"] = tf32_control(
+                    lstm_layer_bwd_plain, args, k2_plain, rel_err,
+                    GRAD_TOL[name], "lstm_layer_bwd", (N, T, E, H))
             del k2, k2_plain
-            row = {"phase": "lstm_layer_bwd", "shape": [N, T, E, H],
+            row = {**extra, "phase": "lstm_layer_bwd", "shape": [N, T, E, H],
                    "dtype": name, "grad_max_rel_err": err,
                    "k2_max_rel_err": k2_err, "max_abs_err": k2_abs,
                    "tol": GRAD_TOL[name],
@@ -962,6 +1112,7 @@ def main() -> None:
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "allow_tf32": False})
 
+    lstm_kernel_report()
     gen = torch.Generator().manual_seed(0)
     k5, k6 = lm_checks(dev, gen)
     k1 = lstm_checks(dev, gen)

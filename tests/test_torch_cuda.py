@@ -19,6 +19,7 @@ from visdial_tpu_torch.ops.attention_cuda import (AttentionFn, attention_fusion,
 from visdial_tpu_torch.ops.lm_loss import masked_nll_fused, masked_nll_ref
 from visdial_tpu_torch.ops.lm_score import (lm_dlogits_plain,
                                             lm_token_logprobs_lse_plain)
+from visdial_tpu_torch.ops import lstm_cuda
 from visdial_tpu_torch.ops.lm_score_cuda import lm_dlogits, lm_token_logprobs_lse
 from visdial_tpu_torch.ops.lstm import lstm_layer_bwd_plain, lstm_layer_plain
 from visdial_tpu_torch.ops.lstm_cuda import LSTMLayerFn, lstm_layer, lstm_layer_bwd
@@ -36,10 +37,26 @@ def dev():
     return torch.device("cuda")
 
 
+# K1 / K2 shapes: rows off the 64- and 256-row tiles (65, 130, 321, 600),
+# E off a multiple of 8 (33, 300), H off the unit tiles (20, 36, 40), T = 1,
+# and the question / fact LSTMs' real width
+LSTM_CASES = [(5, 7, 10, 12), (70, 3, 33, 40), (200, 4, 20, 36), (600, 5, 20, 36),
+              (65, 3, 33, 20), (130, 1, 300, 36), (321, 2, 8, 20),
+              (320, 16, 300, 512)]
+
+
+@pytest.fixture(params=["persistent", "per-step"])
+def launches(request, monkeypatch):
+    """Layers of up to 512 rows run in one cooperative launch, or (as above
+    512 rows) one launch a step."""
+    if request.param == "per-step":
+        monkeypatch.setattr(lstm_cuda, "PERSIST_ROWS", 0)
+    return request.param
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,T,E,H", [(5, 7, 10, 12), (70, 3, 33, 40),
-                                     (200, 4, 20, 36), (600, 5, 20, 36)])
-def test_lstm_kernel_matches_plain(dev, N, T, E, H, dtype):
+@pytest.mark.parametrize("N,T,E,H", LSTM_CASES)
+def test_lstm_kernel_matches_plain(dev, launches, N, T, E, H, dtype):
     g = torch.Generator().manual_seed(N)
     w = torch.empty(E + H, 4 * H).uniform_(-0.5, 0.5, generator=g)
     b = torch.empty(4 * H).uniform_(-0.5, 0.5, generator=g)
@@ -90,8 +107,9 @@ def _lstm_case(N, T, E, H, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,T,E,H", [(5, 7, 10, 12), (600, 5, 20, 36)])
-def test_lstm_kernel_cell_states_match_plain(dev, N, T, E, H, dtype):
+@pytest.mark.parametrize("N,T,E,H", [(5, 7, 10, 12), (600, 5, 20, 36),
+                                     (321, 2, 8, 20)])
+def test_lstm_kernel_cell_states_match_plain(dev, launches, N, T, E, H, dtype):
     """K1 with save_cell: cs equals the plain version's."""
     *case, _ = _lstm_case(N, T, E, H, dtype, N + 1)
     args = [t.to(dev) for t in case]
@@ -105,8 +123,8 @@ def test_lstm_kernel_cell_states_match_plain(dev, N, T, E, H, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,T,E,H", [(5, 7, 10, 12), (70, 1, 33, 40),
-                                     (200, 4, 20, 36), (600, 5, 20, 36)])
-def test_lstm_bwd_kernel_matches_plain(dev, N, T, E, H, dtype):
+                                     *LSTM_CASES[2:]])
+def test_lstm_bwd_kernel_matches_plain(dev, launches, N, T, E, H, dtype):
     """K2 against its plain version on the same residuals (relative to the
     largest reference value: bf16 rounds dgp, which feeds dh)."""
     w, b, x, mask, h0, c0, g = _lstm_case(N, T, E, H, dtype, N + 2)

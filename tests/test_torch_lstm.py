@@ -15,7 +15,9 @@ from visdial_tpu.ops.lstm_pallas import lstm_layer_bwd_pallas, lstm_layer_pallas
 from visdial_tpu_torch.ops.lstm import (keep_mask, lstm_keep_masks,
                                         lstm_layer_bwd_plain, lstm_layer_plain,
                                         masked_lstm)
-from visdial_tpu_torch.ops.lstm_cuda import LSTMLayerFn, lstm_layer, lstm_layer_bwd
+from visdial_tpu_torch.ops.lstm_cuda import (LSTMLayerFn, k_tile, lstm_layer,
+                                             lstm_layer_bwd, pack_weights,
+                                             pad_input)
 
 torch.set_num_threads(1)
 
@@ -269,3 +271,36 @@ def test_layer_fn_is_used_only_when_a_gradient_is_needed():
     out, _ = masked_lstm(p, _t(x), _t(mask), impl="cuda")
     assert type(out.grad_fn).__name__.startswith("LSTMLayerFn")
     assert LSTMLayerFn is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,H", [(10, 12), (33, 20), (300, 36)])
+def test_packed_operands_give_the_plain_gates(E, H, dtype):
+    """The kernels' operands as the wrapper prepares them: x padded to a
+    multiple of 8 and laid into the first Kx columns of the A operand, h
+    from column Kx, through the K-major gate-interleaved W, by a plain
+    matmul; undoing the interleave gives the plain
+    version's gates exactly (small integers: every sum is exact).  K2's dh
+    operand is W[E:] as stored."""
+    rng = np.random.default_rng(E + H)
+    n = 5
+    w = torch.from_numpy(rng.integers(-8, 9, (E + H, 4 * H)).astype(np.float32))
+    x = torch.from_numpy(rng.integers(-8, 9, (n, 2, E)).astype(np.float32)).to(dtype)
+    h = torch.from_numpy(rng.integers(-8, 9, (n, H)).astype(np.float32)).to(dtype)
+    wk, wh, kx, kw = pack_weights(w, E, dtype)
+    bk = k_tile(dtype)
+    assert bk * x.element_size() == 128
+    assert kx % bk == 0 and kx >= E and kw == kx + -(-H // bk) * bk
+    assert wk.shape == (4 * H, kw) and wk.dtype == wh.dtype == dtype
+    xp = pad_input(x)
+    assert xp.shape[-1] % 8 == 0 and E <= xp.shape[-1] <= kx
+    assert not xp[..., E:].any()
+    a = torch.zeros(n, kw)
+    a[:, :xp.shape[-1]] = xp[:, 1].float()
+    a[:, kx:kx + H] = h.float()
+    packed = a @ wk.float().T                     # column 4j + g: gate g of unit j
+    gates = packed.reshape(n, H, 4).transpose(1, 2).reshape(n, 4 * H)
+    want = torch.cat([x[:, 1], h], dim=-1).float() @ w.to(dtype).float()
+    assert torch.equal(gates, want)
+    assert torch.equal(wh, w[E:].to(dtype))
+

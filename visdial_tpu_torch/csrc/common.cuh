@@ -1,10 +1,13 @@
 // Helpers shared by the port's kernels: f32 <-> activation-type conversion,
-// the logistic function, warp reductions, and the gate-tile product of the
-// LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
+// the logistic function, warp reductions, and the tensor-core tile product
+// of the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace vd {
 
@@ -34,93 +37,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The gate pre-activations of one LSTM block tile, without the bias:
-//   acc[i][q] = sum_k A[row ty + i*TY][k] * W[k][col(tx + q*TX)],  k < K = E + H
-// for BN rows x the 4*BJ gate columns of hidden units j0 .. j0+BJ-1.  Tile
-// column c is gate c / BJ of unit j0 + c % BJ, i.e. W column (c/BJ)*H + j;
-// so thread column tx + q*TX holds gate q / Q of unit j0 + tx + (q % Q)*TX
-// (Q = BJ / TX) and every thread owns all four gates of its units.
-// load_a(r, k) gives A[r][k] as float for a tile row r whose mask ms[r] is
-// non-zero (rows with ms[r] == 0 load nothing and contribute zeros).
-// Shared tiles are double-buffered with a register prefetch so that one
-// tile's global loads overlap the previous tile's FMAs.  Every thread of the
-// block must call it.
-template <typename T, int BN, int BJ, int TX, int TY, int TM, int TN, int BK,
-          typename LoadA>
-__device__ __forceinline__ void gate_tile_product(
-    float (&acc)[TM][TN], float (&As)[2][BK][BN + 1], float (&Bs)[2][BK][4 * BJ],
-    const float* ms, LoadA load_a, const T* __restrict__ w, int K, int H, int j0) {
-  constexpr int NT = TX * TY;
-  constexpr int COLS = 4 * BJ;
-  static_assert(TM * TY == BN, "row tiling");
-  static_assert(TN * TX == COLS, "column tiling");
-  static_assert(BJ % TX == 0, "each thread must own all four gates of a unit");
-  static_assert((BK * BN) % NT == 0 && (BK * COLS) % NT == 0, "tile loads");
-  constexpr int A_PER = BK * BN / NT;
-  constexpr int B_PER = BK * COLS / NT;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int G = 4 * H;
-
-  float a_reg[A_PER], b_reg[B_PER];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int s = 0; s < A_PER; ++s) {
-      const int l = tid + s * NT;
-      const int r = l / BK, k = k0 + l % BK;
-      a_reg[s] = (ms[r] != 0.f && k < K) ? load_a(r, k) : 0.f;
-    }
-#pragma unroll
-    for (int s = 0; s < B_PER; ++s) {
-      const int l = tid + s * NT;
-      const int kk = l / COLS, c = l % COLS;
-      const int k = k0 + kk, j = j0 + c % BJ;
-      b_reg[s] = (k < K && j < H) ? to_f(w[(size_t)k * G + (c / BJ) * H + j]) : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int s = 0; s < A_PER; ++s) {
-      const int l = tid + s * NT;
-      As[buf][l % BK][l / BK] = a_reg[s];
-    }
-#pragma unroll
-    for (int s = 0; s < B_PER; ++s) {
-      const int l = tid + s * NT;
-      Bs[buf][l / COLS][l % COLS] = b_reg[s];
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[i][q] = 0.f;
-
-  const int n_k = (K + BK - 1) / BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < n_k) load((kt + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], bb[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[cur][kk][ty + i * TY];
-#pragma unroll
-      for (int q = 0; q < TN; ++q) bb[q] = Bs[cur][kk][tx + q * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int q = 0; q < TN; ++q) acc[i][q] = fmaf(a[i], bb[q], acc[i][q]);
-    }
-    if (kt + 1 < n_k) store(cur ^ 1);
-    __syncthreads();
-  }
-}
-
 // Loads the mask of the block's BN rows at step t into ms[] and returns
 // whether any of them is real (every thread of the block must call it).
 template <int BN>
@@ -134,6 +50,350 @@ __device__ __forceinline__ bool load_tile_mask(float* ms, const float* __restric
     real = m != 0.f;
   }
   return __syncthreads_or(real);
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core tile product (Hopper wgmma), shared by K1 and both phases
+// of K2:  acc = A[m0:m0+BM, :K] . B[n0:n0+BN, :K]^T, f32 accumulation.
+//
+// Both operands are K-major (a row holds its K values contiguously), the
+// only layout wgmma takes for tf32.  K is walked in k-tiles of 128 bytes
+// (64 bf16 or 32 f32 values); a k-tile of a BM- or BN-row operand lands in
+// shared memory as rows of 128 bytes with the 16-byte chunks of row r
+// permuted by chunk ^ (r % 8), the 128-byte swizzle that wgmma's descriptor
+// names (layout 1), so that both the 16-byte cp.async writes of a row and
+// wgmma's reads are free of bank conflicts.  A ring of STAGES k-tiles keeps
+// STAGES - 1 loads in flight while the tensor cores work on the oldest.
+//
+// bf16: wgmma m64nBNk16, bf16 x bf16 -> f32, the TPU kernel's numerics.
+// f32: 3xTF32.  Each operand is split into a TF32 high part and the TF32
+// remainder, and acc += a_hi b_hi + a_hi b_lo + a_lo b_hi (wgmma m64nBNk8
+// tf32), which keeps the products at f32 accuracy (single-pass TF32 would
+// move results by ~1e-3).  Both operands arrive in f32 and are split in
+// shared memory after they land (hi in place, lo into one buffer each), so
+// L2 carries 4 bytes a value, not 8.
+//
+// Each warpgroup (128 threads) owns 64 rows of the BM-row tile, so the
+// block has BM * 2 threads.  Out-of-range rows and k >= K load zeros.
+
+// A row-major view of an operand: element (r, k) at p[r * ld + k], real for
+// r < rows and k < K.
+template <typename T> struct Operand {
+  const T* p;
+  long long ld;
+  int rows;
+  int K;
+};
+
+template <typename T> struct TileK;
+template <> struct TileK<__nv_bfloat16> { static constexpr int BK = 64, KS = 16; };
+template <> struct TileK<float> { static constexpr int BK = 32, KS = 8; };
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src to shared dst, or 16 zero bytes when n is 0
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ uint4 ld_shared16(uint32_t src) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(src)
+               : "memory");
+  return v;
+}
+// shared-memory writes of this thread (generic proxy) become visible to
+// wgmma's reads (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Descriptor of a K-major 128-byte-swizzled tile at shared address s (whose
+// 8-row group is 1024-byte aligned): stride 1024 bytes between 8-row groups.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t s) {
+  return (uint64_t)((s & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ float tf32_hi(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+#define VD_D8(o)                                                              \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), \
+      "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define VD_R32                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define VD_R64                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "  \
+  "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "  \
+  "%62, %63}"
+
+// d (64 x N f32, N / 2 values a thread) += A . B^T for one k-step.
+template <typename T, int N> struct Wgmma;
+template <> struct Wgmma<__nv_bfloat16, 64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VD_R32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : VD_D8(0), VD_D8(8), VD_D8(16), VD_D8(24)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<__nv_bfloat16, 128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VD_R64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : VD_D8(0), VD_D8(8), VD_D8(16), VD_D8(24), VD_D8(32), VD_D8(40),
+          VD_D8(48), VD_D8(56)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<float, 64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " VD_R32
+        ", %32, %33, p, 1, 1;\n}\n"
+        : VD_D8(0), VD_D8(8), VD_D8(16), VD_D8(24)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<float, 128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " VD_R64
+        ", %64, %65, p, 1, 1;\n}\n"
+        : VD_D8(0), VD_D8(8), VD_D8(16), VD_D8(24), VD_D8(32), VD_D8(40),
+          VD_D8(48), VD_D8(56)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+#undef VD_D8
+#undef VD_R32
+#undef VD_R64
+
+// One thread's share of the k-tiles of an operand's R-row tile, set up once
+// a tile: thread x copies the 16-byte chunk x % 8 of tile rows x / 8 + i NT/8
+// (i < R * 8 / NT), whose swizzled shared offsets differ by i * NT * 16.
+// Whole chunks in range go by cp.async when the operand's rows are 16-byte
+// aligned (rows past the operand and chunks past K as zero fill); a chunk
+// that is misaligned or crosses K goes element by element through L2.
+template <typename T, int NT> struct Loader {
+  static constexpr int CH = 16 / sizeof(T);
+  const T* p;       // the thread's first chunk at k = 0
+  long long step;   // NT / 8 rows
+  int nvalid;       // rows of the operand from the thread's first row on
+  int kmax;         // K less the thread's chunk offset
+  bool vec;
+
+  __device__ __forceinline__ Loader(const Operand<T>& op, int r0) {
+    const int r = threadIdx.x >> 3, kc = threadIdx.x & 7;
+    p = op.p + (long long)(r0 + r) * op.ld + kc * CH;
+    step = (long long)(NT / 8) * op.ld;
+    nvalid = op.rows - r0 - r;
+    kmax = op.K - kc * CH;
+    vec = ((reinterpret_cast<uintptr_t>(op.p) |
+            (uintptr_t)(op.ld * (long long)sizeof(T))) & 15) == 0;
+  }
+
+  // the thread's shared offset of chunk 0 in an R-row tile
+  static __device__ __forceinline__ uint32_t offset() {
+    const int r = threadIdx.x >> 3, kc = threadIdx.x & 7;
+    return r * 128 + ((kc ^ (r & 7)) << 4);
+  }
+
+  // k-tile at k0 into the tile whose thread chunk 0 is at shared dst
+  template <int R> __device__ __forceinline__ void load(uint32_t dst, int k0) const {
+    static_assert((R * 8) % NT == 0, "tile chunks per thread");
+    constexpr int I = R * 8 / NT;
+    const bool full = k0 + CH <= kmax, none = k0 >= kmax;
+    if (vec && (full || none)) {
+#pragma unroll
+      for (int i = 0; i < I; ++i) {
+        const bool ok = full && i * (NT / 8) < nvalid;
+        cp_async16(dst + i * NT * 16, ok ? p + i * step + k0 : p, ok ? 16 : 0);
+      }
+      return;
+    }
+    using U = typename std::conditional<sizeof(T) == 2, unsigned short,
+                                        unsigned int>::type;
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+      uint32_t v[4] = {0, 0, 0, 0};
+      if (i * (NT / 8) < nvalid) {
+        U* e = reinterpret_cast<U*>(v);
+        const U* g = reinterpret_cast<const U*>(p + i * step + k0);
+#pragma unroll
+        for (int j = 0; j < CH; ++j)
+          if (k0 + j < kmax) e[j] = __ldcg(g + j);
+      }
+      st_shared16(dst + i * NT * 16, make_uint4(v[0], v[1], v[2], v[3]));
+    }
+  }
+};
+
+// Shared memory of a tile product with BM rows, BN columns and STAGES
+// stages: per stage A (BM x 128 bytes) then B (BN x 128 bytes), then, for
+// f32, one buffer of the same size for the lo parts; the epilogue reuses it
+// for the BM x (BN + 8) f32 result (stage_acc).  +1024 for aligning the
+// base.
+template <typename T, int BM, int BN, int STAGES> struct TileSmem {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int A_BYTES = BM * 128;
+  static constexpr int B_BYTES = BN * 128;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int RING = (STAGES + (F32 ? 1 : 0)) * STAGE;
+  static constexpr int LDC = BN + 8;
+  static constexpr int C_BYTES = BM * LDC * 4;
+  static constexpr int BYTES = (RING > C_BYTES ? RING : C_BYTES) + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// acc (BN / 2 values a thread, wgmma's accumulator layout) = the product of
+// rows [m0, m0 + BM) of A and rows [n0, n0 + BN) of b over nkt k-tiles, A
+// being a0 for k-tiles [0, nk0) and a1 after (K1's [x_t; h]: each part
+// starts at a whole k-tile).  smem is 1024-aligned.  Every thread of the
+// block (BM * 2 of them) must call it; it ends with a barrier, and the
+// caller may then reuse smem.
+//
+// Schedule of k-tile kt: wait for the thread's own copies of kt; barrier;
+// f32: split kt's chunks, barrier; issue kt's wgmma; while it runs, start
+// the copy of k-tile kt + STAGES - 1 into the stage that k-tile kt - 1 used
+// (every warpgroup waited for its wgmma before the barrier); wait for the
+// wgmma.  (Keeping one wgmma in flight across the barrier as well measured
+// no faster on an H100, and f32 would need three lo buffers.)
+template <typename T, int BM, int BN, int STAGES>
+__device__ __forceinline__ void tile_product(float (&acc)[BN / 2], unsigned char* smem,
+                                             const Operand<T>& a0, int nk0,
+                                             const Operand<T>& a1, const Operand<T>& b,
+                                             int nkt, int m0, int n0) {
+  using L = TileSmem<T, BM, BN, STAGES>;
+  constexpr int NT = BM * 2;
+  constexpr int BK = TileK<T>::BK, KS = TileK<T>::KS;
+  static_assert(STAGES >= 2, "a k-tile in flight beside the one in use");
+  static_assert((BM * 8) % NT == 0, "A's and B's chunks of a thread line up");
+  const uint32_t base = smem_u32(smem);
+  const int wg = threadIdx.x / 128;
+
+  const Loader<T, NT> la0(a0, m0), la1(a1, m0), lb(b, n0);
+  const uint32_t own = base + Loader<T, NT>::offset();
+  auto load_stage = [&](int kt) {
+    const uint32_t s = own + (kt % STAGES) * L::STAGE;
+    if (kt < nk0)
+      la0.template load<BM>(s, kt * BK);
+    else
+      la1.template load<BM>(s, (kt - nk0) * BK);
+    lb.template load<BN>(s + L::A_BYTES, kt * BK);
+  };
+
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int kt = 0; kt < STAGES - 1; ++kt) {
+    if (kt < nkt) load_stage(kt);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nkt; ++kt) {
+    const uint32_t s = base + (kt % STAGES) * L::STAGE;
+    const uint32_t lo = base + STAGES * L::STAGE;   // f32 only
+    cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    if constexpr (L::F32) {
+      // split the stage into the TF32 high parts (in place) and remainders
+      // (the lo buffer, at the same offsets), 16 bytes at a time
+      for (int c = threadIdx.x; c < (BM + BN) * 8; c += NT) {
+        uint4 v = ld_shared16(s + c * 16);
+        float* f = reinterpret_cast<float*>(&v);
+        float r[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float hi = tf32_hi(f[e]);
+          r[e] = f[e] - hi;
+          f[e] = hi;
+        }
+        st_shared16(s + c * 16, v);
+        st_shared16(lo + c * 16, make_uint4(__float_as_uint(r[0]), __float_as_uint(r[1]),
+                                            __float_as_uint(r[2]), __float_as_uint(r[3])));
+      }
+      fence_proxy_async();
+      __syncthreads();
+    }
+    const uint32_t sa = s + wg * 64 * 128;
+    const uint32_t sb = s + L::A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / KS; ++j) {
+      const uint32_t kofs = j * KS * sizeof(T);   // 32 bytes a k-step
+      const uint64_t da = smem_desc(sa + kofs), db = smem_desc(sb + kofs);
+      Wgmma<T, BN>::run(acc, da, db);
+      if constexpr (L::F32) {
+        Wgmma<T, BN>::run(acc, da, smem_desc(lo + L::A_BYTES + kofs));
+        Wgmma<T, BN>::run(acc, smem_desc(lo + wg * 64 * 128 + kofs), db);
+      }
+    }
+    wgmma_commit();
+    if (kt + STAGES - 1 < nkt) load_stage(kt + STAGES - 1);
+    cp_async_commit();
+    wgmma_wait<0>();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Writes acc to c (BM x LDC f32 in shared memory): wgmma's accumulator
+// layout gives thread l of warp w of warpgroup g rows 64g + 16w + l/4 (+8)
+// and columns 8i + 2(l%4) (+1).  The caller synchronises before reading.
+template <int BN, int LDC>
+__device__ __forceinline__ void stage_acc(const float (&acc)[BN / 2], float* c) {
+  const int lane = threadIdx.x % 32;
+  const int row = (threadIdx.x / 128) * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
+  const int col = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    *reinterpret_cast<float2*>(c + row * LDC + 8 * i + col) =
+        make_float2(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<float2*>(c + (row + 8) * LDC + 8 * i + col) =
+        make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+  }
 }
 
 }  // namespace vd

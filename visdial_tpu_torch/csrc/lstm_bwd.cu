@@ -1,4 +1,4 @@
-// Masked LSTM layer backward for Hopper (sm_90a), CUDA-core FMAs.
+// Masked LSTM layer backward for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the TPU kernel visdial_tpu/ops/lstm_pallas.py::_lstm_bwd_kernel
 // (wrapper lstm_layer_bwd_pallas, caller _layer_bwd_kernel_path).  Reverse
@@ -19,270 +19,332 @@
 //
 // What bounds it on this card.  Two products a step, each about as large as
 // the forward's: the gate recompute (N x (E+H) x 4H) and dgp . Wh^T
-// (N x 4H x H).  At the option LSTM's 32,000 rows a step is ~55-70 GFLOP, so
-// like K1 the CUDA-core FMA loops bound it; at the 320-row question and fact
-// LSTMs the ~2T launches a layer and their latency do.
+// (N x 4H x H).  At the option LSTM's 32,000 rows a step is ~140 GFLOP, so
+// the tensor cores bound it (989 TFLOP/s bf16; 165 TFLOP/s for f32-accurate
+// 3xTF32); at the 320-row question and fact LSTMs the ~2T launches a layer
+// and their latency do.
 //
 // What the design does about it.  The TPU kernel keeps Wx and Wh in VMEM and
 // carries (dh, dc) in scratch across its sequential grid; Hopper has neither
-// the room nor an ordered grid.  So each step is two launches, all 2T issued
-// from one host call (vd_lstm_layer_bwd):
-//  (a) lstm_bwd_gates_kernel: K1's tiling (BN rows x BJ units, all four gate
-//      columns of a unit in one thread, common.cuh::gate_tile_product over
-//      K = E + H), then the chain rule in registers; writes dgp[:, t], the
-//      new dc and the pass-through part (1 - m) Dh of the new dh.
-//  (b) lstm_bwd_dh_kernel: dh += dgp[:, t] . Wh^T.  It contracts over all 4H
-//      gate columns, which every unit tile of (a) writes, so it needs all of
-//      (a) done: the launch boundary is the grid-wide barrier.
-// The carries live in two (N, H) f32 buffers updated in place: in each phase
-// an element of dh or dc is read and written only by the thread that owns it,
-// so no ping-pong copy is needed.  Tiles with no real row at step t skip both
-// products.  Tensor cores, and a persistent kernel with a grid barrier in
-// place of the 2T launches, are later work.
+// the room nor an ordered grid.  Each step has two phases:
+//  (a) gates_tile: K1's tensor-core tile product over K = E + H
+//      (common.cuh::tile_product, the packed gate-interleaved W that
+//      ops/lstm_cuda.py::pack_weights prepares), the accumulator through
+//      shared memory so one thread holds a unit's four gates, then the chain
+//      rule in f32; writes dgp[:, t], the new dc and the pass-through part
+//      (1 - m) Dh of the new dh.
+//  (b) dh_tile: dh += dgp[:, t] . Wh^T, the same tile product over K = 4H,
+//      with Wh = W[E:] (H x 4H) as the K-major B operand as it is stored.
+//      It contracts over all 4H gate columns, which every tile of (a)
+//      writes, so it needs all of (a) done.
+// Above kSmallRows rows each phase is a launch (the launch boundary is the
+// grid-wide barrier), all 2T issued from one host call (vd_lstm_layer_bwd).
+// Up to it, when the card holds the whole grid at once, one cooperative
+// launch runs all T steps with a grid-wide barrier after each phase.  The
+// carries live in two (N, H) f32 buffers updated in place: in each phase an
+// element of dh or dc is read and written only by the thread that owns it.
+// Left: as in lstm_fwd.cu, the k-loop's block barrier and W's re-reads from
+// L2; the dh epilogue's read-modify-write of the carry.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <initializer_list>
 
 #include "common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using vd::from_f;
+using vd::Operand;
 using vd::sigmoidf_;
 using vd::to_f;
 
-// Phase (a).  Tiling as in lstm_fwd.cu::lstm_step_kernel.
-template <typename T, int BN, int BJ, int TX, int TY, int TM, int TN, int BK>
-__global__ void __launch_bounds__(TX * TY, 1)
-lstm_bwd_gates_kernel(const T* __restrict__ x, const T* __restrict__ hprev,
-                      const T* __restrict__ cprev, const float* __restrict__ mask,
-                      const T* __restrict__ w, const float* __restrict__ b,
-                      const T* __restrict__ ghs, float* __restrict__ dh,
-                      float* __restrict__ dc, T* __restrict__ dgp, int N, int Tn,
-                      int E, int H, int t) {
-  constexpr int NT = TX * TY;
-  constexpr int Q = BJ / TX;  // hidden units per thread
+template <typename T> struct BwdArgs {
+  const T* x;          // (N, Tn, Ep), E zero-padded to Ep
+  const T* hprev;      // (N, Tn, H)
+  const T* cprev;      // (N, Tn, H)
+  const float* mask;   // (N, Tn)
+  const T* w;          // (4H, KW) packed W
+  const T* wh;         // (H, 4H) = W[E:]
+  const float* b;      // (4H,)
+  const T* ghs;        // (N, Tn, H)
+  float* dh;           // (N, H) f32 carries, updated in place
+  float* dc;
+  T* dgp;              // (N, Tn, 4H)
+  int N, Tn, Ep, Kx, KW, H;
+};
 
-  __shared__ float As[2][BK][BN + 1];
-  __shared__ float Bs[2][BK][4 * BJ];
-  __shared__ float ms[BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int j0 = blockIdx.x * BJ;
-  const int n0 = blockIdx.y * BN;
+// Phase (a) of step t for the tile of BM rows (mt) x BN gate columns (nt).
+template <typename T, int BM, int BN, int STAGES>
+__device__ __forceinline__ void gates_tile(const BwdArgs<T>& a, int t, int mt, int nt,
+                                           unsigned char* smem, float* ms) {
+  using L = vd::TileSmem<T, BM, BN, STAGES>;
+  constexpr int NT = BM * 2, BJ = BN / 4, BK = vd::TileK<T>::BK;
+  const int m0 = mt * BM, j0 = nt * BJ, H = a.H;
   const size_t G = 4 * (size_t)H;
   const T zero = from_f<T>(0.f);
 
-  if (!vd::load_tile_mask<BN>(ms, mask, n0, N, Tn, t)) {
+  if (!vd::load_tile_mask<BM>(ms, a.mask, m0, a.N, a.Tn, t)) {
     // m = 0 for every row: dh += g_hs[:, t], dgp[:, t] = 0, dc unchanged.
-    for (int idx = tid; idx < BN * BJ; idx += NT) {
-      const int n = n0 + idx / BJ, j = j0 + idx % BJ;
-      if (n < N && j < H) {
-        const size_t nt = (size_t)n * Tn + t;
-        dh[(size_t)n * H + j] += to_f(ghs[nt * H + j]);
-        T* d = dgp + nt * G + j;
+    for (int idx = threadIdx.x; idx < BM * BJ; idx += NT) {
+      const int n = m0 + idx / BJ, j = j0 + idx % BJ;
+      if (n < a.N && j < H) {
+        const size_t nt_ = (size_t)n * a.Tn + t;
+        a.dh[(size_t)n * H + j] += to_f(a.ghs[nt_ * H + j]);
+        T* d = a.dgp + nt_ * G + j;
         d[0] = zero;
         d[H] = zero;
         d[2 * (size_t)H] = zero;
         d[3 * (size_t)H] = zero;
       }
     }
+    __syncthreads();   // ms is the block's next tile's
     return;
   }
 
   // A = [x_t; h_prev_t], both already in T
-  auto load_a = [&](int r, int k) {
-    const size_t nt = (size_t)(n0 + r) * Tn + t;
-    return k < E ? to_f(x[nt * E + k]) : to_f(hprev[nt * H + (k - E)]);
-  };
-  float acc[TM][TN];
-  vd::gate_tile_product<T, BN, BJ, TX, TY, TM, TN, BK>(acc, As, Bs, ms, load_a,
-                                                        w, E + H, H, j0);
+  const int nkx = a.Kx / BK;
+  const int nkt = nkx + (H + BK - 1) / BK;
+  const Operand<T> xo{a.x + (size_t)t * a.Ep, (long long)a.Tn * a.Ep, a.N, a.Ep};
+  const Operand<T> ho{a.hprev + (size_t)t * H, (long long)a.Tn * H, a.N, H};
+  const Operand<T> wo{a.w, a.KW, 4 * H, a.KW};
+  float acc[BN / 2];
+  vd::tile_product<T, BM, BN, STAGES>(acc, smem, xo, nkx, ho, wo, nkt, m0, nt * BN);
+  float* cbuf = reinterpret_cast<float*>(smem);
+  vd::stage_acc<BN, L::LDC>(acc, cbuf);
+  __syncthreads();
 
+  // Column 4u + g of the tile is gate g of unit j0 + u.  A thread keeps one
+  // unit in every pass (NT is a multiple of BJ), so its biases load once,
+  // and it loads the operands of BATCH passes before it uses them.
+  constexpr int IT = BM * BJ / NT, BATCH = IT < 8 ? IT : 8;
+  static_assert(NT % BJ == 0 && IT % BATCH == 0, "epilogue passes");
+  const int u = threadIdx.x % BJ, j = j0 + u;
+  if (j < H) {
+    const float bi = a.b[j], bf = a.b[H + j], bg = a.b[2 * H + j], bo = a.b[3 * H + j];
+    for (int i0 = 0; i0 < IT; i0 += BATCH) {
+      float dhv[BATCH], dcv[BATCH], ghv[BATCH], cpv[BATCH];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty + i * TY, n = n0 + r;
-    if (n >= N) continue;
-    const float m = ms[r];
-    const size_t nt = (size_t)n * Tn + t;
-#pragma unroll
-    for (int u = 0; u < Q; ++u) {
-      const int j = j0 + tx + u * TX;
-      if (j >= H) continue;
-      const size_t o = (size_t)n * H + j;
-      const float Dh = to_f(ghs[nt * H + j]) + dh[o];
-      T* d = dgp + nt * G + j;
-      if (m == 0.f) {
-        dh[o] = Dh;
-        d[0] = zero;
-        d[H] = zero;
-        d[2 * (size_t)H] = zero;
-        d[3 * (size_t)H] = zero;
-        continue;
+      for (int q = 0; q < BATCH; ++q) {
+        const int n = m0 + (threadIdx.x + (i0 + q) * NT) / BJ;
+        if (n < a.N) {
+          const size_t nt_ = (size_t)n * a.Tn + t, o = (size_t)n * H + j;
+          dhv[q] = a.dh[o];
+          dcv[q] = a.dc[o];
+          ghv[q] = to_f(a.ghs[nt_ * H + j]);
+          cpv[q] = to_f(a.cprev[nt_ * H + j]);
+        }
       }
-      const float Dc = dc[o];
-      const float gi = sigmoidf_(acc[i][0 * Q + u] + b[j]);
-      const float gf = sigmoidf_(acc[i][1 * Q + u] + b[H + j]);
-      const float gg = tanhf(acc[i][2 * Q + u] + b[2 * H + j]);
-      const float go = sigmoidf_(acc[i][3 * Q + u] + b[3 * H + j]);
-      const float cp = to_f(cprev[nt * H + j]);
-      const float tcn = tanhf(gf * cp + gi * gg);
-      const float dhn = m * Dh;
-      const float dcn = m * Dc + dhn * go * (1.f - tcn * tcn);
-      dc[o] = (1.f - m) * Dc + dcn * gf;
-      dh[o] = (1.f - m) * Dh;   // phase (b) adds dgp . Wh^T
-      d[0] = from_f<T>((dcn * gg) * gi * (1.f - gi));
-      d[H] = from_f<T>((dcn * cp) * gf * (1.f - gf));
-      d[2 * (size_t)H] = from_f<T>((dcn * gi) * (1.f - gg * gg));
-      d[3 * (size_t)H] = from_f<T>((dhn * tcn) * go * (1.f - go));
+#pragma unroll
+      for (int q = 0; q < BATCH; ++q) {
+        const int r = (threadIdx.x + (i0 + q) * NT) / BJ, n = m0 + r;
+        if (n >= a.N) continue;
+        const float m = ms[r];
+        const size_t nt_ = (size_t)n * a.Tn + t;
+        const size_t o = (size_t)n * H + j;
+        const float Dh = ghv[q] + dhv[q];
+        T* d = a.dgp + nt_ * G + j;
+        if (m == 0.f) {
+          a.dh[o] = Dh;
+          d[0] = zero;
+          d[H] = zero;
+          d[2 * (size_t)H] = zero;
+          d[3 * (size_t)H] = zero;
+          continue;
+        }
+        const float4 g = *reinterpret_cast<const float4*>(cbuf + r * L::LDC + 4 * u);
+        const float Dc = dcv[q], cp = cpv[q];
+        const float gi = sigmoidf_(g.x + bi);
+        const float gf = sigmoidf_(g.y + bf);
+        const float gg = tanhf(g.z + bg);
+        const float go = sigmoidf_(g.w + bo);
+        const float tcn = tanhf(gf * cp + gi * gg);
+        const float dhn = m * Dh;
+        const float dcn = m * Dc + dhn * go * (1.f - tcn * tcn);
+        a.dc[o] = (1.f - m) * Dc + dcn * gf;
+        a.dh[o] = (1.f - m) * Dh;   // phase (b) adds dgp . Wh^T
+        d[0] = from_f<T>((dcn * gg) * gi * (1.f - gi));
+        d[H] = from_f<T>((dcn * cp) * gf * (1.f - gf));
+        d[2 * (size_t)H] = from_f<T>((dcn * gi) * (1.f - gg * gg));
+        d[3 * (size_t)H] = from_f<T>((dhn * tcn) * go * (1.f - go));
+      }
     }
   }
+  __syncthreads();   // shared memory and ms are the block's next tile's
 }
 
-// Phase (b): dh[n, j] += sum_k dgp[n, t, k] Wh[j, k], k < 4H, Wh = W[E:].
-// BN rows x BJ units per block, rows over TY threads (TM each, strided),
-// units over TX threads (TN each, strided); a BK-deep K tile of dgp and of
-// Wh^T at a time (Wh^T[k][j] = w[(E + j) * 4H + k], read along k).
-template <typename T, int BN, int BJ, int TX, int TY, int TM, int TN, int BK>
-__global__ void __launch_bounds__(TX * TY, 1)
-lstm_bwd_dh_kernel(const T* __restrict__ dgp, const float* __restrict__ mask,
-                   const T* __restrict__ w, float* __restrict__ dh, int N, int Tn,
-                   int E, int H, int t) {
-  constexpr int NT = TX * TY;
-  static_assert(TM * TY == BN && TN * TX == BJ, "tiling");
-  static_assert((BK * BN) % NT == 0 && (BK * BJ) % NT == 0, "tile loads");
-  constexpr int A_PER = BK * BN / NT;
-  constexpr int B_PER = BK * BJ / NT;
-
-  __shared__ float As[BK][BN + 1];
-  __shared__ float Bs[BK][BJ + 1];
-  __shared__ float ms[BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int j0 = blockIdx.x * BJ;
-  const int n0 = blockIdx.y * BN;
-  const int K = 4 * H;
+// Phase (b) of step t for the tile of BM rows (mt) x BN hidden units (nt):
+// dh[n, j] += sum_k dgp[n, t, k] Wh[j, k], k < 4H.
+template <typename T, int BM, int BN, int STAGES>
+__device__ __forceinline__ void dh_tile(const BwdArgs<T>& a, int t, int mt, int nt,
+                                        unsigned char* smem, float* ms) {
+  using L = vd::TileSmem<T, BM, BN, STAGES>;
+  constexpr int NT = BM * 2, BK = vd::TileK<T>::BK;
+  const int m0 = mt * BM, j0 = nt * BN, H = a.H, K = 4 * H;
 
   // rows with m = 0 have dgp[:, t] = 0: nothing to add
-  if (!vd::load_tile_mask<BN>(ms, mask, n0, N, Tn, t)) return;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[i][q] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int s = 0; s < A_PER; ++s) {
-      const int l = tid + s * NT;
-      const int r = l / BK, kk = l % BK, k = k0 + kk;
-      As[kk][r] = (ms[r] != 0.f && k < K)
-                      ? to_f(dgp[((size_t)(n0 + r) * Tn + t) * K + k])
-                      : 0.f;
-    }
-#pragma unroll
-    for (int s = 0; s < B_PER; ++s) {
-      const int l = tid + s * NT;
-      const int c = l / BK, kk = l % BK, k = k0 + kk, j = j0 + c;
-      Bs[kk][c] = (k < K && j < H) ? to_f(w[(size_t)(E + j) * K + k]) : 0.f;
-    }
+  if (!vd::load_tile_mask<BM>(ms, a.mask, m0, a.N, a.Tn, t)) {
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], bb[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * TY];
-#pragma unroll
-      for (int q = 0; q < TN; ++q) bb[q] = Bs[kk][tx + q * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int q = 0; q < TN; ++q) acc[i][q] = fmaf(a[i], bb[q], acc[i][q]);
-    }
-    __syncthreads();
+    return;
   }
-
+  const Operand<T> ao{a.dgp + (size_t)t * K, (long long)a.Tn * K, a.N, K};
+  const Operand<T> bo{a.wh, K, H, K};
+  const int nkt = (K + BK - 1) / BK;
+  float acc[BN / 2];
+  vd::tile_product<T, BM, BN, STAGES>(acc, smem, ao, nkt, ao, bo, nkt, m0, j0);
+  float* cbuf = reinterpret_cast<float*>(smem);
+  vd::stage_acc<BN, L::LDC>(acc, cbuf);
+  __syncthreads();
+  // a thread keeps one unit in every pass (NT is a multiple of BN) and loads
+  // the carries of BATCH passes before it adds to them
+  constexpr int IT = BM * BN / NT, BATCH = 8;
+  static_assert(NT % BN == 0 && IT % BATCH == 0, "epilogue passes");
+  const int u = threadIdx.x % BN, j = j0 + u;
+  if (j < H) {
+    for (int i0 = 0; i0 < IT; i0 += BATCH) {
+      float v[BATCH];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty + i * TY, n = n0 + r;
-    if (n >= N || ms[r] == 0.f) continue;
+      for (int q = 0; q < BATCH; ++q) {
+        const int n = m0 + (threadIdx.x + (i0 + q) * NT) / BN;
+        if (n < a.N) v[q] = a.dh[(size_t)n * H + j];
+      }
 #pragma unroll
-    for (int q = 0; q < TN; ++q) {
-      const int j = j0 + tx + q * TX;
-      if (j < H) dh[(size_t)n * H + j] += acc[i][q];
+      for (int q = 0; q < BATCH; ++q) {
+        const int r = (threadIdx.x + (i0 + q) * NT) / BN, n = m0 + r;
+        if (n < a.N && ms[r] != 0.f)
+          a.dh[(size_t)n * H + j] = v[q] + cbuf[r * L::LDC + u];
+      }
     }
+  }
+  __syncthreads();
+}
+
+template <typename T, int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(BM * 2)
+lstm_bwd_gates_kernel(const BwdArgs<T> a, int t) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float ms[BM];
+  gates_tile<T, BM, BN, STAGES>(a, t, blockIdx.y, blockIdx.x, vd::align1024(smem_raw), ms);
+}
+
+template <typename T, int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(BM * 2)
+lstm_bwd_dh_kernel(const BwdArgs<T> a, int t) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float ms[BM];
+  dh_tile<T, BM, BN, STAGES>(a, t, blockIdx.y, blockIdx.x, vd::align1024(smem_raw), ms);
+}
+
+// All Tn steps in reverse in one cooperative launch, a grid-wide barrier
+// after each phase.
+template <typename T, int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(BM * 2)
+lstm_bwd_persistent_kernel(const BwdArgs<T> a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float ms[BM];
+  unsigned char* smem = vd::align1024(smem_raw);
+  const int ntm = (a.N + BM - 1) / BM;
+  const int nta = (4 * a.H + BN - 1) / BN, ntb = (a.H + BN - 1) / BN;
+  cg::grid_group grid = cg::this_grid();
+  for (int t = a.Tn - 1; t >= 0; --t) {
+    for (int tile = blockIdx.x; tile < nta * ntm; tile += gridDim.x)
+      gates_tile<T, BM, BN, STAGES>(a, t, tile / nta, tile % nta, smem, ms);
+    grid.sync();
+    for (int tile = blockIdx.x; tile < ntb * ntm; tile += gridDim.x)
+      dh_tile<T, BM, BN, STAGES>(a, t, tile / ntb, tile % ntb, smem, ms);
+    grid.sync();
   }
 }
 
-// Rows at or below this count take the narrow tiles (more blocks at the
-// 320-row question and fact LSTMs; here they beat the wide tiles, unlike in
-// lstm_fwd.cu, whose threshold is lower).
-constexpr int kSmallRows = 512;
-
-template <typename T>
-int layer_bwd(const void* x, const void* hprev, const void* cprev,
-              const float* mask, const void* w, const float* b, const void* ghs,
-              float* dh, float* dc, void* dgp, int N, int Tn, int E, int H,
-              cudaStream_t stream) {
-  const T* xt = (const T*)x;
-  const T* hp = (const T*)hprev;
-  const T* cp = (const T*)cprev;
-  const T* wt = (const T*)w;
-  const T* gh = (const T*)ghs;
-  T* d = (T*)dgp;
-  for (int t = Tn - 1; t >= 0; --t) {
-    if (N <= kSmallRows) {
-      constexpr int BN = 16, BJ = 8;
-      dim3 grid_a((H + BJ - 1) / BJ, (N + BN - 1) / BN);
-      lstm_bwd_gates_kernel<T, BN, BJ, 8, 16, 1, 4, 64><<<grid_a, 128, 0, stream>>>(
-          xt, hp, cp, mask, wt, b, gh, dh, dc, d, N, Tn, E, H, t);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      constexpr int BNB = 16, BJB = 32;
-      dim3 grid_b((H + BJB - 1) / BJB, (N + BNB - 1) / BNB);
-      lstm_bwd_dh_kernel<T, BNB, BJB, 32, 4, 4, 1, 16><<<grid_b, 128, 0, stream>>>(
-          d, mask, wt, dh, N, Tn, E, H, t);
-    } else {
-      constexpr int BN = 64, BJ = 32;
-      dim3 grid_a((H + BJ - 1) / BJ, (N + BN - 1) / BN);
-      lstm_bwd_gates_kernel<T, BN, BJ, 16, 16, 4, 8, 16><<<grid_a, 256, 0, stream>>>(
-          xt, hp, cp, mask, wt, b, gh, dh, dc, d, N, Tn, E, H, t);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      constexpr int BNB = 64, BJB = 64;
-      dim3 grid_b((H + BJB - 1) / BJB, (N + BNB - 1) / BNB);
-      lstm_bwd_dh_kernel<T, BNB, BJB, 16, 16, 4, 4, 16><<<grid_b, 256, 0, stream>>>(
-          d, mask, wt, dh, N, Tn, E, H, t);
+template <typename T, int BM, int BN, int STAGES>
+int bwd_launch(const BwdArgs<T>& a, int persist_rows, cudaStream_t stream) {
+  using L = vd::TileSmem<T, BM, BN, STAGES>;
+  constexpr int NT = BM * 2;
+  const auto gates = lstm_bwd_gates_kernel<T, BM, BN, STAGES>;
+  const auto dh = lstm_bwd_dh_kernel<T, BM, BN, STAGES>;
+  const auto persistent = lstm_bwd_persistent_kernel<T, BM, BN, STAGES>;
+  static const cudaError_t attr = [&] {
+    cudaError_t e = cudaSuccess;
+    for (const void* k : {(const void*)gates, (const void*)dh, (const void*)persistent})
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 L::BYTES);
+    return e;
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  const int ntm = (a.N + BM - 1) / BM;
+  const int nta = (4 * a.H + BN - 1) / BN, ntb = (a.H + BN - 1) / BN;
+  if (a.N <= persist_rows) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, persistent, NT, L::BYTES);
+    if (per_sm > 0) {
+      const int grid = nta * ntm < per_sm * sms ? nta * ntm : per_sm * sms;
+      void* args[] = {const_cast<BwdArgs<T>*>(&a)};
+      const cudaError_t err = cudaLaunchCooperativeKernel(
+          (const void*)persistent, dim3(grid), dim3(NT), args, L::BYTES, stream);
+      return (int)(err != cudaSuccess ? err : cudaGetLastError());
     }
-    const cudaError_t err = cudaGetLastError();
+  }
+  for (int t = a.Tn - 1; t >= 0; --t) {
+    gates<<<dim3(nta, ntm), NT, L::BYTES, stream>>>(a, t);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    dh<<<dim3(ntb, ntm), NT, L::BYTES, stream>>>(a, t);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }
 
+// Rows at or below this count take the 64 x 64 tiles (and the persistent
+// launch when it fits); above it the 128 x 128 tiles.
+constexpr int kSmallRows = 512;
+
+template <typename T>
+int layer_bwd(const BwdArgs<T>& a, int persist_rows, cudaStream_t stream) {
+  constexpr int BK = vd::TileK<T>::BK;
+  if (a.Kx % BK != 0 || a.KW != a.Kx + (a.H + BK - 1) / BK * BK || a.Ep % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  if (a.N <= kSmallRows) return bwd_launch<T, 64, 64, F32 ? 3 : 4>(a, persist_rows, stream);
+  return bwd_launch<T, 256, 128, F32 ? 3 : 4>(a, persist_rows, stream);
+}
+
 }  // namespace
 
 // One masked LSTM layer backward, all Tn steps in reverse.  dtype 0 =
-// float32, 1 = bfloat16 for x (N, Tn, E), hprev, cprev, ghs (N, Tn, H), w
-// (E+H, 4H) and dgp (N, Tn, 4H); mask (N, Tn) and b (4H,) f32.  dh and dc
-// (N, H) f32 hold (g_hT, g_cT) on entry and (dh0, dc0) on return.  Returns
-// a cudaError_t value (0 on success).
+// float32, 1 = bfloat16 for x (N, Tn, Ep) (E zero-padded to Ep, a multiple
+// of 8), hprev, cprev, ghs (N, Tn, H), w (4H, KW) packed as
+// ops/lstm_cuda.py::pack_weights packs it, wh (H, 4H) = W[E:] (f32: each as
+// hi then lo) and dgp (N, Tn, 4H); mask (N, Tn) and b (4H,) f32.  dh and dc
+// (N, H) f32 hold (g_hT, g_cT) on entry and (dh0, dc0) on return.  Layers of
+// at most persist_rows rows run in one cooperative launch when the grid fits
+// on the card.  Returns a cudaError_t value (0 on success).
 extern "C" int vd_lstm_layer_bwd(int dtype, const void* x, const void* hprev,
                                  const void* cprev, const float* mask,
-                                 const void* w, const float* b, const void* ghs,
-                                 float* dh, float* dc, void* dgp, int N, int Tn,
-                                 int E, int H, void* stream) {
+                                 const void* w, const void* wh, const float* b,
+                                 const void* ghs, float* dh, float* dc, void* dgp,
+                                 int N, int Tn, int Ep, int Kx, int KW, int H,
+                                 int persist_rows, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return layer_bwd<float>(x, hprev, cprev, mask, w, b, ghs, dh, dc, dgp, N, Tn,
-                            E, H, s);
-  if (dtype == 1)
-    return layer_bwd<__nv_bfloat16>(x, hprev, cprev, mask, w, b, ghs, dh, dc, dgp,
-                                    N, Tn, E, H, s);
+    return layer_bwd<float>({(const float*)x, (const float*)hprev,
+                             (const float*)cprev, mask, (const float*)w,
+                             (const float*)wh, b, (const float*)ghs, dh, dc,
+                             (float*)dgp, N, Tn, Ep, Kx, KW, H},
+                            persist_rows, s);
+  if (dtype == 1) {
+    using B16 = __nv_bfloat16;
+    return layer_bwd<B16>({(const B16*)x, (const B16*)hprev, (const B16*)cprev,
+                           mask, (const B16*)w, (const B16*)wh, b,
+                           (const B16*)ghs, dh, dc, (B16*)dgp, N, Tn, Ep, Kx, KW,
+                           H},
+                          persist_rows, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

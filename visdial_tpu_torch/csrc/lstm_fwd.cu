@@ -1,4 +1,4 @@
-// Masked LSTM layer forward for Hopper (sm_90a), CUDA-core FMAs.
+// Masked LSTM layer forward for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the TPU kernel visdial_tpu/ops/lstm_pallas.py::_lstm_layer_kernel
 // (wrapper lstm_layer_pallas).  Same math, per step t:
@@ -10,41 +10,46 @@
 // and the h/c carries are f32.
 //
 // What bounds it on this card.  The T steps are sequential: step t needs all
-// of h_{t-1}.  The per-step product h.Wh is a skinny GEMM (N rows x H deep x
-// 4H wide).  At serving shapes (N = 10 questions or facts) a step is a few
-// MFLOP, so the kernel is bound by launch and memory latency, not by FLOPs
-// or bytes.  At the answer-table chunks (N = 8192 rows) a step is 27 GFLOP
-// and every row tile rereads its slice of W from the 50 MB L2, which holds
-// W (~1.3 GB of L2 reads a step); with CUDA-core FMAs the product itself
-// bounds it (measured on an H100 at about half the f32 FMA peak).
+// of h_{t-1}.  A step is one GEMM (N rows x (E+H) deep x 4H wide) and a cell
+// update.  At the option LSTM's 32,000 rows a step is ~106 GFLOP, so the
+// tensor cores bound it: 989 TFLOP/s in bf16, and for f32-accurate results
+// 3 TF32 products a term (3xTF32), 495 / 3 = 165 TFLOP/s.  At serving shapes
+// (N = 10) and the 320-row question and fact LSTMs, a step is a few to
+// ~1 GFLOP, and the T launches and their latency bound it.
 //
 // What the design does about it.
-//  * No per-layer weight residency (the TPU design keeps Wx and Wh in ~16 MB
-//    of VMEM; a Hopper block has 227 KB of shared memory).  One launch per
-//    time step; f32 h/c ping-pong buffers in device memory carry the state
-//    between launches, and all T launches of a layer are issued from one
-//    host call (vd_lstm_layer_fwd), so the Python side pays one call a layer.
+//  * The gate product is common.cuh::tile_product: wgmma from a ring of
+//    128-byte-swizzled shared tiles fed by 16-byte cp.async, bf16 x bf16 ->
+//    f32, or 3xTF32 for f32.  Each block owns BM rows x BN gate columns.
+//  * The wrapper prepares W once per call (ops/lstm_cuda.py::pack_weights):
+//    K-major, gate columns interleaved (row 4j + g of the packed W is gate g
+//    of unit j), so one N-tile holds all four gates of its BN / 4 units, and
+//    the x part zero-padded to a whole k-tile (Kx).  It pads E to a multiple
+//    of 8, so that rows of x start 16-byte aligned.
+//  * The A operand [x_t; h] is two plain strided tiles: x[:, t] and
+//    hs[:, t-1], which the previous step wrote in T (h0 cast once for t = 0),
+//    so h reaches the product rounded to T, as the TPU kernel rounds it.
+//  * Epilogue: the accumulator goes through shared memory, so that one
+//    thread holds i, f, g, o of a unit; the cell update, the mask select and
+//    the writes of hs, cs and the f32 carries (updated in place) follow in
+//    f32, coalesced along the units.
 //  * The training forward also writes cs (the post-mask cell state of every
-//    step, the TPU kernel's save_cell output) beside hs, so the backward
-//    (lstm_bwd.cu) never rebuilds the cell recurrence; serving passes no cs
-//    buffer and writes none.
-//  * Each block owns BN rows x BJ hidden units and computes the four gate
-//    columns j, H+j, 2H+j, 3H+j of each, so the cell update, the mask blend
-//    and the write of hs[:, t] happen in registers inside the block.  The
-//    column map is strided so that every thread holds all four gates of the
-//    units it owns.
-//  * x_t.Wx is computed in the same K loop as h.Wh (K = E + H), so nothing
-//    but hs and the carries is written to device memory.
-//  * Shared-memory tiles are double-buffered with a register prefetch, so
-//    one tile's global loads overlap the previous tile's FMAs; at small N a
-//    narrow tile config gives 64 blocks instead of 16.
+//    step, the TPU kernel's save_cell output), so the backward (lstm_bwd.cu)
+//    never rebuilds the cell recurrence; serving passes no cs buffer.
 //  * The block reads the mask of its rows at step t.  When no row of the tile
-//    is real there (which covers the steps outside the [start, stop) span that
-//    the TPU wrapper prefetches as _tile_bounds), the block skips the product
-//    and emits the carried state, exactly as the TPU kernel's skipped steps
-//    do.  Rows with m == 0 load no operands and keep their carry.
-//  Tensor cores (wgmma), TMA and a persistent kernel are later work.
+//    is real there (the steps outside the [start, stop) span that the TPU
+//    wrapper prefetches as _tile_bounds), it skips the product and emits the
+//    carried state, as the TPU kernel's skipped steps do.  Rows with m == 0
+//    keep their carry.
+//  * Up to kSmallRows rows (the 320-row question and fact LSTMs, serving) a
+//    64 x 64 tile gives enough blocks, and when the card can hold the whole
+//    grid at once, one cooperative launch runs all T steps with a grid-wide
+//    barrier between them in place of T launches.  Above it, a 128 x 128
+//    tile and one launch a step.
+//  Left: the per-step barrier in the k-loop (no warp-specialised producer,
+//  no TMA), and the W re-reads from L2 by every row tile.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,150 +58,211 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using vd::from_f;
+using vd::Operand;
 using vd::sigmoidf_;
 using vd::to_f;
 
-// BN rows x BJ hidden units per block; the block's 4*BJ gate columns are
-// spread over TX column threads (TN each, strided by TX) and its rows over
-// TY row threads (TM each, strided by TY).  BK is the K tile depth; MINB
-// the blocks an SM must be able to hold (caps registers per thread).
-// cs may be null (no cell states wanted).
-template <typename T, int BN, int BJ, int TX, int TY, int TM, int TN, int BK,
-          int MINB>
-__global__ void __launch_bounds__(TX * TY, MINB)
-lstm_step_kernel(const T* __restrict__ x, const float* __restrict__ mask,
-                 const T* __restrict__ w, const float* __restrict__ b,
-                 const float* __restrict__ h_in, const float* __restrict__ c_in,
-                 float* __restrict__ h_out, float* __restrict__ c_out,
-                 T* __restrict__ hs, T* __restrict__ cs, int N, int Tn, int E,
-                 int H, int t) {
-  constexpr int NT = TX * TY;
-  constexpr int Q = BJ / TX;  // hidden units per thread
+template <typename T> struct FwdArgs {
+  const T* x;          // (N, Tn, Ep), E zero-padded to Ep
+  const float* mask;   // (N, Tn)
+  const T* w;          // (4H, KW) packed W
+  const float* b;      // (4H,) gate order i, f, g, o
+  const T* h0;         // (N, H) h0 in T
+  float* h;            // (N, H) f32 carries, h0 / c0 on entry, updated in place
+  float* c;
+  T* hs;               // (N, Tn, H)
+  T* cs;               // (N, Tn, H) or null
+  int N, Tn, Ep, Kx, KW, H;
+};
 
-  __shared__ float As[2][BK][BN + 1];  // +1: conflict-free transposed store
-  __shared__ float Bs[2][BK][4 * BJ];
-  __shared__ float ms[BN];
+// Step t of the tile of BM rows (mt) x BN gate columns (nt).  Every thread
+// of the block calls it.
+template <typename T, int BM, int BN, int STAGES>
+__device__ __forceinline__ void fwd_tile(const FwdArgs<T>& a, int t, int mt, int nt,
+                                         unsigned char* smem, float* ms) {
+  using L = vd::TileSmem<T, BM, BN, STAGES>;
+  constexpr int NT = BM * 2, BJ = BN / 4, BK = vd::TileK<T>::BK;
+  const int m0 = mt * BM, j0 = nt * BJ, H = a.H;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int j0 = blockIdx.x * BJ;
-  const int n0 = blockIdx.y * BN;
-
-  if (!vd::load_tile_mask<BN>(ms, mask, n0, N, Tn, t)) {
+  if (!vd::load_tile_mask<BM>(ms, a.mask, m0, a.N, a.Tn, t)) {
     // No real token in this tile at step t: emit the carried state.
-    for (int idx = tid; idx < BN * BJ; idx += NT) {
-      const int n = n0 + idx / BJ, j = j0 + idx % BJ;
-      if (n < N && j < H) {
+    for (int idx = threadIdx.x; idx < BM * BJ; idx += NT) {
+      const int n = m0 + idx / BJ, j = j0 + idx % BJ;
+      if (n < a.N && j < H) {
         const size_t o = (size_t)n * H + j;
-        const size_t ot = ((size_t)n * Tn + t) * H + j;
-        const float h = h_in[o], c = c_in[o];
-        h_out[o] = h;
-        c_out[o] = c;
-        hs[ot] = from_f<T>(h);
-        if (cs) cs[ot] = from_f<T>(c);
+        const size_t ot = ((size_t)n * a.Tn + t) * H + j;
+        a.hs[ot] = from_f<T>(a.h[o]);
+        if (a.cs) a.cs[ot] = from_f<T>(a.c[o]);
       }
     }
+    __syncthreads();   // ms is the block's next tile's
     return;
   }
 
-  // A = [x_t; h] with h rounded to T before its product, as the TPU kernel does
-  auto load_a = [&](int r, int k) {
-    const int n = n0 + r;
-    return k < E ? to_f(x[((size_t)n * Tn + t) * E + k])
-                 : to_f(from_f<T>(h_in[(size_t)n * H + (k - E)]));
-  };
-  float acc[TM][TN];
-  vd::gate_tile_product<T, BN, BJ, TX, TY, TM, TN, BK>(acc, As, Bs, ms, load_a,
-                                                        w, E + H, H, j0);
+  const int nkx = a.Kx / BK;
+  const int nkt = nkx + (H + BK - 1) / BK;
+  const Operand<T> xo{a.x + (size_t)t * a.Ep, (long long)a.Tn * a.Ep, a.N, a.Ep};
+  const Operand<T> ho = t == 0 ? Operand<T>{a.h0, H, a.N, H}
+                               : Operand<T>{a.hs + (size_t)(t - 1) * H,
+                                            (long long)a.Tn * H, a.N, H};
+  const Operand<T> wo{a.w, a.KW, 4 * H, a.KW};
+  float acc[BN / 2];
+  vd::tile_product<T, BM, BN, STAGES>(acc, smem, xo, nkx, ho, wo, nkt, m0, nt * BN);
+  float* cbuf = reinterpret_cast<float*>(smem);
+  vd::stage_acc<BN, L::LDC>(acc, cbuf);
+  __syncthreads();
 
-  // Column tx + q*TX of the tile is gate (q / Q), unit j0 + tx + (q % Q)*TX.
+  // Column 4u + g of the tile is gate g of unit j0 + u.  A thread keeps one
+  // unit in every pass (NT is a multiple of BJ), so its biases load once,
+  // and it loads the carries of BATCH passes before it updates them.
+  constexpr int IT = BM * BJ / NT, BATCH = IT < 8 ? IT : 8;
+  static_assert(NT % BJ == 0 && IT % BATCH == 0, "epilogue passes");
+  const int u = threadIdx.x % BJ, j = j0 + u;
+  if (j < H) {
+    const float bi = a.b[j], bf = a.b[H + j], bg = a.b[2 * H + j], bo = a.b[3 * H + j];
+    for (int i0 = 0; i0 < IT; i0 += BATCH) {
+      float hv[BATCH], cv[BATCH];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty + i * TY, n = n0 + r;
-    if (n >= N) continue;
-    const float m = ms[r];
-#pragma unroll
-    for (int u = 0; u < Q; ++u) {
-      const int j = j0 + tx + u * TX;
-      if (j >= H) continue;
-      const size_t o = (size_t)n * H + j;
-      const size_t ot = ((size_t)n * Tn + t) * H + j;
-      float h = h_in[o], c = c_in[o];
-      if (m != 0.f) {
-        const float gi = sigmoidf_(acc[i][0 * Q + u] + b[j]);
-        const float gf = sigmoidf_(acc[i][1 * Q + u] + b[H + j]);
-        const float gg = tanhf(acc[i][2 * Q + u] + b[2 * H + j]);
-        const float go = sigmoidf_(acc[i][3 * Q + u] + b[3 * H + j]);
-        const float c_new = gf * c + gi * gg;
-        const float h_new = go * tanhf(c_new);
-        h = m * h_new + (1.f - m) * h;
-        c = m * c_new + (1.f - m) * c;
+      for (int q = 0; q < BATCH; ++q) {
+        const int n = m0 + (threadIdx.x + (i0 + q) * NT) / BJ;
+        if (n < a.N) {
+          hv[q] = a.h[(size_t)n * H + j];
+          cv[q] = a.c[(size_t)n * H + j];
+        }
       }
-      h_out[o] = h;
-      c_out[o] = c;
-      hs[ot] = from_f<T>(h);
-      if (cs) cs[ot] = from_f<T>(c);
+#pragma unroll
+      for (int q = 0; q < BATCH; ++q) {
+        const int r = (threadIdx.x + (i0 + q) * NT) / BJ, n = m0 + r;
+        if (n >= a.N) continue;
+        const size_t o = (size_t)n * H + j;
+        const size_t ot = ((size_t)n * a.Tn + t) * H + j;
+        float h = hv[q], c = cv[q];
+        const float m = ms[r];
+        if (m != 0.f) {
+          const float4 g = *reinterpret_cast<const float4*>(cbuf + r * L::LDC + 4 * u);
+          const float gi = sigmoidf_(g.x + bi);
+          const float gf = sigmoidf_(g.y + bf);
+          const float gg = tanhf(g.z + bg);
+          const float go = sigmoidf_(g.w + bo);
+          const float c_new = gf * c + gi * gg;
+          const float h_new = go * tanhf(c_new);
+          h = m * h_new + (1.f - m) * h;
+          c = m * c_new + (1.f - m) * c;
+          a.h[o] = h;
+          a.c[o] = c;
+        }
+        a.hs[ot] = from_f<T>(h);
+        if (a.cs) a.cs[ot] = from_f<T>(c);
+      }
     }
+  }
+  __syncthreads();   // shared memory and ms are the block's next tile's
+}
+
+template <typename T, int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(BM * 2)
+lstm_fwd_step_kernel(const FwdArgs<T> a, int t) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float ms[BM];
+  fwd_tile<T, BM, BN, STAGES>(a, t, blockIdx.y, blockIdx.x, vd::align1024(smem_raw), ms);
+}
+
+// All Tn steps in one cooperative launch: the blocks stride over the tiles
+// of a step, then meet at a grid-wide barrier before the next step.
+template <typename T, int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(BM * 2)
+lstm_fwd_persistent_kernel(const FwdArgs<T> a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float ms[BM];
+  unsigned char* smem = vd::align1024(smem_raw);
+  const int ntn = (4 * a.H + BN - 1) / BN;
+  const int tiles = ntn * ((a.N + BM - 1) / BM);
+  cg::grid_group grid = cg::this_grid();
+  for (int t = 0; t < a.Tn; ++t) {
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+      fwd_tile<T, BM, BN, STAGES>(a, t, tile / ntn, tile % ntn, smem, ms);
+    grid.sync();
   }
 }
 
-// Rows at or below this count take the narrow tile (more blocks at serving
-// shapes); above it the wide tile reuses each loaded operand 4-8 times.  At
-// the 320-row question and fact LSTMs of training the wide tile is already
-// the faster one (about 2x on an H100; the backward's phase (a) is not, so
-// lstm_bwd.cu keeps a higher threshold).
-constexpr int kSmallRows = 128;
-
-template <typename T>
-int layer_fwd(const void* x, const float* mask, const void* w, const float* b,
-              const float* h0, const float* c0, float* hbuf, float* cbuf,
-              void* hs, void* cs, int N, int Tn, int E, int H,
-              cudaStream_t stream) {
-  const size_t NH = (size_t)N * H;
-  for (int t = 0; t < Tn; ++t) {
-    const float* h_in = t == 0 ? h0 : hbuf + ((t - 1) & 1) * NH;
-    const float* c_in = t == 0 ? c0 : cbuf + ((t - 1) & 1) * NH;
-    float* h_out = hbuf + (t & 1) * NH;
-    float* c_out = cbuf + (t & 1) * NH;
-    if (N <= kSmallRows) {
-      constexpr int BN = 16, BJ = 8;
-      dim3 grid((H + BJ - 1) / BJ, (N + BN - 1) / BN);
-      lstm_step_kernel<T, BN, BJ, 8, 16, 1, 4, 64, 1><<<grid, 128, 0, stream>>>(
-          (const T*)x, mask, (const T*)w, b, h_in, c_in, h_out, c_out, (T*)hs,
-          (T*)cs, N, Tn, E, H, t);
-    } else {
-      constexpr int BN = 64, BJ = 32;
-      dim3 grid((H + BJ - 1) / BJ, (N + BN - 1) / BN);
-      lstm_step_kernel<T, BN, BJ, 16, 16, 4, 8, 16, 1><<<grid, 256, 0, stream>>>(
-          (const T*)x, mask, (const T*)w, b, h_in, c_in, h_out, c_out, (T*)hs,
-          (T*)cs, N, Tn, E, H, t);
+template <typename T, int BM, int BN, int STAGES>
+int fwd_launch(const FwdArgs<T>& a, int persist_rows, cudaStream_t stream) {
+  using L = vd::TileSmem<T, BM, BN, STAGES>;
+  constexpr int NT = BM * 2;
+  const auto step = lstm_fwd_step_kernel<T, BM, BN, STAGES>;
+  const auto persistent = lstm_fwd_persistent_kernel<T, BM, BN, STAGES>;
+  static const cudaError_t attr = [&] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        step, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    return e != cudaSuccess ? e : cudaFuncSetAttribute(
+        persistent, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  const int ntn = (4 * a.H + BN - 1) / BN, ntm = (a.N + BM - 1) / BM;
+  if (a.N <= persist_rows) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, persistent, NT, L::BYTES);
+    if (per_sm > 0) {
+      const int grid = ntn * ntm < per_sm * sms ? ntn * ntm : per_sm * sms;
+      void* args[] = {const_cast<FwdArgs<T>*>(&a)};
+      const cudaError_t err = cudaLaunchCooperativeKernel(
+          (const void*)persistent, dim3(grid), dim3(NT), args, L::BYTES, stream);
+      return (int)(err != cudaSuccess ? err : cudaGetLastError());
     }
+  }
+  for (int t = 0; t < a.Tn; ++t) {
+    step<<<dim3(ntn, ntm), NT, L::BYTES, stream>>>(a, t);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }
 
+// Rows at or below this count take the 64 x 64 tile (and the persistent
+// launch when it fits); above it the 128 x 128 tile.
+constexpr int kSmallRows = 512;
+
+template <typename T>
+int layer_fwd(const FwdArgs<T>& a, int persist_rows, cudaStream_t stream) {
+  constexpr int BK = vd::TileK<T>::BK;
+  if (a.Kx % BK != 0 || a.KW != a.Kx + (a.H + BK - 1) / BK * BK || a.Ep % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  if (a.N <= kSmallRows) return fwd_launch<T, 64, 64, F32 ? 3 : 4>(a, persist_rows, stream);
+  return fwd_launch<T, 256, 128, F32 ? 3 : 4>(a, persist_rows, stream);
+}
+
 }  // namespace
 
 // One masked LSTM layer, all Tn steps.  dtype 0 = float32, 1 = bfloat16 for
-// x, w, hs and cs.  hbuf/cbuf are (2, N, H) f32 scratch; the final state lands
-// in slot (Tn - 1) & 1.  cs (N, Tn, H), the post-mask cell state of every
-// step (the training forward's residual), may be null: serving writes none.
-// Returns a cudaError_t value (0 on success).
+// x, w, h0c, hs and cs.  x (N, Tn, Ep) with E zero-padded to Ep (a multiple
+// of 8); w (4H, KW) packed as ops/lstm_cuda.py::pack_weights packs it (f32:
+// (2, 4H, KW), hi and lo); b (4H,) f32; h0c (N, H) h0 in the compute type;
+// h, c (N, H) f32 hold (h0, c0) on entry and (hT, cT) on return.  cs (N, Tn,
+// H), the post-mask cell state of every step (the training forward's
+// residual), may be null.  Layers of at most persist_rows rows run in one
+// cooperative launch when the grid fits on the card.  Returns a cudaError_t
+// value (0 on success).
 extern "C" int vd_lstm_layer_fwd(int dtype, const void* x, const float* mask,
-                                 const void* w, const float* b, const float* h0,
-                                 const float* c0, float* hbuf, float* cbuf,
-                                 void* hs, void* cs, int N, int Tn, int E, int H,
-                                 void* stream) {
+                                 const void* w, const float* b, const void* h0c,
+                                 float* h, float* c, void* hs, void* cs, int N,
+                                 int Tn, int Ep, int Kx, int KW, int H,
+                                 int persist_rows, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return layer_fwd<float>(x, mask, w, b, h0, c0, hbuf, cbuf, hs, cs, N, Tn, E,
-                            H, s);
-  if (dtype == 1)
-    return layer_fwd<__nv_bfloat16>(x, mask, w, b, h0, c0, hbuf, cbuf, hs, cs, N,
-                                    Tn, E, H, s);
+    return layer_fwd<float>({(const float*)x, mask, (const float*)w, b,
+                             (const float*)h0c, h, c, (float*)hs, (float*)cs, N,
+                             Tn, Ep, Kx, KW, H},
+                            persist_rows, s);
+  if (dtype == 1) {
+    using B16 = __nv_bfloat16;
+    return layer_fwd<B16>({(const B16*)x, mask, (const B16*)w, b, (const B16*)h0c,
+                           h, c, (B16*)hs, (B16*)cs, N, Tn, Ep, Kx, KW, H},
+                          persist_rows, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -21,6 +21,46 @@ import torch
 from . import _build
 from .lstm import lstm_layer_bwd_plain, lstm_layer_plain
 
+# Layers of at most this many rows run all their steps in one cooperative
+# launch when the card holds the whole grid (0: one launch a step).
+PERSIST_ROWS = 512
+
+
+def k_tile(dtype: torch.dtype) -> int:
+    """Depth of the kernels' k-tiles: 128 bytes of the compute dtype."""
+    return 128 // torch.empty((), dtype=dtype).element_size()
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pad_input(x: torch.Tensor) -> torch.Tensor:
+    """x (N, T, E) with E zero-padded to a multiple of 8, so that rows start
+    16 bytes apart (what the kernels' 16-byte copies take)."""
+    E = x.shape[-1]
+    pad = _round_up(E, 8) - E
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+def pack_weights(w: torch.Tensor, E: int, dtype: torch.dtype):
+    """The kernels' B operands from W (E+H, 4H), in `dtype`, K-major:
+      wk (4H, KW): row 4j + g is gate column g*H + j of W (gate-interleaved,
+        so a tile of 4u columns holds all four gates of u units); columns
+        [0, E) hold W's x rows, zero-padded to Kx = E rounded up to a k-tile,
+        then W's h rows from Kx, zero-padded to KW = Kx + H rounded up;
+      wh (H, 4H): W[E:], K2's dh product operand, as stored.
+    Returns (wk, wh, Kx, KW)."""
+    H = w.shape[1] // 4
+    bk = k_tile(dtype)
+    kx, kh = _round_up(E, bk), _round_up(H, bk)
+    w = w.to(dtype)
+    wt = w.T.reshape(4, H, E + H).transpose(0, 1).reshape(4 * H, E + H)
+    wk = w.new_zeros(4 * H, kx + kh)
+    wk[:, :E] = wt[:, :E]
+    wk[:, kx:kx + H] = wt[:, E:]
+    return wk, w[E:].contiguous(), kx, kx + kh
+
 
 def _check_layer(what: str, w, b, x, mask, h0, c0) -> tuple[int, int, int, int]:
     """Validate what K1 and K2 take; returns (N, T, E, H)."""
@@ -62,27 +102,26 @@ def lstm_layer(w, b, x, mask, h0, c0, *, save_cell: bool = False):
     if x.device.type == "cpu":
         return lstm_layer_plain(w, b, x, mask, h0, c0, save_cell=save_cell)
     N, T, E, H = _check_layer("lstm_layer", w, b, x, mask, h0, c0)
-    w = w.to(x.dtype).contiguous()
+    wk, _, kx, kw = pack_weights(w, E, x.dtype)
+    xp = pad_input(x)
     b = b.float().contiguous()
     mask = mask.float().contiguous()
     hs = torch.empty((N, T, H), dtype=x.dtype, device=x.device)
     cs = torch.empty_like(hs) if save_cell else None
-    hbuf = torch.empty((2, N, H), dtype=torch.float32, device=x.device)
-    cbuf = torch.empty_like(hbuf)
+    h0c = h0.to(x.dtype).contiguous()
+    h, c = h0.clone(), c0.clone()      # the carries: (h0, c0) in, (hT, cT) out
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.vd_lstm_layer_fwd(
-            _build.DTYPE_CODE[x.dtype], x.data_ptr(), mask.data_ptr(),
-            w.data_ptr(), b.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-            hbuf.data_ptr(), cbuf.data_ptr(), hs.data_ptr(),
-            cs.data_ptr() if save_cell else None, N, T, E, H,
-            _build.stream_of(x))
+            _build.DTYPE_CODE[x.dtype], xp.data_ptr(), mask.data_ptr(),
+            wk.data_ptr(), b.data_ptr(), h0c.data_ptr(), h.data_ptr(),
+            c.data_ptr(), hs.data_ptr(), cs.data_ptr() if save_cell else None,
+            N, T, xp.shape[-1], kx, kw, H, PERSIST_ROWS, _build.stream_of(x))
     _build.check(err, "lstm_layer")
     lstm_layer.launches += 1
-    last = (T - 1) % 2
     if save_cell:
-        return hs, cs, hbuf[last], cbuf[last]
-    return hs, hbuf[last], cbuf[last]
+        return hs, cs, h, c
+    return hs, h, c
 
 
 lstm_layer.launches = 0
@@ -108,17 +147,19 @@ def lstm_layer_bwd(w, b, x, mask, h_prev, c_prev, g_hs, g_ht, g_ct):
             raise ValueError(f"lstm_layer_bwd: {name} must be a contiguous "
                              f"{x.dtype} {(N, T, H)} on {x.device}, got "
                              f"{s.dtype} {tuple(s.shape)} on {s.device}")
-    w = w.to(x.dtype).contiguous()
+    wk, wh, kx, kw = pack_weights(w, E, x.dtype)
+    xp = pad_input(x)
     b = b.float().contiguous()
     mask = mask.float().contiguous()
     dgp = torch.empty((N, T, 4 * H), dtype=x.dtype, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.vd_lstm_layer_bwd(
-            _build.DTYPE_CODE[x.dtype], x.data_ptr(), h_prev.data_ptr(),
-            c_prev.data_ptr(), mask.data_ptr(), w.data_ptr(), b.data_ptr(),
-            g_hs.data_ptr(), dh.data_ptr(), dc.data_ptr(), dgp.data_ptr(),
-            N, T, E, H, _build.stream_of(x))
+            _build.DTYPE_CODE[x.dtype], xp.data_ptr(), h_prev.data_ptr(),
+            c_prev.data_ptr(), mask.data_ptr(), wk.data_ptr(), wh.data_ptr(),
+            b.data_ptr(), g_hs.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+            dgp.data_ptr(), N, T, xp.shape[-1], kx, kw, H, PERSIST_ROWS,
+            _build.stream_of(x))
     _build.check(err, "lstm_layer_bwd")
     lstm_layer_bwd.launches += 1
     return dgp, dh, dc
