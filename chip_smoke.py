@@ -235,19 +235,6 @@ def tf32_control(fn, args, want, err_fn, limit: float, kernel: str,
     return err
 
 
-def per_step_launches(fn):
-    """fn() with the LSTM wrappers held to one launch a step (no persistent
-    launch), for timing and checking that path beside the persistent one."""
-    from visdial_tpu_torch.ops import lstm_cuda
-
-    saved = lstm_cuda.PERSIST_ROWS
-    lstm_cuda.PERSIST_ROWS = 0
-    try:
-        return fn()
-    finally:
-        lstm_cuda.PERSIST_ROWS = saved
-
-
 def _demangle(names: list[str]) -> dict:
     tool = shutil.which("c++filt")
     if not tool or not names:
@@ -326,7 +313,6 @@ def lstm_kernel_report() -> list[dict]:
 
 
 def lstm_checks(dev, gen) -> list[dict]:
-    from visdial_tpu_torch.ops import lstm_cuda
     from visdial_tpu_torch.ops.lstm import lstm_layer_plain
     from visdial_tpu_torch.ops.lstm_cuda import lstm_layer
 
@@ -347,7 +333,7 @@ def lstm_checks(dev, gen) -> list[dict]:
                   f"max abs err {err} > {TOL[name]}")
             # the training forward: cs (and the rest) against the plain one
             got_cs = lstm_layer(*args, save_cell=True)
-            want_cs = want_full = lstm_layer_plain(*args, save_cell=True)
+            want_cs = lstm_layer_plain(*args, save_cell=True)
             torch.cuda.synchronize()
             cs_err = abs_err(got_cs, want_cs)
             check(cs_err <= TOL[name], f"lstm_layer save_cell {(N, T, E, H)} "
@@ -362,21 +348,10 @@ def lstm_checks(dev, gen) -> list[dict]:
                    "cs_plain_ms": time_ms(
                        lambda: lstm_layer_plain(*args, save_cell=True)),
                    **lstm_bound(mask, N, T, E, H, name)}
-            if N <= lstm_cuda.PERSIST_ROWS:
-                # the persistent launch above; one launch a step here
-                step_err = abs_err(per_step_launches(
-                    lambda: lstm_layer(*args, save_cell=True)), want_full)
-                check(step_err <= TOL[name], f"lstm_layer per-step launches "
-                      f"{(N, T, E, H)} {name}: max abs err {step_err}")
-                row.update({"per_step_max_abs_err": step_err,
-                            "per_step_ms": time_ms(lambda: per_step_launches(
-                                lambda: lstm_layer(*args))),
-                            "persistent_ms": time_ms(lambda: lstm_layer(*args))})
             if (N, T, E, H) == LSTM_HEAD and dt == torch.float32:
                 row["tf32_control_err"] = tf32_control(
                     lstm_layer_plain, args, want, abs_err, TOL[name],
                     "lstm_layer", (N, T, E, H))
-            del want_full
             emit(row)
             rows.append(row)
     return rows
@@ -422,7 +397,6 @@ def attention_checks(dev, gen) -> list[dict]:
 def lstm_bwd_checks(dev, gen) -> list[dict]:
     """K2 through LSTMLayerFn against autograd through the plain forward,
     and K2 alone against its plain version on the same residuals."""
-    from visdial_tpu_torch.ops import lstm_cuda
     from visdial_tpu_torch.ops.lstm import lstm_layer_bwd_plain, lstm_layer_plain
     from visdial_tpu_torch.ops.lstm_cuda import (LSTMLayerFn, lstm_layer,
                                                  lstm_layer_bwd)
@@ -465,17 +439,6 @@ def lstm_bwd_checks(dev, gen) -> list[dict]:
             check(k2_err <= GRAD_TOL[name], f"K2 {(N, T, E, H)} {name}: "
                   f"rel err {k2_err} > {GRAD_TOL[name]}")
             extra = {}
-            if N <= lstm_cuda.PERSIST_ROWS:
-                # the persistent launch above; one launch a phase here
-                step_err = rel_err(per_step_launches(
-                    lambda: lstm_layer_bwd(*args)), k2_plain)
-                check(step_err <= GRAD_TOL[name], f"K2 per-step launches "
-                      f"{(N, T, E, H)} {name}: rel err {step_err}")
-                extra = {"per_step_max_rel_err": step_err,
-                         "per_step_ms": time_ms(lambda: per_step_launches(
-                             lambda: lstm_layer_bwd(*args)), reps=5),
-                         "persistent_ms": time_ms(lambda: lstm_layer_bwd(*args),
-                                                  reps=5)}
             if (N, T, E, H) == LSTM_HEAD and dt == torch.float32:
                 extra["tf32_control_err"] = tf32_control(
                     lstm_layer_bwd_plain, args, k2_plain, rel_err,

@@ -3,6 +3,12 @@
 // of the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
 #pragma once
 
+// VD_DROP (scripts/lstm_breakdown.py): 1 drops the wgmma, 2 the copies after
+// the first stages, 4 the LSTM epilogue.
+#ifndef VD_DROP
+#define VD_DROP 0
+#endif
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,10 +72,11 @@ __device__ __forceinline__ bool load_tile_mask(float* ms, const float* __restric
 // STAGES - 1 loads in flight while the tensor cores work on the oldest.
 //
 // bf16: wgmma m64nBNk16, bf16 x bf16 -> f32, the TPU kernel's numerics.
-// f32: 3xTF32.  Each operand is split into a TF32 high part and the TF32
-// remainder, and acc += a_hi b_hi + a_hi b_lo + a_lo b_hi (wgmma m64nBNk8
-// tf32), which keeps the products at f32 accuracy (single-pass TF32 would
-// move results by ~1e-3).  Both operands arrive in f32 and are split in
+// f32: 3xTF32.  Each operand is split into a TF32 high part and the
+// remainder rounded to TF32 (each off by at most 2^-22 of the value), and
+// acc += a_lo b_hi + a_hi b_lo + a_hi b_hi (wgmma m64nBNk8 tf32), which keeps
+// the products near f32 accuracy (single-pass TF32 would move results by
+// ~1e-3).  Both operands arrive in f32 and are split in
 // shared memory after they land (hi in place, lo into one buffer each), so
 // L2 carries 4 bytes a value, not 8.
 //
@@ -140,7 +147,9 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t s) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-__device__ __forceinline__ float tf32_hi(float v) {
+// v rounded to the nearest TF32 value (10 mantissa bits; wgmma would
+// truncate the low 13 bits of an f32 operand)
+__device__ __forceinline__ float tf32_round(float v) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
   return __uint_as_float(r);
@@ -159,48 +168,53 @@ __device__ __forceinline__ float tf32_hi(float v) {
   "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "  \
   "%62, %63}"
 
-// d (64 x N f32, N / 2 values a thread) += A . B^T for one k-step.
+// d (64 x N f32, N / 2 values a thread) = A . B^T + (acc ? d : 0) for one
+// k-step.
 template <typename T, int N> struct Wgmma;
 template <> struct Wgmma<__nv_bfloat16, 64> {
-  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b) {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b,
+                                             bool acc = true) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VD_R32
         ", %32, %33, p, 1, 1, 0, 0;\n}\n"
         : VD_D8(0), VD_D8(8), VD_D8(16), VD_D8(24)
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"((int)acc));
   }
 };
 template <> struct Wgmma<__nv_bfloat16, 128> {
-  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b) {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b,
+                                             bool acc = true) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VD_R64
         ", %64, %65, p, 1, 1, 0, 0;\n}\n"
         : VD_D8(0), VD_D8(8), VD_D8(16), VD_D8(24), VD_D8(32), VD_D8(40),
           VD_D8(48), VD_D8(56)
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"((int)acc));
   }
 };
 template <> struct Wgmma<float, 64> {
-  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b) {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b,
+                                             bool acc = true) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " VD_R32
         ", %32, %33, p, 1, 1;\n}\n"
         : VD_D8(0), VD_D8(8), VD_D8(16), VD_D8(24)
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"((int)acc));
   }
 };
 template <> struct Wgmma<float, 128> {
-  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b) {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b,
+                                             bool acc = true) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " VD_R64
         ", %64, %65, p, 1, 1;\n}\n"
         : VD_D8(0), VD_D8(8), VD_D8(16), VD_D8(24), VD_D8(32), VD_D8(40),
           VD_D8(48), VD_D8(56)
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"((int)acc));
   }
 };
 #undef VD_D8
@@ -269,7 +283,7 @@ template <typename T, int NT> struct Loader {
 
 // Shared memory of a tile product with BM rows, BN columns and STAGES
 // stages: per stage A (BM x 128 bytes) then B (BN x 128 bytes), then, for
-// f32, one buffer of the same size for the lo parts; the epilogue reuses it
+// f32, two buffers of the same size for the lo parts; the epilogue reuses it
 // for the BM x (BN + 8) f32 result (stage_acc).  +1024 for aligning the
 // base.
 template <typename T, int BM, int BN, int STAGES> struct TileSmem {
@@ -277,7 +291,7 @@ template <typename T, int BM, int BN, int STAGES> struct TileSmem {
   static constexpr int A_BYTES = BM * 128;
   static constexpr int B_BYTES = BN * 128;
   static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int RING = (STAGES + (F32 ? 1 : 0)) * STAGE;
+  static constexpr int RING = (STAGES + (F32 ? 2 : 0)) * STAGE;
   static constexpr int LDC = BN + 8;
   static constexpr int C_BYTES = BM * LDC * 4;
   static constexpr int BYTES = (RING > C_BYTES ? RING : C_BYTES) + 1024;
@@ -287,6 +301,23 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
+// Splits the 16 bytes of f32 at shared s into their TF32 high parts (in
+// place) and remainders (at shared lo).
+__device__ __forceinline__ void split16(uint32_t s, uint32_t lo) {
+  uint4 v = ld_shared16(s);
+  float* f = reinterpret_cast<float*>(&v);
+  float r[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float hi = tf32_round(f[e]);
+    r[e] = tf32_round(f[e] - hi);
+    f[e] = hi;
+  }
+  st_shared16(s, v);
+  st_shared16(lo, make_uint4(__float_as_uint(r[0]), __float_as_uint(r[1]),
+                             __float_as_uint(r[2]), __float_as_uint(r[3])));
+}
+
 // acc (BN / 2 values a thread, wgmma's accumulator layout) = the product of
 // rows [m0, m0 + BM) of A and rows [n0, n0 + BN) of b over nkt k-tiles, A
 // being a0 for k-tiles [0, nk0) and a1 after (K1's [x_t; h]: each part
@@ -294,12 +325,14 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 // block (BM * 2 of them) must call it; it ends with a barrier, and the
 // caller may then reuse smem.
 //
-// Schedule of k-tile kt: wait for the thread's own copies of kt; barrier;
-// f32: split kt's chunks, barrier; issue kt's wgmma; while it runs, start
-// the copy of k-tile kt + STAGES - 1 into the stage that k-tile kt - 1 used
-// (every warpgroup waited for its wgmma before the barrier); wait for the
-// wgmma.  (Keeping one wgmma in flight across the barrier as well measured
-// no faster on an H100, and f32 would need three lo buffers.)
+// Schedule of k-tile kt, one block barrier each: wait for the thread's own
+// copies of k-tile kt + 1; issue kt's wgmma; while it runs, (f32) split
+// those copies into the lo buffer k-tile kt - 1 used and start the copy of
+// k-tile kt + STAGES - 1 into the stage k-tile kt - 1 used; wait for the
+// wgmma; proxy fence; barrier.  Every warpgroup's wgmma of kt - 1 ended
+// before the barrier that closed it, so that stage and lo buffer are free.
+// (ptxas crashes on a fence.proxy.async between a wgmma's commit and its
+// wait, so the fence comes after the wait.)
 template <typename T, int BM, int BN, int STAGES>
 __device__ __forceinline__ void tile_product(float (&acc)[BN / 2], unsigned char* smem,
                                              const Operand<T>& a0, int nk0,
@@ -308,20 +341,34 @@ __device__ __forceinline__ void tile_product(float (&acc)[BN / 2], unsigned char
   using L = TileSmem<T, BM, BN, STAGES>;
   constexpr int NT = BM * 2;
   constexpr int BK = TileK<T>::BK, KS = TileK<T>::KS;
-  static_assert(STAGES >= 2, "a k-tile in flight beside the one in use");
-  static_assert((BM * 8) % NT == 0, "A's and B's chunks of a thread line up");
+  static_assert(STAGES >= 3, "k-tile kt + 1 lands while kt's wgmma runs");
   const uint32_t base = smem_u32(smem);
   const int wg = threadIdx.x / 128;
+  // f32: the tensor cores' f32 sums round toward zero, which biases a long
+  // chain of them; so each k-tile sums into part, and acc adds the k-tiles
+  // with round-to-nearest
+  float part[L::F32 ? BN / 2 : 1];
 
   const Loader<T, NT> la0(a0, m0), la1(a1, m0), lb(b, n0);
-  const uint32_t own = base + Loader<T, NT>::offset();
+  const uint32_t own = Loader<T, NT>::offset();
+  auto stage = [&](int kt) { return base + (kt % STAGES) * L::STAGE; };
+  auto lo_buf = [&](int kt) { return base + (STAGES + (kt & 1)) * L::STAGE; };
   auto load_stage = [&](int kt) {
-    const uint32_t s = own + (kt % STAGES) * L::STAGE;
+    const uint32_t s = stage(kt) + own;
     if (kt < nk0)
       la0.template load<BM>(s, kt * BK);
     else
       la1.template load<BM>(s, (kt - nk0) * BK);
     lb.template load<BN>(s + L::A_BYTES, kt * BK);
+  };
+  // the chunks this thread copied (Loader's map), split after they land
+  auto split_stage = [&](int kt) {
+    const uint32_t s = stage(kt) + own, lo = lo_buf(kt) + own;
+#pragma unroll
+    for (int i = 0; i < BM * 8 / NT; ++i) split16(s + i * NT * 16, lo + i * NT * 16);
+#pragma unroll
+    for (int i = 0; i < BN * 8 / NT; ++i)
+      split16(s + L::A_BYTES + i * NT * 16, lo + L::A_BYTES + i * NT * 16);
   };
 
 #pragma unroll
@@ -331,52 +378,42 @@ __device__ __forceinline__ void tile_product(float (&acc)[BN / 2], unsigned char
     if (kt < nkt) load_stage(kt);
     cp_async_commit();
   }
+  cp_async_wait<STAGES - 2>();
+  if constexpr (L::F32)
+    if (nkt > 0) split_stage(0);
+  fence_proxy_async();
+  __syncthreads();
   for (int kt = 0; kt < nkt; ++kt) {
-    const uint32_t s = base + (kt % STAGES) * L::STAGE;
-    const uint32_t lo = base + STAGES * L::STAGE;   // f32 only
-    cp_async_wait<STAGES - 2>();
-    fence_proxy_async();
-    __syncthreads();
-    if constexpr (L::F32) {
-      // split the stage into the TF32 high parts (in place) and remainders
-      // (the lo buffer, at the same offsets), 16 bytes at a time
-      for (int c = threadIdx.x; c < (BM + BN) * 8; c += NT) {
-        uint4 v = ld_shared16(s + c * 16);
-        float* f = reinterpret_cast<float*>(&v);
-        float r[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float hi = tf32_hi(f[e]);
-          r[e] = f[e] - hi;
-          f[e] = hi;
-        }
-        st_shared16(s + c * 16, v);
-        st_shared16(lo + c * 16, make_uint4(__float_as_uint(r[0]), __float_as_uint(r[1]),
-                                            __float_as_uint(r[2]), __float_as_uint(r[3])));
-      }
-      fence_proxy_async();
-      __syncthreads();
-    }
-    const uint32_t sa = s + wg * 64 * 128;
-    const uint32_t sb = s + L::A_BYTES;
+    const uint32_t sa = stage(kt) + wg * 64 * 128, sb = stage(kt) + L::A_BYTES;
+    const uint32_t lo = lo_buf(kt);
+    cp_async_wait<STAGES - 3>();   // this thread's copies of k-tile kt + 1
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < BK / KS; ++j) {
+    for (int j = 0; j < ((VD_DROP & 1) ? 0 : BK / KS); ++j) {
       const uint32_t kofs = j * KS * sizeof(T);   // 32 bytes a k-step
       const uint64_t da = smem_desc(sa + kofs), db = smem_desc(sb + kofs);
-      Wgmma<T, BN>::run(acc, da, db);
-      if constexpr (L::F32) {
-        Wgmma<T, BN>::run(acc, da, smem_desc(lo + L::A_BYTES + kofs));
-        Wgmma<T, BN>::run(acc, smem_desc(lo + wg * 64 * 128 + kofs), db);
+      if constexpr (L::F32) {   // the small terms first
+        Wgmma<T, BN>::run(part, smem_desc(lo + wg * 64 * 128 + kofs), db, j > 0);
+        Wgmma<T, BN>::run(part, da, smem_desc(lo + L::A_BYTES + kofs));
+        Wgmma<T, BN>::run(part, da, db);
+      } else {
+        Wgmma<T, BN>::run(acc, da, db);
       }
     }
     wgmma_commit();
-    if (kt + STAGES - 1 < nkt) load_stage(kt + STAGES - 1);
+    if constexpr (L::F32)
+      if (kt + 1 < nkt) split_stage(kt + 1);
+    if (!(VD_DROP & 2) && kt + STAGES - 1 < nkt) load_stage(kt + STAGES - 1);
     cp_async_commit();
     wgmma_wait<0>();
+    if constexpr (L::F32) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+    }
+    fence_proxy_async();
+    __syncthreads();
   }
   cp_async_wait<0>();
-  __syncthreads();
 }
 
 // Writes acc to c (BM x LDC f32 in shared memory): wgmma's accumulator

@@ -27,36 +27,38 @@
 // What the design does about it.  The TPU kernel keeps Wx and Wh in VMEM and
 // carries (dh, dc) in scratch across its sequential grid; Hopper has neither
 // the room nor an ordered grid.  Each step has two phases:
-//  (a) gates_tile: K1's tensor-core tile product over K = E + H
+//  (a) lstm_bwd_gates_kernel: K1's tensor-core tile product over K = E + H
 //      (common.cuh::tile_product, the packed gate-interleaved W that
 //      ops/lstm_cuda.py::pack_weights prepares), the accumulator through
 //      shared memory so one thread holds a unit's four gates, then the chain
 //      rule in f32; writes dgp[:, t], the new dc and the pass-through part
 //      (1 - m) Dh of the new dh.
-//  (b) dh_tile: dh += dgp[:, t] . Wh^T, the same tile product over K = 4H,
-//      with Wh = W[E:] (H x 4H) as the K-major B operand as it is stored.
-//      It contracts over all 4H gate columns, which every tile of (a)
-//      writes, so it needs all of (a) done.
-// Above kSmallRows rows each phase is a launch (the launch boundary is the
-// grid-wide barrier), all 2T issued from one host call (vd_lstm_layer_bwd).
-// Up to it, when the card holds the whole grid at once, one cooperative
-// launch runs all T steps with a grid-wide barrier after each phase.  The
-// carries live in two (N, H) f32 buffers updated in place: in each phase an
-// element of dh or dc is read and written only by the thread that owns it.
-// Left: as in lstm_fwd.cu, the k-loop's block barrier and W's re-reads from
-// L2; the dh epilogue's read-modify-write of the carry.
+//  (b) lstm_bwd_dh_kernel: dgp[:, t] . Wh^T, the same tile product over
+//      K = 4H, with Wh = W[E:] (H x 4H) as the K-major B operand as it is
+//      stored.  It contracts over all 4H gate columns, which every tile of
+//      (a) writes, so it needs all of (a) done: the launch boundary is the
+//      grid-wide barrier.  K is cut into S slices, one block each (S = 8 up
+//      to 512 rows, where 40 tiles would leave most SMs idle through a
+//      64-k-tile loop; 1 above), and each writes its partial product to its
+//      own (N, H) f32 buffer dhp[s]; phase (a) of the next step adds the S
+//      buffers to dh in order, and the wrapper adds the last step's.  So the
+//      sum is the same from run to run, and no block reads what another
+//      writes within a launch.
+// Each phase is a launch, all 2T issued from one host call
+// (vd_lstm_layer_bwd).  The carries dh and dc are (N, H) f32 buffers
+// updated in place by phase (a): an element is read and written only by the
+// thread that owns it.  (One cooperative launch for all T steps, with a
+// grid-wide barrier after each phase, measured no faster at 320 rows on an
+// H100.)  Left: as in lstm_fwd.cu, the k-loop's block barrier and W's
+// re-reads from L2.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <initializer_list>
 
 #include "common.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
 using vd::from_f;
 using vd::Operand;
 using vd::sigmoidf_;
@@ -73,14 +75,30 @@ template <typename T> struct BwdArgs {
   const T* ghs;        // (N, Tn, H)
   float* dh;           // (N, H) f32 carries, updated in place
   float* dc;
+  float* dhp;          // (S, N, H) f32: phase (b)'s partial dgp . Wh^T
   T* dgp;              // (N, Tn, 4H)
-  int N, Tn, Ep, Kx, KW, H;
+  int N, Tn, Ep, Kx, KW, H, S;
 };
 
-// Phase (a) of step t for the tile of BM rows (mt) x BN gate columns (nt).
+// dh[o] plus the S partial products of the previous step's phase (b), in
+// order
+template <typename T>
+__device__ __forceinline__ float carried_dh(const BwdArgs<T>& a, size_t o) {
+  const size_t NH = (size_t)a.N * a.H;
+  float v = a.dh[o];
+  for (int s = 0; s < a.S; ++s) v += a.dhp[s * NH + o];
+  return v;
+}
+
+// Phase (a) of step t for the tile of BM rows (blockIdx.y) x BN gate columns
+// (blockIdx.x).
 template <typename T, int BM, int BN, int STAGES>
-__device__ __forceinline__ void gates_tile(const BwdArgs<T>& a, int t, int mt, int nt,
-                                           unsigned char* smem, float* ms) {
+__global__ void __launch_bounds__(BM * 2)
+lstm_bwd_gates_kernel(const BwdArgs<T> a, int t) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float ms[BM];
+  unsigned char* smem = vd::align1024(smem_raw);
+  const int mt = blockIdx.y, nt = blockIdx.x;
   using L = vd::TileSmem<T, BM, BN, STAGES>;
   constexpr int NT = BM * 2, BJ = BN / 4, BK = vd::TileK<T>::BK;
   const int m0 = mt * BM, j0 = nt * BJ, H = a.H;
@@ -93,7 +111,8 @@ __device__ __forceinline__ void gates_tile(const BwdArgs<T>& a, int t, int mt, i
       const int n = m0 + idx / BJ, j = j0 + idx % BJ;
       if (n < a.N && j < H) {
         const size_t nt_ = (size_t)n * a.Tn + t;
-        a.dh[(size_t)n * H + j] += to_f(a.ghs[nt_ * H + j]);
+        const size_t o = (size_t)n * H + j;
+        a.dh[o] = carried_dh(a, o) + to_f(a.ghs[nt_ * H + j]);
         T* d = a.dgp + nt_ * G + j;
         d[0] = zero;
         d[H] = zero;
@@ -101,7 +120,6 @@ __device__ __forceinline__ void gates_tile(const BwdArgs<T>& a, int t, int mt, i
         d[3 * (size_t)H] = zero;
       }
     }
-    __syncthreads();   // ms is the block's next tile's
     return;
   }
 
@@ -129,13 +147,13 @@ __device__ __forceinline__ void gates_tile(const BwdArgs<T>& a, int t, int mt, i
       float dhv[BATCH], dcv[BATCH], ghv[BATCH], cpv[BATCH];
 #pragma unroll
       for (int q = 0; q < BATCH; ++q) {
-        const int n = m0 + (threadIdx.x + (i0 + q) * NT) / BJ;
-        if (n < a.N) {
+        const int r = (threadIdx.x + (i0 + q) * NT) / BJ, n = m0 + r;
+        if (n < a.N) {   // a row with m = 0 needs neither dc nor c_prev
           const size_t nt_ = (size_t)n * a.Tn + t, o = (size_t)n * H + j;
-          dhv[q] = a.dh[o];
-          dcv[q] = a.dc[o];
+          dhv[q] = carried_dh(a, o);
           ghv[q] = to_f(a.ghs[nt_ * H + j]);
-          cpv[q] = to_f(a.cprev[nt_ * H + j]);
+          dcv[q] = ms[r] != 0.f ? a.dc[o] : 0.f;
+          cpv[q] = ms[r] != 0.f ? to_f(a.cprev[nt_ * H + j]) : 0.f;
         }
       }
 #pragma unroll
@@ -173,146 +191,87 @@ __device__ __forceinline__ void gates_tile(const BwdArgs<T>& a, int t, int mt, i
       }
     }
   }
-  __syncthreads();   // shared memory and ms are the block's next tile's
 }
 
-// Phase (b) of step t for the tile of BM rows (mt) x BN hidden units (nt):
-// dh[n, j] += sum_k dgp[n, t, k] Wh[j, k], k < 4H.
+// Phase (b) of step t for the tile of BM rows (blockIdx.y) x BN hidden units
+// (blockIdx.x) and K slice s = blockIdx.z of ck k-tiles:
+// dhp[s][n, j] = sum_k dgp[n, t, k] Wh[j, k] over the slice's k.
 template <typename T, int BM, int BN, int STAGES>
-__device__ __forceinline__ void dh_tile(const BwdArgs<T>& a, int t, int mt, int nt,
-                                        unsigned char* smem, float* ms) {
+__global__ void __launch_bounds__(BM * 2)
+lstm_bwd_dh_kernel(const BwdArgs<T> a, int t, int ck) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float ms[BM];
+  unsigned char* smem = vd::align1024(smem_raw);
   using L = vd::TileSmem<T, BM, BN, STAGES>;
   constexpr int NT = BM * 2, BK = vd::TileK<T>::BK;
-  const int m0 = mt * BM, j0 = nt * BN, H = a.H, K = 4 * H;
+  const int m0 = blockIdx.y * BM, j0 = blockIdx.x * BN, H = a.H, K = 4 * H;
+  const int k0 = blockIdx.z * ck * BK;
+  float* dhp = a.dhp + (size_t)blockIdx.z * a.N * H;
 
-  // rows with m = 0 have dgp[:, t] = 0: nothing to add
-  if (!vd::load_tile_mask<BM>(ms, a.mask, m0, a.N, a.Tn, t)) {
-    __syncthreads();
-    return;
-  }
-  const Operand<T> ao{a.dgp + (size_t)t * K, (long long)a.Tn * K, a.N, K};
-  const Operand<T> bo{a.wh, K, H, K};
-  const int nkt = (K + BK - 1) / BK;
   float acc[BN / 2];
+  // rows with m = 0 have dgp[:, t] = 0: a tile without a real row, or a
+  // slice past K, adds zeros
+  const bool real = vd::load_tile_mask<BM>(ms, a.mask, m0, a.N, a.Tn, t);
+  const int nkt = real && k0 < K ? min(ck, (K - k0 + BK - 1) / BK) : 0;
+  const Operand<T> ao{a.dgp + (size_t)t * K + k0, (long long)a.Tn * K, a.N, K - k0};
+  const Operand<T> bo{a.wh + k0, K, H, K - k0};
   vd::tile_product<T, BM, BN, STAGES>(acc, smem, ao, nkt, ao, bo, nkt, m0, j0);
   float* cbuf = reinterpret_cast<float*>(smem);
   vd::stage_acc<BN, L::LDC>(acc, cbuf);
   __syncthreads();
-  // a thread keeps one unit in every pass (NT is a multiple of BN) and loads
-  // the carries of BATCH passes before it adds to them
-  constexpr int IT = BM * BN / NT, BATCH = 8;
-  static_assert(NT % BN == 0 && IT % BATCH == 0, "epilogue passes");
-  const int u = threadIdx.x % BN, j = j0 + u;
-  if (j < H) {
-    for (int i0 = 0; i0 < IT; i0 += BATCH) {
-      float v[BATCH];
-#pragma unroll
-      for (int q = 0; q < BATCH; ++q) {
-        const int n = m0 + (threadIdx.x + (i0 + q) * NT) / BN;
-        if (n < a.N) v[q] = a.dh[(size_t)n * H + j];
-      }
-#pragma unroll
-      for (int q = 0; q < BATCH; ++q) {
-        const int r = (threadIdx.x + (i0 + q) * NT) / BN, n = m0 + r;
-        if (n < a.N && ms[r] != 0.f)
-          a.dh[(size_t)n * H + j] = v[q] + cbuf[r * L::LDC + u];
-      }
+  static_assert(NT % BN == 0, "a thread keeps one unit in every pass");
+  const int j = j0 + threadIdx.x % BN;
+  if (j < H)
+    for (int idx = threadIdx.x; idx < BM * BN; idx += NT) {
+      const int r = idx / BN, n = m0 + r;
+      if (n < a.N) dhp[(size_t)n * H + j] = cbuf[r * L::LDC + idx % BN];
     }
-  }
-  __syncthreads();
 }
 
 template <typename T, int BM, int BN, int STAGES>
-__global__ void __launch_bounds__(BM * 2)
-lstm_bwd_gates_kernel(const BwdArgs<T> a, int t) {
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ float ms[BM];
-  gates_tile<T, BM, BN, STAGES>(a, t, blockIdx.y, blockIdx.x, vd::align1024(smem_raw), ms);
-}
-
-template <typename T, int BM, int BN, int STAGES>
-__global__ void __launch_bounds__(BM * 2)
-lstm_bwd_dh_kernel(const BwdArgs<T> a, int t) {
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ float ms[BM];
-  dh_tile<T, BM, BN, STAGES>(a, t, blockIdx.y, blockIdx.x, vd::align1024(smem_raw), ms);
-}
-
-// All Tn steps in reverse in one cooperative launch, a grid-wide barrier
-// after each phase.
-template <typename T, int BM, int BN, int STAGES>
-__global__ void __launch_bounds__(BM * 2)
-lstm_bwd_persistent_kernel(const BwdArgs<T> a) {
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ float ms[BM];
-  unsigned char* smem = vd::align1024(smem_raw);
-  const int ntm = (a.N + BM - 1) / BM;
-  const int nta = (4 * a.H + BN - 1) / BN, ntb = (a.H + BN - 1) / BN;
-  cg::grid_group grid = cg::this_grid();
-  for (int t = a.Tn - 1; t >= 0; --t) {
-    for (int tile = blockIdx.x; tile < nta * ntm; tile += gridDim.x)
-      gates_tile<T, BM, BN, STAGES>(a, t, tile / nta, tile % nta, smem, ms);
-    grid.sync();
-    for (int tile = blockIdx.x; tile < ntb * ntm; tile += gridDim.x)
-      dh_tile<T, BM, BN, STAGES>(a, t, tile / ntb, tile % ntb, smem, ms);
-    grid.sync();
-  }
-}
-
-template <typename T, int BM, int BN, int STAGES>
-int bwd_launch(const BwdArgs<T>& a, int persist_rows, cudaStream_t stream) {
+int bwd_launch(const BwdArgs<T>& a, cudaStream_t stream) {
   using L = vd::TileSmem<T, BM, BN, STAGES>;
-  constexpr int NT = BM * 2;
+  constexpr int BK = vd::TileK<T>::BK;
   const auto gates = lstm_bwd_gates_kernel<T, BM, BN, STAGES>;
   const auto dh = lstm_bwd_dh_kernel<T, BM, BN, STAGES>;
-  const auto persistent = lstm_bwd_persistent_kernel<T, BM, BN, STAGES>;
   static const cudaError_t attr = [&] {
-    cudaError_t e = cudaSuccess;
-    for (const void* k : {(const void*)gates, (const void*)dh, (const void*)persistent})
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 L::BYTES);
-    return e;
+    const cudaError_t e = cudaFuncSetAttribute(
+        gates, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    return e != cudaSuccess ? e : cudaFuncSetAttribute(
+        dh, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   }();
   if (attr != cudaSuccess) return (int)attr;
   const int ntm = (a.N + BM - 1) / BM;
-  const int nta = (4 * a.H + BN - 1) / BN, ntb = (a.H + BN - 1) / BN;
-  if (a.N <= persist_rows) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, persistent, NT, L::BYTES);
-    if (per_sm > 0) {
-      const int grid = nta * ntm < per_sm * sms ? nta * ntm : per_sm * sms;
-      void* args[] = {const_cast<BwdArgs<T>*>(&a)};
-      const cudaError_t err = cudaLaunchCooperativeKernel(
-          (const void*)persistent, dim3(grid), dim3(NT), args, L::BYTES, stream);
-      return (int)(err != cudaSuccess ? err : cudaGetLastError());
-    }
-  }
+  const int nkt = (4 * a.H + BK - 1) / BK, ck = (nkt + a.S - 1) / a.S;
+  const dim3 grid_a((4 * a.H + BN - 1) / BN, ntm), grid_b((a.H + BN - 1) / BN, ntm, a.S);
   for (int t = a.Tn - 1; t >= 0; --t) {
-    gates<<<dim3(nta, ntm), NT, L::BYTES, stream>>>(a, t);
+    gates<<<grid_a, BM * 2, L::BYTES, stream>>>(a, t);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    dh<<<dim3(ntb, ntm), NT, L::BYTES, stream>>>(a, t);
+    dh<<<grid_b, BM * 2, L::BYTES, stream>>>(a, t, ck);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }
 
-// Rows at or below this count take the 64 x 64 tiles (and the persistent
-// launch when it fits); above it the 128 x 128 tiles.
+// Rows at or below this count take the 64 x 64 tiles, above it 256 x 128.
 constexpr int kSmallRows = 512;
 
 template <typename T>
-int layer_bwd(const BwdArgs<T>& a, int persist_rows, cudaStream_t stream) {
+int layer_bwd(const BwdArgs<T>& a, cudaStream_t stream) {
   constexpr int BK = vd::TileK<T>::BK;
-  if (a.Kx % BK != 0 || a.KW != a.Kx + (a.H + BK - 1) / BK * BK || a.Ep % 8 != 0)
+  if (a.Kx % BK != 0 || a.KW != a.Kx + (a.H + BK - 1) / BK * BK || a.Ep % 8 != 0 ||
+      a.S < 1)
     return (int)cudaErrorInvalidValue;
   constexpr bool F32 = std::is_same<T, float>::value;
-  if (a.N <= kSmallRows) return bwd_launch<T, 64, 64, F32 ? 3 : 4>(a, persist_rows, stream);
-  return bwd_launch<T, 256, 128, F32 ? 3 : 4>(a, persist_rows, stream);
+  if (a.N <= kSmallRows) return bwd_launch<T, 64, 64, F32 ? 3 : 4>(a, stream);
+  // f32 keeps a second accumulator (common.cuh::tile_product): 128 rows
+  // leave a thread the registers for both
+  if constexpr (F32)
+    return bwd_launch<T, 128, 128, 3>(a, stream);
+  else
+    return bwd_launch<T, 256, 128, 4>(a, stream);
 }
 
 }  // namespace
@@ -320,31 +279,31 @@ int layer_bwd(const BwdArgs<T>& a, int persist_rows, cudaStream_t stream) {
 // One masked LSTM layer backward, all Tn steps in reverse.  dtype 0 =
 // float32, 1 = bfloat16 for x (N, Tn, Ep) (E zero-padded to Ep, a multiple
 // of 8), hprev, cprev, ghs (N, Tn, H), w (4H, KW) packed as
-// ops/lstm_cuda.py::pack_weights packs it, wh (H, 4H) = W[E:] (f32: each as
-// hi then lo) and dgp (N, Tn, 4H); mask (N, Tn) and b (4H,) f32.  dh and dc
-// (N, H) f32 hold (g_hT, g_cT) on entry and (dh0, dc0) on return.  Layers of
-// at most persist_rows rows run in one cooperative launch when the grid fits
-// on the card.  Returns a cudaError_t value (0 on success).
+// ops/lstm_cuda.py::pack_weights packs it, wh (H, 4H) = W[E:] and dgp (N,
+// Tn, 4H); mask (N, Tn) and b (4H,) f32.  dh and dc (N, H) f32 hold (g_hT,
+// g_cT) on entry; dhp (S, N, H) f32 zeros.  On return dc holds dc0 and
+// dh0 = dh + the sum of dhp over S.  Returns a cudaError_t value (0 on
+// success).
 extern "C" int vd_lstm_layer_bwd(int dtype, const void* x, const void* hprev,
                                  const void* cprev, const float* mask,
                                  const void* w, const void* wh, const float* b,
-                                 const void* ghs, float* dh, float* dc, void* dgp,
-                                 int N, int Tn, int Ep, int Kx, int KW, int H,
-                                 int persist_rows, void* stream) {
+                                 const void* ghs, float* dh, float* dc, float* dhp,
+                                 void* dgp, int N, int Tn, int Ep, int Kx, int KW,
+                                 int H, int S, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return layer_bwd<float>({(const float*)x, (const float*)hprev,
                              (const float*)cprev, mask, (const float*)w,
-                             (const float*)wh, b, (const float*)ghs, dh, dc,
-                             (float*)dgp, N, Tn, Ep, Kx, KW, H},
-                            persist_rows, s);
+                             (const float*)wh, b, (const float*)ghs, dh, dc, dhp,
+                             (float*)dgp, N, Tn, Ep, Kx, KW, H, S},
+                            s);
   if (dtype == 1) {
     using B16 = __nv_bfloat16;
     return layer_bwd<B16>({(const B16*)x, (const B16*)hprev, (const B16*)cprev,
                            mask, (const B16*)w, (const B16*)wh, b,
-                           (const B16*)ghs, dh, dc, (B16*)dgp, N, Tn, Ep, Kx, KW,
-                           H},
-                          persist_rows, s);
+                           (const B16*)ghs, dh, dc, dhp, (B16*)dgp, N, Tn, Ep, Kx,
+                           KW, H, S},
+                          s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -42,14 +42,13 @@
 //    carried state, as the TPU kernel's skipped steps do.  Rows with m == 0
 //    keep their carry.
 //  * Up to kSmallRows rows (the 320-row question and fact LSTMs, serving) a
-//    64 x 64 tile gives enough blocks, and when the card can hold the whole
-//    grid at once, one cooperative launch runs all T steps with a grid-wide
-//    barrier between them in place of T launches.  Above it, a 128 x 128
-//    tile and one launch a step.
+//    64 x 64 tile gives enough blocks; above it a 256 x 128 tile.  One
+//    launch a step, all T issued from one host call (vd_lstm_layer_fwd).
+//    (One cooperative launch for all T steps, with a grid-wide barrier
+//    between steps, measured no faster at 10 and 320 rows on an H100.)
 //  Left: the per-step barrier in the k-loop (no warp-specialised producer,
 //  no TMA), and the W re-reads from L2 by every row tile.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,7 +57,6 @@
 
 namespace {
 
-namespace cg = cooperative_groups;
 using vd::from_f;
 using vd::Operand;
 using vd::sigmoidf_;
@@ -77,11 +75,15 @@ template <typename T> struct FwdArgs {
   int N, Tn, Ep, Kx, KW, H;
 };
 
-// Step t of the tile of BM rows (mt) x BN gate columns (nt).  Every thread
-// of the block calls it.
+// Step t of the tile of BM rows (blockIdx.y) x BN gate columns
+// (blockIdx.x).
 template <typename T, int BM, int BN, int STAGES>
-__device__ __forceinline__ void fwd_tile(const FwdArgs<T>& a, int t, int mt, int nt,
-                                         unsigned char* smem, float* ms) {
+__global__ void __launch_bounds__(BM * 2)
+lstm_fwd_step_kernel(const FwdArgs<T> a, int t) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float ms[BM];
+  unsigned char* smem = vd::align1024(smem_raw);
+  const int mt = blockIdx.y, nt = blockIdx.x;
   using L = vd::TileSmem<T, BM, BN, STAGES>;
   constexpr int NT = BM * 2, BJ = BN / 4, BK = vd::TileK<T>::BK;
   const int m0 = mt * BM, j0 = nt * BJ, H = a.H;
@@ -97,7 +99,6 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs<T>& a, int t, int mt, int
         if (a.cs) a.cs[ot] = from_f<T>(a.c[o]);
       }
     }
-    __syncthreads();   // ms is the block's next tile's
     return;
   }
 
@@ -110,6 +111,10 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs<T>& a, int t, int mt, int
   const Operand<T> wo{a.w, a.KW, 4 * H, a.KW};
   float acc[BN / 2];
   vd::tile_product<T, BM, BN, STAGES>(acc, smem, xo, nkx, ho, wo, nkt, m0, nt * BN);
+#if VD_DROP & 4
+  if (acc[0] == 12345.f) a.h[0] = acc[1];   // keeps the product alive
+  return;
+#endif
   float* cbuf = reinterpret_cast<float*>(smem);
   vd::stage_acc<BN, L::LDC>(acc, cbuf);
   __syncthreads();
@@ -126,9 +131,9 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs<T>& a, int t, int mt, int
       float hv[BATCH], cv[BATCH];
 #pragma unroll
       for (int q = 0; q < BATCH; ++q) {
-        const int n = m0 + (threadIdx.x + (i0 + q) * NT) / BJ;
-        if (n < a.N) {
-          hv[q] = a.h[(size_t)n * H + j];
+        const int r = (threadIdx.x + (i0 + q) * NT) / BJ, n = m0 + r;
+        if (n < a.N) {   // a row with m = 1 takes h' whole: its h is not read
+          hv[q] = ms[r] != 1.f ? a.h[(size_t)n * H + j] : 0.f;
           cv[q] = a.c[(size_t)n * H + j];
         }
       }
@@ -158,111 +163,67 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs<T>& a, int t, int mt, int
       }
     }
   }
-  __syncthreads();   // shared memory and ms are the block's next tile's
 }
 
 template <typename T, int BM, int BN, int STAGES>
-__global__ void __launch_bounds__(BM * 2)
-lstm_fwd_step_kernel(const FwdArgs<T> a, int t) {
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ float ms[BM];
-  fwd_tile<T, BM, BN, STAGES>(a, t, blockIdx.y, blockIdx.x, vd::align1024(smem_raw), ms);
-}
-
-// All Tn steps in one cooperative launch: the blocks stride over the tiles
-// of a step, then meet at a grid-wide barrier before the next step.
-template <typename T, int BM, int BN, int STAGES>
-__global__ void __launch_bounds__(BM * 2)
-lstm_fwd_persistent_kernel(const FwdArgs<T> a) {
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ float ms[BM];
-  unsigned char* smem = vd::align1024(smem_raw);
-  const int ntn = (4 * a.H + BN - 1) / BN;
-  const int tiles = ntn * ((a.N + BM - 1) / BM);
-  cg::grid_group grid = cg::this_grid();
-  for (int t = 0; t < a.Tn; ++t) {
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-      fwd_tile<T, BM, BN, STAGES>(a, t, tile / ntn, tile % ntn, smem, ms);
-    grid.sync();
-  }
-}
-
-template <typename T, int BM, int BN, int STAGES>
-int fwd_launch(const FwdArgs<T>& a, int persist_rows, cudaStream_t stream) {
+int fwd_launch(const FwdArgs<T>& a, cudaStream_t stream) {
   using L = vd::TileSmem<T, BM, BN, STAGES>;
-  constexpr int NT = BM * 2;
   const auto step = lstm_fwd_step_kernel<T, BM, BN, STAGES>;
-  const auto persistent = lstm_fwd_persistent_kernel<T, BM, BN, STAGES>;
-  static const cudaError_t attr = [&] {
-    const cudaError_t e = cudaFuncSetAttribute(
-        step, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-    return e != cudaSuccess ? e : cudaFuncSetAttribute(
-        persistent, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  }();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      step, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (attr != cudaSuccess) return (int)attr;
-  const int ntn = (4 * a.H + BN - 1) / BN, ntm = (a.N + BM - 1) / BM;
-  if (a.N <= persist_rows) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, persistent, NT, L::BYTES);
-    if (per_sm > 0) {
-      const int grid = ntn * ntm < per_sm * sms ? ntn * ntm : per_sm * sms;
-      void* args[] = {const_cast<FwdArgs<T>*>(&a)};
-      const cudaError_t err = cudaLaunchCooperativeKernel(
-          (const void*)persistent, dim3(grid), dim3(NT), args, L::BYTES, stream);
-      return (int)(err != cudaSuccess ? err : cudaGetLastError());
-    }
-  }
+  const dim3 grid((4 * a.H + BN - 1) / BN, (a.N + BM - 1) / BM);
   for (int t = 0; t < a.Tn; ++t) {
-    step<<<dim3(ntn, ntm), NT, L::BYTES, stream>>>(a, t);
+    step<<<grid, BM * 2, L::BYTES, stream>>>(a, t);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }
 
-// Rows at or below this count take the 64 x 64 tile (and the persistent
-// launch when it fits); above it the 128 x 128 tile.
+// Rows at or below this count take the 64 x 64 tile, above it 256 x 128.
 constexpr int kSmallRows = 512;
 
 template <typename T>
-int layer_fwd(const FwdArgs<T>& a, int persist_rows, cudaStream_t stream) {
+int layer_fwd(const FwdArgs<T>& a, cudaStream_t stream) {
   constexpr int BK = vd::TileK<T>::BK;
   if (a.Kx % BK != 0 || a.KW != a.Kx + (a.H + BK - 1) / BK * BK || a.Ep % 8 != 0)
     return (int)cudaErrorInvalidValue;
   constexpr bool F32 = std::is_same<T, float>::value;
-  if (a.N <= kSmallRows) return fwd_launch<T, 64, 64, F32 ? 3 : 4>(a, persist_rows, stream);
-  return fwd_launch<T, 256, 128, F32 ? 3 : 4>(a, persist_rows, stream);
+  if (a.N <= kSmallRows) return fwd_launch<T, 64, 64, F32 ? 3 : 4>(a, stream);
+  // f32 keeps a second accumulator (common.cuh::tile_product): 128 rows
+  // leave a thread the registers for both
+  if constexpr (F32)
+    return fwd_launch<T, 128, 128, 3>(a, stream);
+  else
+    return fwd_launch<T, 256, 128, 4>(a, stream);
 }
 
 }  // namespace
 
 // One masked LSTM layer, all Tn steps.  dtype 0 = float32, 1 = bfloat16 for
 // x, w, h0c, hs and cs.  x (N, Tn, Ep) with E zero-padded to Ep (a multiple
-// of 8); w (4H, KW) packed as ops/lstm_cuda.py::pack_weights packs it (f32:
-// (2, 4H, KW), hi and lo); b (4H,) f32; h0c (N, H) h0 in the compute type;
+// of 8); w (4H, KW) packed as ops/lstm_cuda.py::pack_weights packs it; b
+// (4H,) f32; h0c (N, H) h0 in the compute type;
 // h, c (N, H) f32 hold (h0, c0) on entry and (hT, cT) on return.  cs (N, Tn,
 // H), the post-mask cell state of every step (the training forward's
-// residual), may be null.  Layers of at most persist_rows rows run in one
-// cooperative launch when the grid fits on the card.  Returns a cudaError_t
-// value (0 on success).
+// residual), may be null.  Returns a cudaError_t value (0 on success).
 extern "C" int vd_lstm_layer_fwd(int dtype, const void* x, const float* mask,
                                  const void* w, const float* b, const void* h0c,
                                  float* h, float* c, void* hs, void* cs, int N,
                                  int Tn, int Ep, int Kx, int KW, int H,
-                                 int persist_rows, void* stream) {
+                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return layer_fwd<float>({(const float*)x, mask, (const float*)w, b,
                              (const float*)h0c, h, c, (float*)hs, (float*)cs, N,
                              Tn, Ep, Kx, KW, H},
-                            persist_rows, s);
+                            s);
   if (dtype == 1) {
     using B16 = __nv_bfloat16;
     return layer_fwd<B16>({(const B16*)x, mask, (const B16*)w, b, (const B16*)h0c,
                            h, c, (B16*)hs, (B16*)cs, N, Tn, Ep, Kx, KW, H},
-                          persist_rows, s);
+                          s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -32,12 +32,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _SIGNATURES = {
-    # dtype, x, mask, w, b, h0c, h, c, hs, cs, N, T, Ep, Kx, KW, H,
-    # persist_rows, stream
-    "vd_lstm_layer_fwd": [_i] + [_p] * 9 + [_i] * 7 + [_p],
-    # dtype, x, hprev, cprev, mask, w, wh, b, ghs, dh, dc, dgp, N, T, Ep, Kx,
-    # KW, H, persist_rows, stream
-    "vd_lstm_layer_bwd": [_i] + [_p] * 11 + [_i] * 7 + [_p],
+    # dtype, x, mask, w, b, h0c, h, c, hs, cs, N, T, Ep, Kx, KW, H, stream
+    "vd_lstm_layer_fwd": [_i] + [_p] * 9 + [_i] * 6 + [_p],
+    # dtype, x, hprev, cprev, mask, w, wh, b, ghs, dh, dc, dhp, dgp, N, T, Ep,
+    # Kx, KW, H, S, stream
+    "vd_lstm_layer_bwd": [_i] + [_p] * 12 + [_i] * 7 + [_p],
     # dtype, q, slots, valid, out, B, R, S, H, stream
     "vd_attention": [_i] + [_p] * 4 + [_i] * 4 + [_p],
     # dtype, q, slots, valid, wf, bias, out, B, R, S, H, stream

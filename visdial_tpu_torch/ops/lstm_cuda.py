@@ -21,11 +21,6 @@ import torch
 from . import _build
 from .lstm import lstm_layer_bwd_plain, lstm_layer_plain
 
-# Layers of at most this many rows run all their steps in one cooperative
-# launch when the card holds the whole grid (0: one launch a step).
-PERSIST_ROWS = 512
-
-
 def k_tile(dtype: torch.dtype) -> int:
     """Depth of the kernels' k-tiles: 128 bytes of the compute dtype."""
     return 128 // torch.empty((), dtype=dtype).element_size()
@@ -116,7 +111,7 @@ def lstm_layer(w, b, x, mask, h0, c0, *, save_cell: bool = False):
             _build.DTYPE_CODE[x.dtype], xp.data_ptr(), mask.data_ptr(),
             wk.data_ptr(), b.data_ptr(), h0c.data_ptr(), h.data_ptr(),
             c.data_ptr(), hs.data_ptr(), cs.data_ptr() if save_cell else None,
-            N, T, xp.shape[-1], kx, kw, H, PERSIST_ROWS, _build.stream_of(x))
+            N, T, xp.shape[-1], kx, kw, H, _build.stream_of(x))
     _build.check(err, "lstm_layer")
     lstm_layer.launches += 1
     if save_cell:
@@ -152,17 +147,22 @@ def lstm_layer_bwd(w, b, x, mask, h_prev, c_prev, g_hs, g_ht, g_ct):
     b = b.float().contiguous()
     mask = mask.float().contiguous()
     dgp = torch.empty((N, T, 4 * H), dtype=x.dtype, device=x.device)
+    # K2's dh product is cut over K into S slices, each writing its partial
+    # product to its own buffer (S = 8 up to the kernel's 512-row tiles,
+    # where the row tiles alone leave most of the card idle)
+    dhp = torch.zeros((8 if N <= 512 else 1, N, H), dtype=torch.float32,
+                      device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.vd_lstm_layer_bwd(
             _build.DTYPE_CODE[x.dtype], xp.data_ptr(), h_prev.data_ptr(),
             c_prev.data_ptr(), mask.data_ptr(), wk.data_ptr(), wh.data_ptr(),
             b.data_ptr(), g_hs.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-            dgp.data_ptr(), N, T, xp.shape[-1], kx, kw, H, PERSIST_ROWS,
-            _build.stream_of(x))
+            dhp.data_ptr(), dgp.data_ptr(), N, T, xp.shape[-1], kx, kw, H,
+            dhp.shape[0], _build.stream_of(x))
     _build.check(err, "lstm_layer_bwd")
     lstm_layer_bwd.launches += 1
-    return dgp, dh, dc
+    return dgp, dh + dhp.sum(dim=0), dc
 
 
 lstm_layer_bwd.launches = 0
