@@ -279,19 +279,18 @@ def test_packed_operands_give_the_plain_gates(E, H, dtype):
     """The kernels' operands as the wrapper prepares them: x padded to a
     multiple of 8 and laid into the first Kx columns of the A operand, h
     from column Kx, through the K-major gate-interleaved W, by a plain
-    matmul; undoing the interleave gives the plain
-    version's gates exactly (small integers: every sum is exact).  K2's dh
-    operand is W[E:] as stored."""
+    matmul; undoing the interleave gives the plain version's gates exactly
+    (small integers: every sum is exact)."""
     rng = np.random.default_rng(E + H)
     n = 5
     w = torch.from_numpy(rng.integers(-8, 9, (E + H, 4 * H)).astype(np.float32))
     x = torch.from_numpy(rng.integers(-8, 9, (n, 2, E)).astype(np.float32)).to(dtype)
     h = torch.from_numpy(rng.integers(-8, 9, (n, H)).astype(np.float32)).to(dtype)
-    wk, wh, kx, kw = pack_weights(w, E, dtype)
+    wk, kx, kw = pack_weights(w, E, dtype)
     bk = k_tile(dtype)
     assert bk * x.element_size() == 128
     assert kx % bk == 0 and kx >= E and kw == kx + -(-H // bk) * bk
-    assert wk.shape == (4 * H, kw) and wk.dtype == wh.dtype == dtype
+    assert wk.shape == (4 * H, kw) and wk.dtype == dtype
     xp = pad_input(x)
     assert xp.shape[-1] % 8 == 0 and E <= xp.shape[-1] <= kx
     assert not xp[..., E:].any()
@@ -302,5 +301,4 @@ def test_packed_operands_give_the_plain_gates(E, H, dtype):
     gates = packed.reshape(n, H, 4).transpose(1, 2).reshape(n, 4 * H)
     want = torch.cat([x[:, 1], h], dim=-1).float() @ w.to(dtype).float()
     assert torch.equal(gates, want)
-    assert torch.equal(wh, w[E:].to(dtype))
 

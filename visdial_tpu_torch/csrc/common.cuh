@@ -3,12 +3,6 @@
 // of the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
 #pragma once
 
-// VD_DROP (scripts/lstm_breakdown.py): 1 drops the wgmma, 2 the copies after
-// the first stages, 4 the LSTM epilogue.
-#ifndef VD_DROP
-#define VD_DROP 0
-#endif
-
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +37,11 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The LSTM kernels' layers of at most this many rows take 64 x 64 tiles,
+// which give the 320-row question and fact LSTMs 160 blocks; above it
+// 256 x 128 (bf16) or 128 x 128 (f32) tiles.
+constexpr int kSmallRows = 512;
+
 // Loads the mask of the block's BN rows at step t into ms[] and returns
 // whether any of them is real (every thread of the block must call it).
 template <int BN>
@@ -69,16 +68,19 @@ __device__ __forceinline__ bool load_tile_mask(float* ms, const float* __restric
 // permuted by chunk ^ (r % 8), the 128-byte swizzle that wgmma's descriptor
 // names (layout 1), so that both the 16-byte cp.async writes of a row and
 // wgmma's reads are free of bank conflicts.  A ring of STAGES k-tiles keeps
-// STAGES - 1 loads in flight while the tensor cores work on the oldest.
+// up to STAGES - 1 copies in flight while the tensor cores work.
 //
 // bf16: wgmma m64nBNk16, bf16 x bf16 -> f32, the TPU kernel's numerics.
 // f32: 3xTF32.  Each operand is split into a TF32 high part and the
 // remainder rounded to TF32 (each off by at most 2^-22 of the value), and
-// acc += a_lo b_hi + a_hi b_lo + a_hi b_hi (wgmma m64nBNk8 tf32), which keeps
-// the products near f32 accuracy (single-pass TF32 would move results by
-// ~1e-3).  Both operands arrive in f32 and are split in
-// shared memory after they land (hi in place, lo into one buffer each), so
-// L2 carries 4 bytes a value, not 8.
+// acc += a_lo b_hi + a_hi b_lo + a_hi b_hi (wgmma m64nBNk8 tf32).  The
+// tensor cores' f32 sums round toward zero, and over a long k-loop that
+// bias alone moves results by ~1e-5, so each k-tile's three products sum
+// into a fresh accumulator that is added to the total with round-to-nearest;
+// so the kernel lands nearer an f64 reference than cuBLAS's f32 path does
+// (single-pass TF32 would move results by ~1e-3).  Both operands arrive in
+// f32 and are split in shared memory after they land (hi in place, lo into
+// a second buffer), so L2 carries 4 bytes a value, not 8.
 //
 // Each warpgroup (128 threads) owns 64 rows of the BM-row tile, so the
 // block has BM * 2 threads.  Out-of-range rows and k >= K load zeros.
@@ -389,7 +391,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[BN / 2], unsigned char
     cp_async_wait<STAGES - 3>();   // this thread's copies of k-tile kt + 1
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < ((VD_DROP & 1) ? 0 : BK / KS); ++j) {
+    for (int j = 0; j < BK / KS; ++j) {
       const uint32_t kofs = j * KS * sizeof(T);   // 32 bytes a k-step
       const uint64_t da = smem_desc(sa + kofs), db = smem_desc(sb + kofs);
       if constexpr (L::F32) {   // the small terms first
@@ -403,7 +405,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[BN / 2], unsigned char
     wgmma_commit();
     if constexpr (L::F32)
       if (kt + 1 < nkt) split_stage(kt + 1);
-    if (!(VD_DROP & 2) && kt + STAGES - 1 < nkt) load_stage(kt + STAGES - 1);
+    if (kt + STAGES - 1 < nkt) load_stage(kt + STAGES - 1);
     cp_async_commit();
     wgmma_wait<0>();
     if constexpr (L::F32) {

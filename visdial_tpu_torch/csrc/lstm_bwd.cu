@@ -20,9 +20,9 @@
 // What bounds it on this card.  Two products a step, each about as large as
 // the forward's: the gate recompute (N x (E+H) x 4H) and dgp . Wh^T
 // (N x 4H x H).  At the option LSTM's 32,000 rows a step is ~140 GFLOP, so
-// the tensor cores bound it (989 TFLOP/s bf16; 165 TFLOP/s for f32-accurate
-// 3xTF32); at the 320-row question and fact LSTMs the ~2T launches a layer
-// and their latency do.
+// in principle the tensor cores bound it (989 TFLOP/s bf16; 165 TFLOP/s for
+// f32-accurate 3xTF32); at the 320-row question and fact LSTMs the 2T
+// launches a layer and the k-loop's latency do.
 //
 // What the design does about it.  The TPU kernel keeps Wx and Wh in VMEM and
 // carries (dh, dc) in scratch across its sequential grid; Hopper has neither
@@ -49,8 +49,8 @@
 // updated in place by phase (a): an element is read and written only by the
 // thread that owns it.  (One cooperative launch for all T steps, with a
 // grid-wide barrier after each phase, measured no faster at 320 rows on an
-// H100.)  Left: as in lstm_fwd.cu, the k-loop's block barrier and W's
-// re-reads from L2.
+// H100.)  What is left is K1's (lstm_fwd.cu): the epilogues overlap nothing,
+// and the k-loop runs below the tensor-core rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -255,9 +255,6 @@ int bwd_launch(const BwdArgs<T>& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Rows at or below this count take the 64 x 64 tiles, above it 256 x 128.
-constexpr int kSmallRows = 512;
-
 template <typename T>
 int layer_bwd(const BwdArgs<T>& a, cudaStream_t stream) {
   constexpr int BK = vd::TileK<T>::BK;
@@ -265,9 +262,9 @@ int layer_bwd(const BwdArgs<T>& a, cudaStream_t stream) {
       a.S < 1)
     return (int)cudaErrorInvalidValue;
   constexpr bool F32 = std::is_same<T, float>::value;
-  if (a.N <= kSmallRows) return bwd_launch<T, 64, 64, F32 ? 3 : 4>(a, stream);
-  // f32 keeps a second accumulator (common.cuh::tile_product): 128 rows
-  // leave a thread the registers for both
+  if (a.N <= vd::kSmallRows) return bwd_launch<T, 64, 64, F32 ? 3 : 4>(a, stream);
+  // f32 keeps a second accumulator (common.cuh::tile_product): 128 x 128
+  // leaves a thread the registers for both
   if constexpr (F32)
     return bwd_launch<T, 128, 128, 3>(a, stream);
   else

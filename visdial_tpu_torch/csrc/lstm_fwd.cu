@@ -11,16 +11,20 @@
 //
 // What bounds it on this card.  The T steps are sequential: step t needs all
 // of h_{t-1}.  A step is one GEMM (N rows x (E+H) deep x 4H wide) and a cell
-// update.  At the option LSTM's 32,000 rows a step is ~106 GFLOP, so the
-// tensor cores bound it: 989 TFLOP/s in bf16, and for f32-accurate results
-// 3 TF32 products a term (3xTF32), 495 / 3 = 165 TFLOP/s.  At serving shapes
-// (N = 10) and the 320-row question and fact LSTMs, a step is a few to
-// ~1 GFLOP, and the T launches and their latency bound it.
+// update.  At the option LSTM's 32,000 rows a step is ~106 GFLOP, so in
+// principle the tensor cores bound it: 989 TFLOP/s in bf16, and for
+// f32-accurate results three TF32 products a term (3xTF32), 495 / 3 = 165
+// TFLOP/s.  At serving shapes (N = 10) and the 320-row question and fact
+// LSTMs a step is a few to ~1 GFLOP, and the T launches, the k-loop's
+// latency and the wrapper's host work bound it.
 //
 // What the design does about it.
 //  * The gate product is common.cuh::tile_product: wgmma from a ring of
 //    128-byte-swizzled shared tiles fed by 16-byte cp.async, bf16 x bf16 ->
-//    f32, or 3xTF32 for f32.  Each block owns BM rows x BN gate columns.
+//    f32, or 3xTF32 for f32 with each k-tile summed apart and added with
+//    round-to-nearest.  Each block owns BM rows x BN gate columns: 64 x 64
+//    up to kSmallRows rows (enough blocks at 320 rows), above it 256 x 128
+//    in bf16 and 128 x 128 in f32 (room for its second accumulator).
 //  * The wrapper prepares W once per call (ops/lstm_cuda.py::pack_weights):
 //    K-major, gate columns interleaved (row 4j + g of the packed W is gate g
 //    of unit j), so one N-tile holds all four gates of its BN / 4 units, and
@@ -32,7 +36,8 @@
 //  * Epilogue: the accumulator goes through shared memory, so that one
 //    thread holds i, f, g, o of a unit; the cell update, the mask select and
 //    the writes of hs, cs and the f32 carries (updated in place) follow in
-//    f32, coalesced along the units.
+//    f32, coalesced along the units, each thread loading the carries of 8
+//    rows before it updates them.
 //  * The training forward also writes cs (the post-mask cell state of every
 //    step, the TPU kernel's save_cell output), so the backward (lstm_bwd.cu)
 //    never rebuilds the cell recurrence; serving passes no cs buffer.
@@ -41,13 +46,15 @@
 //    wrapper prefetches as _tile_bounds), it skips the product and emits the
 //    carried state, as the TPU kernel's skipped steps do.  Rows with m == 0
 //    keep their carry.
-//  * Up to kSmallRows rows (the 320-row question and fact LSTMs, serving) a
-//    64 x 64 tile gives enough blocks; above it a 256 x 128 tile.  One
-//    launch a step, all T issued from one host call (vd_lstm_layer_fwd).
+//  * One launch a step, all T issued from one host call (vd_lstm_layer_fwd).
 //    (One cooperative launch for all T steps, with a grid-wide barrier
 //    between steps, measured no faster at 10 and 320 rows on an H100.)
-//  Left: the per-step barrier in the k-loop (no warp-specialised producer,
-//  no TMA), and the W re-reads from L2 by every row tile.
+// What is left (PERF.md, section 5): at 32,000 rows the
+// epilogue's carry traffic takes about a third of the time and overlaps
+// nothing (one block per SM, the epilogue after the k-loop), and the k-loop
+// reaches about two thirds of the tensor-core rate; a persistent,
+// warp-specialised kernel (TMA producer, epilogue beside the next tile's
+// product) is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,10 +118,6 @@ lstm_fwd_step_kernel(const FwdArgs<T> a, int t) {
   const Operand<T> wo{a.w, a.KW, 4 * H, a.KW};
   float acc[BN / 2];
   vd::tile_product<T, BM, BN, STAGES>(acc, smem, xo, nkx, ho, wo, nkt, m0, nt * BN);
-#if VD_DROP & 4
-  if (acc[0] == 12345.f) a.h[0] = acc[1];   // keeps the product alive
-  return;
-#endif
   float* cbuf = reinterpret_cast<float*>(smem);
   vd::stage_acc<BN, L::LDC>(acc, cbuf);
   __syncthreads();
@@ -181,18 +184,15 @@ int fwd_launch(const FwdArgs<T>& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Rows at or below this count take the 64 x 64 tile, above it 256 x 128.
-constexpr int kSmallRows = 512;
-
 template <typename T>
 int layer_fwd(const FwdArgs<T>& a, cudaStream_t stream) {
   constexpr int BK = vd::TileK<T>::BK;
   if (a.Kx % BK != 0 || a.KW != a.Kx + (a.H + BK - 1) / BK * BK || a.Ep % 8 != 0)
     return (int)cudaErrorInvalidValue;
   constexpr bool F32 = std::is_same<T, float>::value;
-  if (a.N <= kSmallRows) return fwd_launch<T, 64, 64, F32 ? 3 : 4>(a, stream);
-  // f32 keeps a second accumulator (common.cuh::tile_product): 128 rows
-  // leave a thread the registers for both
+  if (a.N <= vd::kSmallRows) return fwd_launch<T, 64, 64, F32 ? 3 : 4>(a, stream);
+  // f32 keeps a second accumulator (common.cuh::tile_product): 128 x 128
+  // leaves a thread the registers for both
   if constexpr (F32)
     return fwd_launch<T, 128, 128, 3>(a, stream);
   else

@@ -21,6 +21,7 @@ import torch
 from . import _build
 from .lstm import lstm_layer_bwd_plain, lstm_layer_plain
 
+
 def k_tile(dtype: torch.dtype) -> int:
     """Depth of the kernels' k-tiles: 128 bytes of the compute dtype."""
     return 128 // torch.empty((), dtype=dtype).element_size()
@@ -39,13 +40,13 @@ def pad_input(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_weights(w: torch.Tensor, E: int, dtype: torch.dtype):
-    """The kernels' B operands from W (E+H, 4H), in `dtype`, K-major:
-      wk (4H, KW): row 4j + g is gate column g*H + j of W (gate-interleaved,
-        so a tile of 4u columns holds all four gates of u units); columns
-        [0, E) hold W's x rows, zero-padded to Kx = E rounded up to a k-tile,
-        then W's h rows from Kx, zero-padded to KW = Kx + H rounded up;
-      wh (H, 4H): W[E:], K2's dh product operand, as stored.
-    Returns (wk, wh, Kx, KW)."""
+    """The gate product's B operand from W (E+H, 4H), in `dtype`, K-major:
+    wk (4H, KW), row 4j + g of which is gate column g*H + j of W
+    (gate-interleaved, so a tile of 4u rows holds all four gates of u
+    units); columns [0, E) hold W's x rows, zero-padded to Kx = E rounded up
+    to a k-tile, then W's h rows from Kx, zero-padded to KW = Kx + H rounded
+    up.  (K2's dh product takes W[E:] as it is stored.)  Returns (wk, Kx,
+    KW)."""
     H = w.shape[1] // 4
     bk = k_tile(dtype)
     kx, kh = _round_up(E, bk), _round_up(H, bk)
@@ -54,7 +55,7 @@ def pack_weights(w: torch.Tensor, E: int, dtype: torch.dtype):
     wk = w.new_zeros(4 * H, kx + kh)
     wk[:, :E] = wt[:, :E]
     wk[:, kx:kx + H] = wt[:, E:]
-    return wk, w[E:].contiguous(), kx, kx + kh
+    return wk, kx, kx + kh
 
 
 def _check_layer(what: str, w, b, x, mask, h0, c0) -> tuple[int, int, int, int]:
@@ -97,7 +98,7 @@ def lstm_layer(w, b, x, mask, h0, c0, *, save_cell: bool = False):
     if x.device.type == "cpu":
         return lstm_layer_plain(w, b, x, mask, h0, c0, save_cell=save_cell)
     N, T, E, H = _check_layer("lstm_layer", w, b, x, mask, h0, c0)
-    wk, _, kx, kw = pack_weights(w, E, x.dtype)
+    wk, kx, kw = pack_weights(w, E, x.dtype)
     xp = pad_input(x)
     b = b.float().contiguous()
     mask = mask.float().contiguous()
@@ -142,7 +143,8 @@ def lstm_layer_bwd(w, b, x, mask, h_prev, c_prev, g_hs, g_ht, g_ct):
             raise ValueError(f"lstm_layer_bwd: {name} must be a contiguous "
                              f"{x.dtype} {(N, T, H)} on {x.device}, got "
                              f"{s.dtype} {tuple(s.shape)} on {s.device}")
-    wk, wh, kx, kw = pack_weights(w, E, x.dtype)
+    wk, kx, kw = pack_weights(w, E, x.dtype)
+    wh = w.to(x.dtype)[E:].contiguous()
     xp = pad_input(x)
     b = b.float().contiguous()
     mask = mask.float().contiguous()
