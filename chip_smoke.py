@@ -298,7 +298,7 @@ def lstm_kernel_report() -> list[dict]:
         m = re.search(r"<(float|__nv_bfloat16), (\d+), (\d+), (\d+)>", plain[n])
         if m:
             f32, bm, bn, stages = m[1] == "float", int(m[2]), int(m[3]), int(m[4])
-            ring = stages * (bm + bn * (2 if f32 else 1)) * 128 + (bm * 128 if f32 else 0)
+            ring = (stages + (2 if f32 else 0)) * (bm + bn) * 128
             row["dynamic_smem"] = max(ring, bm * (bn + 8) * 4) + 1024
         if why:
             row["tensor_core_sass"] = f"not known: {why}"
