@@ -76,16 +76,19 @@ EVAL_DIALOGS, EVAL_REPS = 256, 3
 # ragged tail, and one row over a vocab narrower than a tile
 LM_SHAPES = [(2880, 512, 8804), (73728, 512, 8804), (513, 512, 8848),
              (1, 512, 10)]
-# K5, relative to the largest |logp|, in either dtype: the products are exact
-# in f32 on both sides (bf16 operands widened) and accumulated in f32, so only
-# the order of the 512-term sums and of the vocab's logsumexp differs
+# the head shape of K5 and K6, where the single-pass TF32 control runs
+LM_HEAD = LM_SHAPES[0]
+# K5, relative to the largest |logp|, in either dtype: bf16 products are exact
+# in f32 on both sides, f32 products f32-accurate (3xTF32 in the kernel), all
+# accumulated in f32, so only the order of the 512-term sums and of the
+# vocab's logsumexp differs
 LM_TOL = 1e-5
 # K6, per element: f32 within 1e-5 of |ref|; bf16 within one bf16 ulp of ref
 # (both sides round the same f32 value, up to a sum-order difference, to
 # bf16); plus DLOG_FLOOR x |g_i| / V for entries whose p underflows
 DLOG_RTOL, DLOG_FLOOR = 1e-5, {"float32": 1e-5, "bfloat16": 2.0 ** -8}
 # the planted control: logits whose running sum over H is rounded to bf16
-# after every 16 products (K5/K6's shared-tile depth), as a kernel that kept
+# after every 16 products (one bf16 wgmma k-step), as a kernel that kept
 # its accumulator in bf16 would give; the limits above must refuse it
 CONTROL_DEPTH = 16
 # the least time of a call: operations at the card's peak for the operand
@@ -244,13 +247,14 @@ def _demangle(names: list[str]) -> dict:
     return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
 
 
-def lstm_kernel_report() -> list[dict]:
-    """For each K1 / K2 kernel: registers, shared memory and spills, as
-    ptxas -v wrote them into the build's nvcc.log (the dynamic shared memory
-    from the tile configuration in its template arguments, as
-    common.cuh::TileSmem sizes it), and the count of tensor-core
-    instructions (HGMMA, HMMA) in its SASS, by cuobjdump -sass.  Each
-    kernel's SASS must hold HGMMA where cuobjdump can tell."""
+def kernel_report() -> list[dict]:
+    """For each tensor-core kernel (K1, K2, K5's first pass and K6):
+    registers, shared memory and spills, as ptxas -v wrote them into the
+    build's nvcc.log (the dynamic shared memory from the tile configuration
+    in its template arguments, as common.cuh::TileSmem sizes it), and the
+    count of tensor-core instructions (HGMMA, HMMA) in its SASS, by
+    cuobjdump -sass.  Each such kernel's SASS must hold HGMMA where
+    cuobjdump can tell."""
     from visdial_tpu_torch.ops import _build
 
     lib = _build.library_path()
@@ -290,7 +294,8 @@ def lstm_kernel_report() -> list[dict]:
             why = f"cuobjdump -sass exited {proc.returncode}: {proc.stderr[-300:]}"
     else:
         why = "no cuobjdump in the CUDA toolkit"
-    names = sorted(n for n in res if "lstm_" in n)
+    names = sorted(n for n in res if ("lstm_" in n or "lm_" in n)
+                   and "combine" not in n)
     plain = _demangle(names)
     rows = []
     for n in names:
@@ -308,7 +313,9 @@ def lstm_kernel_report() -> list[dict]:
             check(sass[n]["hgmma"] > 0, f"{plain[n]}: no HGMMA in its SASS")
         emit(row)
         rows.append(row)
-    check(len(rows) >= 6, f"ptxas reported {len(rows)} K1/K2 kernels")
+    check(sum("lstm_" in r["kernel"] for r in rows) >= 6
+          and sum("lm_" in r["kernel"] for r in rows) >= 4,
+          f"ptxas reported {len(rows)} K1/K2/K5/K6 kernels")
     return rows
 
 
@@ -530,6 +537,23 @@ def bf16_accum_logits(x, w, b):
     return acc.float() + b.float()
 
 
+def dlogits_ref(x, w, b, tgt, lse, g):
+    """What K6 is held to: its plain version (ops/lm_score.py::
+    lm_dlogits_plain) in bf16, and in f32 the same formula evaluated in
+    float64 and rounded to f32.  The plain version's own f32 product
+    (cuBLAS, TF32 off) is off from float64 by up to 1.1e-5 in a logit over
+    the 650M entries at 73,728 rows (scripts/lm_f64_error.py), more than the
+    DLOG_RTOL it would be held to, and more than K6's own 2.9e-6."""
+    from visdial_tpu_torch.ops.lm_score import lm_dlogits_plain
+
+    if x.dtype != torch.float32:
+        return lm_dlogits_plain(x, w, b, tgt, lse, g)
+    d = (x.double() @ w.double()).add_(b.double())
+    d.sub_(lse.double()[:, None]).exp_().neg_()
+    d.scatter_add_(1, tgt.long()[:, None], torch.ones_like(d[:, :1]))
+    return d.mul_(g.double()[:, None]).float()
+
+
 def dlogits_over_limit(got, ref, g, dtype) -> float:
     """The largest ratio of K6's per-element error to its limit (<= 1
     passes): DLOG_RTOL x |ref| in f32, one bf16 ulp of ref in bf16, plus
@@ -554,7 +578,8 @@ def lm_checks(dev, gen) -> tuple[list[dict], list[dict]]:
     from visdial_tpu_torch.ops.lm_score import (lm_dlogits_plain,
                                                 lm_token_logprobs_lse_plain)
     from visdial_tpu_torch.ops.lm_score_cuda import (lm_dlogits,
-                                                     lm_token_logprobs_lse)
+                                                     lm_token_logprobs_lse,
+                                                     pack_lm_weight, pad_lm_bias)
 
     k5, k6 = [], []
     for NT, H, V in LM_SHAPES:
@@ -584,16 +609,27 @@ def lm_checks(dev, gen) -> tuple[list[dict], list[dict]]:
             check(NT == 1 or control_err > tol, f"lm_score {(NT, H, V)} "
                   f"{name}: the bf16-accumulation control passes ({control_err}"
                   f" <= {tol})")
+            head = (NT, H, V) == LM_HEAD and dt == torch.float32
             row = {"phase": "lm_score", "shape": [NT, H, V], "dtype": name,
                    "max_abs_err": err, "tol": tol, "control_err": control_err,
                    "ms": time_ms(lambda: lm_token_logprobs_lse(*args)),
                    "plain_ms": time_ms(lambda: lm_token_logprobs_lse_plain(*args)),
+                   # the wrappers' operand preparation, inside "ms"
+                   "pack_ms": time_ms(lambda: (pack_lm_weight(args[1], dt),
+                                               pad_lm_bias(args[2]))),
                    **lm_bound(NT, H, V, name)}
+            if head:
+                row["tf32_control_err"] = tf32_control(
+                    lm_token_logprobs_lse_plain, args, want, abs_err, tol,
+                    "lm_score", (NT, H, V))
             emit(row)
             k5.append(row)
             lse, gd = want[1], g.to(dev)
             got = lm_dlogits(*args, lse, gd)
-            ref = lm_dlogits_plain(*args, lse, gd)
+            ref = dlogits_ref(*args, lse, gd)
+            # f32: the plain version beside the float64 reference
+            plain_over = dlogits_over_limit(
+                got, lm_dlogits_plain(*args, lse, gd), gd, dt)
             d_c = -torch.exp(logits_c - lse[:, None])
             d_c.scatter_add_(1, args[3][:, None], torch.ones_like(d_c[:, :1]))
             d_c = (gd[:, None] * d_c).to(dt)
@@ -609,9 +645,17 @@ def lm_checks(dev, gen) -> tuple[list[dict], list[dict]]:
             check(NT == 1 or control_over > 1.0, f"lm_dlogits {(NT, H, V)} "
                   f"{name}: the bf16-accumulation control passes ({control_over}"
                   " x the limit)")
-            del got, ref, d_c
-            row = {"phase": "lm_dlogits", "shape": [NT, H, V], "dtype": name,
+            del got, d_c
+            extra = {}
+            if head:
+                extra["tf32_control_over_limit"] = tf32_control(
+                    lm_dlogits_plain, (*args, lse, gd), ref,
+                    lambda got, want: dlogits_over_limit(got, want, gd, dt), 1.0,
+                    "lm_dlogits", (NT, H, V))
+            del ref
+            row = {**extra, "phase": "lm_dlogits", "shape": [NT, H, V], "dtype": name,
                    "max_abs_err": err, "err_over_limit": over,
+                   "err_over_limit_vs_plain": plain_over,
                    "control_over_limit": control_over,
                    "ms": time_ms(lambda: lm_dlogits(*args, lse, gd), reps=5),
                    "plain_ms": time_ms(lambda: lm_dlogits_plain(*args, lse, gd),
@@ -1075,7 +1119,7 @@ def main() -> None:
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "allow_tf32": False})
 
-    lstm_kernel_report()
+    kernel_report()
     gen = torch.Generator().manual_seed(0)
     k5, k6 = lm_checks(dev, gen)
     k1 = lstm_checks(dev, gen)

@@ -1,6 +1,6 @@
 """The first check of K1 and K2 on a card after a change to their sources:
 build the kernels, print each K1/K2 kernel's resources and HGMMA count
-(chip_smoke.lstm_kernel_report), then run K1 and K2 once at small ragged
+(chip_smoke.kernel_report), then run K1 and K2 once at small ragged
 shapes, a 320-row shape and the head shape, f32 and bf16, against their
 plain versions, and stop.  Stops at the first shape that raises.  On one
 GPU:
@@ -38,7 +38,7 @@ def main() -> None:
     t0 = time.time()
     _build.library()
     print(json.dumps({"build_s": time.time() - t0}), flush=True)
-    cs.lstm_kernel_report()
+    cs.kernel_report()
     gen = torch.Generator().manual_seed(0)
     for N, T, E, H in SHAPES:
         w, b, x, mask, h0, c0 = cs.lstm_case(gen, N, T, E, H)

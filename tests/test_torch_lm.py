@@ -20,11 +20,14 @@ from visdial_tpu.ops.lm_score_pallas import (lm_dlogits_pallas,
                                              lm_token_logprobs_lse_pallas)
 from visdial_tpu_torch.ops.lm_loss import (TokenLogprobFn, masked_nll_fused,
                                            masked_nll_ref)
-from visdial_tpu_torch.ops.lm_score import (lm_dlogits_plain,
+from visdial_tpu_torch.ops.lm_score import (lm_dlogits_plain, lm_logits,
                                             lm_token_logprobs_lse_plain)
-from visdial_tpu_torch.ops.lm_score_cuda import (lm_dlogits,
+from visdial_tpu_torch.ops.lm_score_cuda import (BLOCKS_PER_SM, PAD_BIAS,
+                                                 ROW_TILE, VOCAB_TILE, lm_dlogits,
                                                  lm_token_logprobs_lse,
-                                                 vocab_splits)
+                                                 pack_lm_weight, pad_lm_bias,
+                                                 pad_lm_input, vocab_splits)
+from visdial_tpu_torch.ops.lstm_cuda import k_tile
 
 torch.set_num_threads(1)
 
@@ -104,11 +107,57 @@ def test_plain_lm_dlogits_bf16_rounds_like_pallas():
 
 def test_vocab_splits_cover_the_vocab():
     for NT, V, sms in [(2880, 8804, 132), (288000, 8804, 132), (1, 10, 132),
-                       (513, 8848, 132), (64, 128 * 69, 1)]:
+                       (513, 8848, 132), (64, 128 * 69, 1), (73728, 8804, 132),
+                       (300, 129, 132)]:
         splits, per = vocab_splits(NT, V, sms)
-        n_vt = -(-V // 128)
+        n_vt = -(-V // VOCAB_TILE)
         assert splits >= 1 and per >= 1
         assert (splits - 1) * per < n_vt <= splits * per, (NT, V, sms)
+    # On an H100's 132 SMs.  f32, one block an SM: the training shape's 23
+    # row tiles take 69 splits of one vocab tile, 1,587 blocks in 12.02
+    # waves (5 splits would leave 17 SMs idle in one wave of 14 tiles); one
+    # gen-eval chunk's 576 row tiles take 23 splits of 3, 13,248 blocks in
+    # 100.4 waves.  bf16, two blocks an SM: 10 splits of 7 (230 blocks in
+    # one wave of 264) and 5 of 14 (2,880 blocks in 10.9 waves).
+    assert VOCAB_TILE == 128 and ROW_TILE == 128
+    assert BLOCKS_PER_SM == {torch.float32: 1, torch.bfloat16: 2}
+    assert vocab_splits(2880, 8804, 132) == (69, 1)
+    assert vocab_splits(73728, 8804, 132) == (23, 3)
+    assert vocab_splits(2880, 8804, 132, 2) == (10, 7)
+    assert vocab_splits(73728, 8804, 132, 2) == (5, 14)
+    assert [-(-NT // ROW_TILE) * s for NT, s in
+            [(2880, 69), (73728, 23), (2880, 10), (73728, 5)]] == [
+                1587, 13248, 230, 2880]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [512, 33, 8])
+@pytest.mark.parametrize("V", [8804, 129, 10])
+def test_packed_lm_operands_give_the_plain_logits(V, H, dtype):
+    """K5's and K6's operands as their wrappers prepare them: W^T packed
+    K-major with H zero-padded to a whole k-tile, x padded to the same
+    depth only where H is off the k-tile, b padded with the TPU kernel's
+    -1e30 to whole vocab tiles.  Through a plain matmul (W's rows past V
+    loading as zeros, as in the kernels) they give lm_logits exactly (small
+    integers: every sum is exact) and -1e30 past V."""
+    rng = np.random.default_rng(H + V)
+    n = 5
+    x = torch.from_numpy(rng.integers(-8, 9, (n, H)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.integers(-8, 9, (H, V)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-8, 9, V).astype(np.float32))
+    wk, xp, bp = pack_lm_weight(w, dtype), pad_lm_input(x), pad_lm_bias(b)
+    bk = k_tile(dtype)
+    Hp, Vp = -(-H // bk) * bk, -(-V // VOCAB_TILE) * VOCAB_TILE
+    assert wk.shape == (V, Hp) and wk.dtype == dtype and wk.is_contiguous()
+    assert xp.shape == (n, Hp) and xp.dtype == dtype and xp.is_contiguous()
+    assert (xp is x) == (H % bk == 0)
+    assert not wk[:, H:].any() and not xp[:, H:].any()
+    assert bp.shape == (Vp,) and bp.dtype == torch.float32
+    w_rows = torch.zeros(Vp, Hp)
+    w_rows[:V] = wk.float()
+    got = xp.float() @ w_rows.T + bp
+    assert torch.equal(got[:, :V], lm_logits(x, w, b))
+    assert bool((got[:, V:] == PAD_BIAS).all())
 
 
 def _nll_case(dtype, seed=0):

@@ -1,6 +1,7 @@
 // Helpers shared by the port's kernels: f32 <-> activation-type conversion,
 // the logistic function, warp reductions, and the tensor-core tile product
-// of the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
+// of the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu) and the LM head's
+// (lm_score.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -58,8 +59,9 @@ __device__ __forceinline__ bool load_tile_mask(float* ms, const float* __restric
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core tile product (Hopper wgmma), shared by K1 and both phases
-// of K2:  acc = A[m0:m0+BM, :K] . B[n0:n0+BN, :K]^T, f32 accumulation.
+// The tensor-core tile product (Hopper wgmma), shared by K1, both phases of
+// K2, K5 and K6:  acc = A[m0:m0+BM, :K] . B[n0:n0+BN, :K]^T, f32
+// accumulation.
 //
 // Both operands are K-major (a row holds its K values contiguously), the
 // only layout wgmma takes for tf32.  K is walked in k-tiles of 128 bytes

@@ -1,6 +1,7 @@
-// The gen decoder's LM head for Hopper (sm_90a), CUDA-core FMAs: per-token
-// target log-probabilities with the row logsumexp (K5), and the d-logits of
-// the training loss (K6), without ever writing the (NT, V) logits.
+// The gen decoder's LM head for Hopper (sm_90a), on the tensor cores:
+// per-token target log-probabilities with the row logsumexp (K5), and the
+// d-logits of the training loss (K6), without ever writing the (NT, V)
+// logits.
 //
 // K5, lm_score_partial_kernel + lm_score_combine_kernel, replaces the TPU
 // kernel visdial_tpu/ops/lm_score_pallas.py::_lm_score_kernel (wrapper
@@ -14,208 +15,203 @@
 //
 // What bounds them on this card.  Both are one (NT, H) x (H, V) product with
 // a cheap epilogue: 2 NT H V operations (26 GFLOP at the training shape NT
-// 2,880, H 512, V 8,804), against a few MB read and, for K5, 8 bytes a row
-// written; K6 writes NT V elements (101 MB in f32 at that shape), still far
-// under the product's time at the 67 TFLOP/s f32 CUDA-core peak.  So the
-// product bounds both, and the design is about feeding the FMA units.
+// 2,880, H 512, V 8,804; 665 GFLOP at one 73,728-row eval chunk), against a
+// few MB read and, for K5, 8 bytes a row written; K6 writes NT V elements
+// (101 MB in f32 at the training shape, ~30 us at 3.35 TB/s).  So the
+// product bounds both: bf16 at the tensor cores' 989 TFLOP/s, f32 at 165
+// (3xTF32, three TF32 products a term, the least an f32-accurate product
+// takes here).  The epilogue's exps are NT V MUFU operations, a quarter of
+// the bf16 bound.
 //
 // What the design does about it.
-//  * One tile product for both kernels (logits_tile): a BM x BN logits tile
-//    from BK-deep shared-memory tiles of x and W, double-buffered with a
-//    register prefetch so that one tile's global loads overlap the previous
-//    tile's FMAs, and a TM x TN register micro-tile per thread (strided
-//    columns, so the shared reads are conflict-free).  x and W are read in
-//    T and widened to f32, so a bf16 product is exact in f32.
+//  * The product is common.cuh::tile_product, K1's and K2's: wgmma from a
+//    ring of 128-byte-swizzled shared tiles fed by 16-byte cp.async; bf16 x
+//    bf16 -> f32, and for f32 3xTF32 with each k-tile summed apart and added
+//    with round-to-nearest (f32 results nearer an f64 reference than
+//    cuBLAS's f32 path, scripts/lm_f64_error.py).  Its operands are K-major,
+//    so the wrapper (ops/lm_score_cuda.py) packs W^T once per call as (V,
+//    Hp), H zero-padded to a whole k-tile (Hp), and pads x to Hp only where
+//    H is not a whole number of k-tiles.  Tiles are 128 rows x 128 vocab
+//    columns (LmTile below).
+//  * The wrapper pads b to whole vocab tiles with -1e30, the TPU kernel's pad
+//    bias, and W's rows past V load as zeros, so a column >= V holds -1e30,
+//    adds exp(...) = 0 to every sum, and never wins a maximum over a real
+//    column; K6 does not store it.
+//  * Both epilogues work on the accumulator in wgmma's register layout (no
+//    shared-memory staging): thread l of warp w of warpgroup g holds rows
+//    64g + 16w + l/4 and +8, columns 8i + 2(l%4) and +1.
 //  * K5: the TPU walks the vocab tiles of a row tile in order on one core,
 //    carrying (max, sum, target logit) in VMEM.  Hopper has no ordered grid,
-//    and 45 row tiles (training) would leave most of the 132 SMs idle, so
+//    and 23 row tiles (training) would leave most of the 132 SMs idle, so
 //    the vocab is split: block (row tile, split) walks its contiguous range
 //    of vocab tiles, each thread keeping a running (max, sum of exp, target
-//    logit) over its own columns, merged across the row's threads with warp
-//    shuffles at the end and written as a partial (splits, NT, 3); a second
-//    small launch combines the splits per row.  The split count is chosen
-//    so that about four blocks per SM are in flight.  The target logit is
-//    read from its own column (no one-hot sum).
-//  * Ragged edges: columns >= V are skipped (what the TPU's -1e30 pad bias
-//    amounts to) and rows >= NT are neither loaded nor written.  Running
-//    maxima start at -1e30, not -inf, so an empty range gives no NaN.
-//  * K6's grid (row tiles x vocab tiles) is fully parallel; a block writes
-//    its d-logits tile straight from registers.
-//  Tensor cores (wgmma), TMA and a persistent kernel are later work.
+//    logit) for its two rows over its own columns, merged across the four
+//    lanes of a row with warp shuffles at the end and written as a partial
+//    (splits, NT, 3); a second small launch combines the splits per row.
+//    The wrapper picks the split count that fills whole waves of blocks
+//    (ops/lm_score_cuda.py::vocab_splits).  The target logit is read from
+//    its own column (no one-hot sum).
+//  * K6's grid (vocab tiles x row tiles) is fully parallel; a block writes
+//    its d-logits straight from the accumulator, a column pair per store
+//    (8 bytes in f32) where V is even, with streaming stores (the output
+//    does not fit in L2; W and x do).
+//  * exp: f32 takes expf; bf16 exp2f of its argument scaled by log2(e).
+//  * Rows >= NT load zeros and are not written.  Running maxima start at
+//    -1e30, not -inf, so no difference of two of them is NaN.
+//  Tried and dropped (PERF.md): a ring kept running across a K5 block's
+//  vocab tiles, so that the next tile's copies overlap this one's epilogue,
+//  and four f32 / six bf16 stages: no faster.  What holds the k-loop to
+//  ~2 us a k-tile in f32 (~40% of the 3xTF32 rate at 73,728 rows) is not
+//  known.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-using vd::from_f;
-using vd::to_f;
+using vd::Operand;
 
-constexpr int BM = 64;               // rows of a tile
-constexpr int BN = 128;              // vocab columns of a tile
-constexpr int BK = 16;               // depth of a shared-memory step
-constexpr int TX = 16;               // column threads (TN columns each, strided)
-constexpr int TY = 16;               // row threads (TM rows each, strided)
-constexpr int TM = BM / TY;
-constexpr int TN = BN / TX;
-constexpr int kThreads = TX * TY;
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBN = 128;   // vocab columns of a tile (VOCAB_TILE in the wrapper)
 
-struct TileSmem {
-  float As[2][BK][BM + 1];   // x tile, transposed (+1: conflict-free store)
-  float Bs[2][BK][BN];       // W tile
+// Tiles of BM rows x kBN vocab columns, a ring of STAGES k-tiles, BLOCKS
+// blocks an SM (BLOCKS_PER_SM in the wrapper).  f32: 164,864 bytes of shared
+// memory, one block an SM.  bf16: 99,328 bytes and at most 128 registers a
+// thread, so two blocks share an SM and one's epilogue runs beside the
+// other's product (measured faster than four stages at one block an SM, or
+// 256-row tiles; PERF.md).
+template <typename T> struct LmTile;
+template <> struct LmTile<float> { static constexpr int BM = 128, STAGES = 3, BLOCKS = 1; };
+template <> struct LmTile<__nv_bfloat16> {
+  static constexpr int BM = 128, STAGES = 3, BLOCKS = 2;
 };
 
-// acc[i][q] = sum_k x[m0 + ty + i*TY][k] * w[k][n0 + tx + q*TX] for the
-// block's BM x BN tile; out-of-range rows, columns and depths contribute
-// zeros.  Every thread of the block must call it.
-template <typename T>
-__device__ __forceinline__ void logits_tile(float (&acc)[TM][TN], TileSmem& sm,
-                                            const T* __restrict__ x,
-                                            const T* __restrict__ w, int NT,
-                                            int H, int V, int m0, int n0) {
-  constexpr int A_PER = BK * BM / kThreads;
-  constexpr int B_PER = BK * BN / kThreads;
-  static_assert((BK * BM) % kThreads == 0 && (BK * BN) % kThreads == 0, "tile loads");
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+// exp(v): f32 takes expf; bf16, whose operands carry 8 bits, one MUFU op
+template <typename T> __device__ __forceinline__ float exp_(float v) {
+  if constexpr (std::is_same<T, float>::value)
+    return expf(v);
+  else
+    return exp2f(v * kLog2e);
+}
 
-  float a_reg[A_PER], b_reg[B_PER];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int s = 0; s < A_PER; ++s) {
-      const int l = tid + s * kThreads;
-      const int row = m0 + l / BK, k = k0 + l % BK;
-      a_reg[s] = (row < NT && k < H) ? to_f(x[(size_t)row * H + k]) : 0.f;
-    }
-#pragma unroll
-    for (int s = 0; s < B_PER; ++s) {
-      const int l = tid + s * kThreads;
-      const int k = k0 + l / BN, col = n0 + l % BN;
-      b_reg[s] = (k < H && col < V) ? to_f(w[(size_t)k * V + col]) : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int s = 0; s < A_PER; ++s) {
-      const int l = tid + s * kThreads;
-      sm.As[buf][l % BK][l / BK] = a_reg[s];
-    }
-#pragma unroll
-    for (int s = 0; s < B_PER; ++s) {
-      const int l = tid + s * kThreads;
-      sm.Bs[buf][l / BN][l % BN] = b_reg[s];
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[i][q] = 0.f;
-
-  const int n_k = (H + BK - 1) / BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < n_k) load((kt + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], bb[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = sm.As[cur][kk][ty + i * TY];
-#pragma unroll
-      for (int q = 0; q < TN; ++q) bb[q] = sm.Bs[cur][kk][tx + q * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int q = 0; q < TN; ++q) acc[i][q] = fmaf(a[i], bb[q], acc[i][q]);
-    }
-    if (kt + 1 < n_k) store(cur ^ 1);
-    __syncthreads();
+// This thread's place in wgmma's accumulator layout (common.cuh::stage_acc):
+// acc[4i + 2h + j] is row r + 8h, column 8i + c + j of the tile.
+struct AccPos {
+  int r, c;
+  __device__ __forceinline__ AccPos() {
+    const int lane = threadIdx.x % 32;
+    r = (threadIdx.x / 128) * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
+    c = 2 * (lane % 4);
   }
+};
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  __stcs(reinterpret_cast<float2*>(p), make_float2(a, b));
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  __stcs(reinterpret_cast<unsigned int*>(p), *reinterpret_cast<const unsigned int*>(&v));
+}
+__device__ __forceinline__ void store_one(float* p, float a) { __stcs(p, a); }
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float a) {
+  const __nv_bfloat16 v = __float2bfloat16(a);
+  __stcs(reinterpret_cast<unsigned short*>(p),
+         *reinterpret_cast<const unsigned short*>(&v));
 }
 
 // K5, pass 1.  Grid (row tiles, splits); split s walks vocab tiles
 // [s * tiles_per_split, min((s + 1) * tiles_per_split, n_vt)).  Writes
 // part[s][row] = (running max, sum of exp(logit - max), target logit).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(BM * 2, LmTile<T>::BLOCKS)
 lm_score_partial_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         const float* __restrict__ b, const int* __restrict__ tgt,
-                        float* __restrict__ part, int NT, int H, int V,
+                        float* __restrict__ part, int NT, int Hp, int V,
                         int tiles_per_split) {
-  __shared__ TileSmem sm;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int m0 = blockIdx.x * BM;
-  const int split = blockIdx.y;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = vd::align1024(smem_raw);
+  const int m0 = blockIdx.x * BM, split = blockIdx.y;
   const int n_vt = (V + BN - 1) / BN;
   const int t_lo = split * tiles_per_split;
   const int t_hi = min(t_lo + tiles_per_split, n_vt);
+  const int nkt = Hp / vd::TileK<T>::BK;
+  const Operand<T> xo{x, Hp, NT, Hp}, wo{w, Hp, V, Hp};
+  const AccPos p;
 
-  float m[TM], s[TM], tl[TM];
-  int tg[TM];
+  float m[2], s[2], tl[2];
+  int tg[2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + ty + i * TY;
-    tg[i] = row < NT ? tgt[row] : -1;
-    m[i] = kNeg;
-    s[i] = 0.f;
-    tl[i] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + p.r + 8 * h;
+    tg[h] = row < NT ? tgt[row] : -1;
+    m[h] = kNeg;
+    s[h] = 0.f;
+    tl[h] = 0.f;
   }
 
   for (int t = t_lo; t < t_hi; ++t) {
     const int n0 = t * BN;
-    float acc[TM][TN];
-    logits_tile<T>(acc, sm, x, w, NT, H, V, m0, n0);
+    float acc[BN / 2];
+    vd::tile_product<T, BM, BN, STAGES>(acc, smem, xo, nkt, xo, wo, nkt, m0, n0);
+    float mx[2] = {kNeg, kNeg};
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float lmax = kNeg;
+    for (int i = 0; i < BN / 8; ++i) {
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(b + n0 + 8 * i + p.c));
 #pragma unroll
-      for (int q = 0; q < TN; ++q) {
-        const int col = n0 + tx + q * TX;
-        if (col < V) {
-          const float v = acc[i][q] + b[col];
-          acc[i][q] = v;
-          lmax = fmaxf(lmax, v);
-          if (col == tg[i]) tl[i] += v;
+      for (int h = 0; h < 2; ++h) {
+        acc[4 * i + 2 * h] += bb.x;
+        acc[4 * i + 2 * h + 1] += bb.y;
+        mx[h] = fmaxf(mx[h], fmaxf(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]));
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the target's column, when it is one of this thread's in this tile
+      const int d = tg[h] - n0 - p.c;
+      if (d >= 0 && d < BN && (d & 6) == 0) {
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          if (d == 8 * i) tl[h] = acc[4 * i + 2 * h];
+          if (d == 8 * i + 1) tl[h] = acc[4 * i + 2 * h + 1];
         }
       }
-      const float m_new = fmaxf(m[i], lmax);
+      // A thread whose columns so far were all pads (-1e30) counts each as
+      // exp(0) here; the lane merge below scales that count by exp(-1e30 -
+      // max) = 0, since one of a row's four lanes holds a real column.
+      const float mn = fmaxf(m[h], mx[h]);
       float add = 0.f;
 #pragma unroll
-      for (int q = 0; q < TN; ++q)
-        if (n0 + tx + q * TX < V) add += expf(acc[i][q] - m_new);
-      s[i] = s[i] * expf(m[i] - m_new) + add;
-      m[i] = m_new;
+      for (int i = 0; i < BN / 8; ++i)
+        add += exp_<T>(acc[4 * i + 2 * h] - mn) + exp_<T>(acc[4 * i + 2 * h + 1] - mn);
+      s[h] = s[h] * exp_<T>(m[h] - mn) + add;
+      m[h] = mn;
     }
   }
 
-  // merge the TX column threads of each row (16-lane groups of a warp)
+  // merge the four lanes of each row
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
+  for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int o = TX / 2; o > 0; o >>= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[i], o);
-      const float so = __shfl_xor_sync(0xffffffffu, s[i], o);
-      const float to = __shfl_xor_sync(0xffffffffu, tl[i], o);
-      const float mn = fmaxf(m[i], mo);
-      s[i] = s[i] * expf(m[i] - mn) + so * expf(mo - mn);
-      m[i] = mn;
-      tl[i] += to;
+    for (int o = 1; o < 4; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[h], o);
+      const float so = __shfl_xor_sync(0xffffffffu, s[h], o);
+      const float to = __shfl_xor_sync(0xffffffffu, tl[h], o);
+      const float mn = fmaxf(m[h], mo);
+      s[h] = s[h] * exp_<T>(m[h] - mn) + so * exp_<T>(mo - mn);
+      m[h] = mn;
+      tl[h] += to;
     }
-    const int row = m0 + ty + i * TY;
-    if (tx == 0 && row < NT) {
-      float* p = part + ((size_t)split * NT + row) * 3;
-      p[0] = m[i];
-      p[1] = s[i];
-      p[2] = tl[i];
+    const int row = m0 + p.r + 8 * h;
+    if (p.c == 0 && row < NT) {
+      float* q = part + ((size_t)split * NT + row) * 3;
+      q[0] = m[h];
+      q[1] = s[h];
+      q[2] = tl[h];
     }
   }
 }
@@ -240,44 +236,63 @@ __global__ void lm_score_combine_kernel(const float* __restrict__ part,
   logp[row] = TL - l;
 }
 
-// K6.  Grid (row tiles, vocab tiles).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// K6.  Grid (vocab tiles, row tiles).
+template <typename T, int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(BM * 2, LmTile<T>::BLOCKS)
 lm_dlogits_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const float* __restrict__ b, const int* __restrict__ tgt,
                   const float* __restrict__ lse, const float* __restrict__ g,
-                  T* __restrict__ dlog, int NT, int H, int V) {
-  __shared__ TileSmem sm;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  float acc[TM][TN];
-  logits_tile<T>(acc, sm, x, w, NT, H, V, m0, n0);
+                  T* __restrict__ dlog, int NT, int Hp, int V) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = vd::align1024(smem_raw);
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int nkt = Hp / vd::TileK<T>::BK;
+  const Operand<T> xo{x, Hp, NT, Hp}, wo{w, Hp, V, Hp};
+  const AccPos p;
+  // with V even, a thread's column pair starts at an even element
+  const bool pairs = (V & 1) == 0;
+  float acc[BN / 2];
+  vd::tile_product<T, BM, BN, STAGES>(acc, smem, xo, nkt, xo, wo, nkt, m0, n0);
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + ty + i * TY;
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + p.r + 8 * h;
     if (row >= NT) continue;
     const float l = lse[row], gi = g[row];
     const int tg = tgt[row];
+    T* out = dlog + (size_t)row * V;
 #pragma unroll
-    for (int q = 0; q < TN; ++q) {
-      const int col = n0 + tx + q * TX;
+    for (int i = 0; i < BN / 8; ++i) {
+      const int col = n0 + 8 * i + p.c;
       if (col >= V) continue;
-      const float p = expf(acc[i][q] + b[col] - l);
-      dlog[(size_t)row * V + col] = from_f<T>(gi * ((col == tg ? 1.f : 0.f) - p));
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(b + col));
+      const float d0 =
+          gi * ((col == tg ? 1.f : 0.f) - exp_<T>(acc[4 * i + 2 * h] + bb.x - l));
+      const float d1 =
+          gi * ((col + 1 == tg ? 1.f : 0.f) - exp_<T>(acc[4 * i + 2 * h + 1] + bb.y - l));
+      if (pairs) {
+        store_pair(out + col, d0, d1);
+      } else {
+        store_one(out + col, d0);
+        if (col + 1 < V) store_one(out + col + 1, d1);
+      }
     }
   }
 }
 
 template <typename T>
 int launch_score(const void* x, const void* w, const float* b, const int* tgt,
-                 float* part, float* logp, float* lse, int NT, int H, int V,
+                 float* part, float* logp, float* lse, int NT, int Hp, int V,
                  int tiles_per_split, int splits, cudaStream_t stream) {
+  constexpr int BM = LmTile<T>::BM, STAGES = LmTile<T>::STAGES;
+  using L = vd::TileSmem<T, BM, kBN, STAGES>;
+  if (Hp % vd::TileK<T>::BK != 0) return (int)cudaErrorInvalidValue;
+  const auto kernel = lm_score_partial_kernel<T, BM, kBN, STAGES>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((NT + BM - 1) / BM, splits);
-  lm_score_partial_kernel<T><<<grid, kThreads, 0, stream>>>(
-      (const T*)x, (const T*)w, b, tgt, part, NT, H, V, tiles_per_split);
+  kernel<<<grid, BM * 2, L::BYTES, stream>>>((const T*)x, (const T*)w, b, tgt, part,
+                                              NT, Hp, V, tiles_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   lm_score_combine_kernel<<<(NT + 255) / 256, 256, 0, stream>>>(part, logp, lse, NT,
@@ -287,50 +302,61 @@ int launch_score(const void* x, const void* w, const float* b, const int* tgt,
 
 template <typename T>
 int launch_dlogits(const void* x, const void* w, const float* b, const int* tgt,
-                   const float* lse, const float* g, void* dlog, int NT, int H,
+                   const float* lse, const float* g, void* dlog, int NT, int Hp,
                    int V, cudaStream_t stream) {
-  const dim3 grid((NT + BM - 1) / BM, (V + BN - 1) / BN);
-  lm_dlogits_kernel<T><<<grid, kThreads, 0, stream>>>(
-      (const T*)x, (const T*)w, b, tgt, lse, g, (T*)dlog, NT, H, V);
+  constexpr int BM = LmTile<T>::BM, STAGES = LmTile<T>::STAGES;
+  using L = vd::TileSmem<T, BM, kBN, STAGES>;
+  if (Hp % vd::TileK<T>::BK != 0 || (NT + BM - 1) / BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = lm_dlogits_kernel<T, BM, kBN, STAGES>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((V + kBN - 1) / kBN, (NT + BM - 1) / BM);
+  kernel<<<grid, BM * 2, L::BYTES, stream>>>((const T*)x, (const T*)w, b, tgt, lse, g,
+                                              (T*)dlog, NT, Hp, V);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K5.  dtype 0 = float32, 1 = bfloat16 for x (NT, H) and w (H, V); b (V,)
-// f32; tgt (NT,) int32; part (splits, NT, 3) f32 scratch; logp and lse (NT,)
-// f32.  The vocab's ceil(V / 128) tiles are cut into `splits` ranges of
-// tiles_per_split tiles, none of them empty.  Returns a cudaError_t value.
+// K5.  dtype 0 = float32, 1 = bfloat16 for x (NT, Hp) and w (V, Hp), W^T
+// packed as ops/lm_score_cuda.py::pack_lm_weight packs it (Hp a whole number
+// of 128-byte k-tiles, zeros past H in both); b f32, padded with -1e30 to
+// whole 128-column vocab tiles; tgt (NT,) int32; part (splits, NT, 3) f32
+// scratch; logp and lse (NT,) f32.  The vocab's ceil(V / 128) tiles are cut
+// into `splits` ranges of tiles_per_split tiles, none of them empty.
+// Returns a cudaError_t value.
 extern "C" int vd_lm_score(int dtype, const void* x, const void* w, const float* b,
                            const int* tgt, float* part, float* logp, float* lse,
-                           int NT, int H, int V, int tiles_per_split, int splits,
+                           int NT, int Hp, int V, int tiles_per_split, int splits,
                            void* stream) {
-  const int n_vt = (V + BN - 1) / BN;
-  if (NT < 1 || H < 1 || V < 1 || tiles_per_split < 1 || splits < 1 ||
-      (splits - 1) * tiles_per_split >= n_vt || splits * tiles_per_split < n_vt)
+  const int n_vt = (V + kBN - 1) / kBN;
+  if (NT < 1 || Hp < 1 || V < 1 || tiles_per_split < 1 || splits < 1 ||
+      splits > 65535 || (splits - 1) * tiles_per_split >= n_vt ||
+      splits * tiles_per_split < n_vt)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_score<float>(x, w, b, tgt, part, logp, lse, NT, H, V,
+    return launch_score<float>(x, w, b, tgt, part, logp, lse, NT, Hp, V,
                                tiles_per_split, splits, s);
   if (dtype == 1)
-    return launch_score<__nv_bfloat16>(x, w, b, tgt, part, logp, lse, NT, H, V,
+    return launch_score<__nv_bfloat16>(x, w, b, tgt, part, logp, lse, NT, Hp, V,
                                        tiles_per_split, splits, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// K6.  dtype as K5 for x, w and dlog (NT, V); b (V,), lse (NT,) and g (NT,)
-// f32; tgt (NT,) int32.  Returns a cudaError_t value.
+// K6.  dtype, x, w and b as K5; dlog (NT, V) in the dtype; lse (NT,) and g
+// (NT,) f32; tgt (NT,) int32.  Returns a cudaError_t value.
 extern "C" int vd_lm_dlogits(int dtype, const void* x, const void* w,
                              const float* b, const int* tgt, const float* lse,
-                             const float* g, void* dlog, int NT, int H, int V,
+                             const float* g, void* dlog, int NT, int Hp, int V,
                              void* stream) {
-  if (NT < 1 || H < 1 || V < 1 || (V + BN - 1) / BN > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (NT < 1 || Hp < 1 || V < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_dlogits<float>(x, w, b, tgt, lse, g, dlog, NT, H, V, s);
+    return launch_dlogits<float>(x, w, b, tgt, lse, g, dlog, NT, Hp, V, s);
   if (dtype == 1)
-    return launch_dlogits<__nv_bfloat16>(x, w, b, tgt, lse, g, dlog, NT, H, V, s);
+    return launch_dlogits<__nv_bfloat16>(x, w, b, tgt, lse, g, dlog, NT, Hp, V, s);
   return (int)cudaErrorInvalidValue;
 }

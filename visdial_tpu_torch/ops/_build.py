@@ -41,10 +41,10 @@ _SIGNATURES = {
     "vd_attention": [_i] + [_p] * 4 + [_i] * 4 + [_p],
     # dtype, q, slots, valid, wf, bias, out, B, R, S, H, stream
     "vd_attention_fusion": [_i] + [_p] * 6 + [_i] * 4 + [_p],
-    # dtype, x, w, b, tgt, part, logp, lse, NT, H, V, tiles_per_split, splits,
-    # stream
+    # dtype, x, wk, b, tgt, part, logp, lse, NT, Hp, V, tiles_per_split,
+    # splits, stream
     "vd_lm_score": [_i] + [_p] * 7 + [_i] * 5 + [_p],
-    # dtype, x, w, b, tgt, lse, g, dlog, NT, H, V, stream
+    # dtype, x, wk, b, tgt, lse, g, dlog, NT, Hp, V, stream
     "vd_lm_dlogits": [_i] + [_p] * 7 + [_i] * 3 + [_p],
 }
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -6,29 +6,81 @@ Counterparts of visdial_tpu/ops/lm_score_pallas.py::
 lm_token_logprobs_lse_pallas and lm_dlogits_pallas.  A CUDA tensor
 launches the kernel (or the call raises); a CPU tensor takes the plain
 version (ops/lm_score.py).
+
+Both kernels run the logits product on the tensor cores (common.cuh::
+tile_product), whose operands are K-major: each call packs W^T once
+(pack_lm_weight), pads x to the same depth where it must (pad_lm_input) and
+pads b with the TPU kernel's -1e30 to whole vocab tiles (pad_lm_bias).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from . import _build
 from .lm_score import lm_dlogits_plain, lm_token_logprobs_lse_plain
+from .lstm_cuda import k_tile
 
-VOCAB_TILE = 128     # csrc/lm_score.cu's BN: vocab columns per tile
-ROW_TILE = 64        # csrc/lm_score.cu's BM
-BLOCKS_PER_SM = 4    # K5's vocab split aims at this many blocks per SM
+VOCAB_TILE = 128     # csrc/lm_score.cu's kBN: vocab columns per tile
+ROW_TILE = 128       # csrc/lm_score.cu's LmTile<T>::BM, both dtypes
+# csrc/lm_score.cu's LmTile<T>::BLOCKS: K5 blocks that share an SM
+BLOCKS_PER_SM = {torch.float32: 1, torch.bfloat16: 2}
+PAD_BIAS = -1e30     # the bias of a column past V (lm_score_pallas.py's pad)
+# what a K5 block costs beyond its tile products (set-up, merge, partial
+# write), in tile products: the value that picks the fastest split count of
+# `scripts/lm_check.py --splits` at 2,880 and 73,728 rows in both dtypes
+BLOCK_COST = 0.05
 
 
-def vocab_splits(NT: int, V: int, sms: int) -> tuple[int, int]:
-    """(splits, tiles_per_split) for K5's first pass: enough vocab splits
-    that the (row tiles x splits) grid puts about BLOCKS_PER_SM blocks on
-    each of `sms` SMs, every split a non-empty range of vocab tiles."""
+def pack_lm_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The logits product's B operand from W (H, V): W^T in `dtype`, a
+    contiguous (V, Hp) tensor, H zero-padded to Hp, a whole k-tile
+    (k_tile(dtype) values, 128 bytes), so that every row starts 16-byte
+    aligned and no k-tile straddles H."""
+    H, V = w.shape
+    wk = w.new_zeros((V, -(-H // k_tile(dtype)) * k_tile(dtype)), dtype=dtype)
+    wk[:, :H] = w.to(dtype).T
+    return wk
+
+
+def pad_lm_input(x: torch.Tensor) -> torch.Tensor:
+    """x (NT, H) with H zero-padded to pack_lm_weight's Hp; x itself where H
+    is already a whole number of k-tiles."""
+    H = x.shape[1]
+    pad = -H % k_tile(x.dtype)
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+def pad_lm_bias(b: torch.Tensor) -> torch.Tensor:
+    """b (V,) in float32, padded with PAD_BIAS to whole vocab tiles."""
+    V = b.shape[0]
+    bp = torch.full((-(-V // VOCAB_TILE) * VOCAB_TILE,), PAD_BIAS,
+                    dtype=torch.float32, device=b.device)
+    bp[:V] = b
+    return bp
+
+
+def vocab_splits(NT: int, V: int, sms: int,
+                 blocks_per_sm: int = 1) -> tuple[int, int]:
+    """(splits, tiles_per_split) for K5's first pass.  The (row tiles x
+    splits) grid runs in waves of sms x blocks_per_sm blocks, and a block
+    takes tiles_per_split tile products plus BLOCK_COST: the split count is
+    the one with the fewest waves x (tiles_per_split + BLOCK_COST) (the
+    fewest splits among equals), every split a non-empty range of vocab
+    tiles."""
     n_vt = -(-V // VOCAB_TILE)
     row_tiles = -(-NT // ROW_TILE)
-    want = min(n_vt, max(1, -(-BLOCKS_PER_SM * sms // row_tiles)))
-    per = -(-n_vt // want)
-    return -(-n_vt // per), per
+    best = None
+    for want in range(1, n_vt + 1):
+        per = -(-n_vt // want)
+        splits = -(-n_vt // per)
+        waves = math.ceil(row_tiles * splits / (sms * blocks_per_sm))
+        cost = waves * (per + BLOCK_COST)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
 
 
 def _check(what: str, x, w, b, tgt, *rows) -> tuple[int, int, int]:
@@ -65,20 +117,19 @@ def lm_token_logprobs_lse(x, w, b, tgt):
     if x.device.type == "cpu":
         return lm_token_logprobs_lse_plain(x, w, b, tgt)
     NT, H, V = _check("lm_token_logprobs_lse", x, w, b, tgt)
-    w = w.to(x.dtype).contiguous()
-    b = b.float().contiguous()
+    xp, wk, bp = pad_lm_input(x), pack_lm_weight(w, x.dtype), pad_lm_bias(b)
     tgt = tgt.to(torch.int32).contiguous()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, per = vocab_splits(NT, V, sms)
+    splits, per = vocab_splits(NT, V, sms, BLOCKS_PER_SM[x.dtype])
     part = torch.empty((splits, NT, 3), dtype=torch.float32, device=x.device)
     logp = torch.empty(NT, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(logp)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.vd_lm_score(
-            _build.DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            _build.DTYPE_CODE[x.dtype], xp.data_ptr(), wk.data_ptr(), bp.data_ptr(),
             tgt.data_ptr(), part.data_ptr(), logp.data_ptr(), lse.data_ptr(),
-            NT, H, V, per, splits, _build.stream_of(x))
+            NT, xp.shape[1], V, per, splits, _build.stream_of(x))
     _build.check(err, "lm_token_logprobs_lse")
     lm_token_logprobs_lse.launches += 1
     return logp, lse
@@ -96,8 +147,7 @@ def lm_dlogits(x, w, b, tgt, lse, g):
     if x.device.type == "cpu":
         return lm_dlogits_plain(x, w, b, tgt, lse, g)
     NT, H, V = _check("lm_dlogits", x, w, b, tgt, ("lse", lse), ("g", g))
-    w = w.to(x.dtype).contiguous()
-    b = b.float().contiguous()
+    xp, wk, bp = pad_lm_input(x), pack_lm_weight(w, x.dtype), pad_lm_bias(b)
     tgt = tgt.to(torch.int32).contiguous()
     lse = lse.float().contiguous()
     g = g.float().contiguous()
@@ -105,9 +155,9 @@ def lm_dlogits(x, w, b, tgt, lse, g):
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.vd_lm_dlogits(
-            _build.DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            _build.DTYPE_CODE[x.dtype], xp.data_ptr(), wk.data_ptr(), bp.data_ptr(),
             tgt.data_ptr(), lse.data_ptr(), g.data_ptr(), dlog.data_ptr(),
-            NT, H, V, _build.stream_of(x))
+            NT, xp.shape[1], V, _build.stream_of(x))
     _build.check(err, "lm_dlogits")
     lm_dlogits.launches += 1
     return dlog
