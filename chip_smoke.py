@@ -62,9 +62,17 @@ LSTM_HEAD = (32000, 8, 300, 512)
 # the question and fact LSTMs' 320 rows (first layers)
 BWD_SHAPES = [(32000, 8, 300, 512), (32000, 8, 512, 512),
               (320, 40, 300, 512), (320, 16, 300, 512)]
-ATTN_SHAPES = [(1, 10, 10, 512), (32, 10, 10, 512)]       # B, R, S, H
-# K3: the training batch, one dialog, and a batch with all-masked rows
-ATTN3_SHAPES = [(32, 10, 10, 512), (1, 10, 10, 512), (4, 10, 10, 512)]
+# K4 (B, R, S, H): a served request, an eval batch, ragged rows with
+# all-masked rows (the two sides of its route threshold are added)
+ATTN_SHAPES = [(1, 10, 10, 512), (32, 10, 10, 512), (7, 10, 10, 512)]
+# K3: the training batch, one dialog, a batch with all-masked rows, and
+# img_spatial's 49 slots and the limit of 64
+ATTN3_SHAPES = [(32, 10, 10, 512), (1, 10, 10, 512), (4, 10, 10, 512),
+                (32, 10, 49, 512), (32, 10, 64, 512)]
+# the masks of those shapes: the encoder's causal mask as it hands it over,
+# an expanded view (batch stride 0), but at these dialog counts a copy with
+# all-masked rows
+ATTN_MASKED = {"attention": 4, "attention_fusion": 7}
 # train: loss is a mean of 320 f32 NLLs; grad_norm and the gradients are
 # sums in another order (K2 and the f32 contractions vs autograd + cuBLAS)
 LOSS_TOL, GNORM_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
@@ -121,6 +129,22 @@ def emit(obj: dict) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def launch_ms(fn, n: int = 200) -> float:
+    """n calls of fn back to back between one pair of CUDA events, over n:
+    the rate the card can be fed at (for a kernel of a few microseconds,
+    the host's time a call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -248,13 +272,14 @@ def _demangle(names: list[str]) -> dict:
 
 
 def kernel_report() -> list[dict]:
-    """For each tensor-core kernel (K1, K2, K5's first pass and K6):
-    registers, shared memory and spills, as ptxas -v wrote them into the
-    build's nvcc.log (the dynamic shared memory from the tile configuration
-    in its template arguments, as common.cuh::TileSmem sizes it), and the
-    count of tensor-core instructions (HGMMA, HMMA) in its SASS, by
-    cuobjdump -sass.  Each such kernel's SASS must hold HGMMA where
-    cuobjdump can tell."""
+    """For each tensor-core kernel (K1, K2, K5's first pass, K6 and K4's
+    tensor-core route) and for K3 and K4's few-rows route: registers,
+    shared memory and spills, as ptxas -v wrote them into the build's
+    nvcc.log (the dynamic shared memory from the tile configuration in its
+    template arguments, as common.cuh::TileSmem sizes it; K3's and K4's
+    few-rows route size theirs by shape), and the count of tensor-core
+    instructions (HGMMA, HMMA) in its SASS, by cuobjdump -sass.  Each
+    tensor-core kernel's SASS must hold HGMMA where cuobjdump can tell."""
     from visdial_tpu_torch.ops import _build
 
     lib = _build.library_path()
@@ -294,7 +319,9 @@ def kernel_report() -> list[dict]:
             why = f"cuobjdump -sass exited {proc.returncode}: {proc.stderr[-300:]}"
     else:
         why = "no cuobjdump in the CUDA toolkit"
-    names = sorted(n for n in res if ("lstm_" in n or "lm_" in n)
+    families = ("lstm_", "lm_", "attention_kernel", "fusion_stream",
+                "fusion_tiles")
+    names = sorted(n for n in res if any(f in n for f in families)
                    and "combine" not in n)
     plain = _demangle(names)
     rows = []
@@ -305,17 +332,22 @@ def kernel_report() -> list[dict]:
             f32, bm, bn, stages = m[1] == "float", int(m[2]), int(m[3]), int(m[4])
             ring = (stages + (2 if f32 else 0)) * (bm + bn) * 128
             row["dynamic_smem"] = max(ring, bm * (bn + 8) * 4) + 1024
+        else:
+            row["dynamic_smem"] = "by shape"
+        tensor_cores = "attention_kernel" not in n and "fusion_stream" not in n
         if why:
             row["tensor_core_sass"] = f"not known: {why}"
         else:
             check(n in sass, f"{plain[n]} not in cuobjdump's SASS")
             row.update(sass[n])
-            check(sass[n]["hgmma"] > 0, f"{plain[n]}: no HGMMA in its SASS")
+            check(sass[n]["hgmma"] > 0 or not tensor_cores,
+                  f"{plain[n]}: no HGMMA in its SASS")
         emit(row)
         rows.append(row)
-    check(sum("lstm_" in r["kernel"] for r in rows) >= 6
-          and sum("lm_" in r["kernel"] for r in rows) >= 4,
-          f"ptxas reported {len(rows)} K1/K2/K5/K6 kernels")
+    counts = {f: sum(f in n for n in names) for f in families}
+    check(counts["lstm_"] >= 6 and counts["lm_"] >= 4
+          and all(counts[f] >= 2 for f in families[2:]),
+          f"ptxas reported kernels {counts}")
     return rows
 
 
@@ -364,23 +396,42 @@ def lstm_checks(dev, gen) -> list[dict]:
     return rows
 
 
-def attention_checks(dev, gen) -> list[dict]:
-    from visdial_tpu_torch.ops.attention import attention_fusion_ref
-    from visdial_tpu_torch.ops.attention_cuda import attention_fusion
+def causal_mask(dev, B, R, S, masked: bool):
+    """The encoder's causal mask (slot s visible to round r where s <= r)
+    on the card as it hands it over, an expanded view with batch stride 0;
+    with `masked`, a copy in which rows (1, 3) and (B - 1, 0) see nothing."""
+    valid = (torch.arange(S)[None, :] <= torch.arange(R)[:, None]).float()
+    valid = valid.to(dev)[None].expand(B, R, S)
+    if masked:
+        valid = valid.contiguous()
+        valid[1, 3] = 0.0
+        valid[B - 1, 0] = 0.0
+    return valid
 
+
+def attention_checks(dev, gen) -> list[dict]:
+    """K4 against attention_fusion_ref at ATTN_SHAPES and the two sides of
+    its route threshold, f32 and bf16, with the single-pass TF32 control at
+    the f32 eval batch."""
+    from visdial_tpu_torch.ops.attention import attention_fusion_ref
+    from visdial_tpu_torch.ops.attention_cuda import (FUSION_STREAM_ROWS,
+                                                      attention_fusion,
+                                                      fusion_route,
+                                                      pack_fusion_weight)
+
+    sides = sorted({b for t in FUSION_STREAM_ROWS.values() for b in
+                    (t // 10, t // 10 + 1)} - {s[0] for s in ATTN_SHAPES})
+    shapes = ATTN_SHAPES + [(b, 10, 10, 512) for b in sides]
     rows = []
-    for B, R, S, H in ATTN_SHAPES:
+    for B, R, S, H in shapes:
         q = torch.randn(B, R, H, generator=gen) * 0.5
         s = torch.randn(B, S, H, generator=gen) * 0.5
-        slot = torch.arange(S)
-        valid = (slot[None, :] <= torch.arange(R)[:, None]).float()
-        valid = valid[None].expand(B, R, S).contiguous()    # causal
+        valid = causal_mask(dev, B, R, S, B == ATTN_MASKED["attention_fusion"])
         fw = torch.empty(2 * H, H).uniform_(-0.08, 0.08, generator=gen)
         fb = torch.empty(H).uniform_(-0.08, 0.08, generator=gen)
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).split(".")[1]
-            args = [q.to(dev, dt), s.to(dev, dt), valid.to(dev), fw.to(dev),
-                    fb.to(dev)]
+            args = [q.to(dev, dt), s.to(dev, dt), valid, fw.to(dev), fb.to(dev)]
             got = attention_fusion(*args)
             torch.cuda.synchronize()
             want = attention_fusion_ref(*args)
@@ -390,12 +441,23 @@ def attention_checks(dev, gen) -> list[dict]:
                   f"attention_fusion non-finite at {(B, R, S, H)} {name}")
             check(err <= TOL[name], f"attention_fusion {(B, R, S, H)} {name}: "
                   f"max abs err {err} > {TOL[name]}")
+            route = fusion_route(B, R, S, H, dt)
             row = {"phase": "attention_fusion", "shape": [B, R, S, H],
-                   "dtype": name, "max_abs_err": err, "tol": TOL[name],
+                   "dtype": name, "route": route, "max_abs_err": err,
+                   "tol": TOL[name],
                    "ms": time_ms(lambda: attention_fusion(*args), 50),
+                   "launch_ms": launch_ms(lambda: attention_fusion(*args)),
                    "plain_ms": time_ms(
                                        lambda: attention_fusion_ref(*args), 50),
                    **attention_bound(B, R, S, H, name, fusion=True)}
+            if route == "tiles":   # the wrapper's packing of Wf, inside "ms"
+                row["pack_ms"] = time_ms(lambda: pack_fusion_weight(args[3], dt),
+                                         50)
+            if (B, R, S, H) == ATTN_SHAPES[1] and dt == torch.float32:
+                row["tf32_control_err"] = tf32_control(
+                    attention_fusion_ref, args, want,
+                    lambda a, b: float((a.float() - b.float()).abs().max()),
+                    TOL[name], "attention_fusion", (B, R, S, H))
             emit(row)
             rows.append(row)
     return rows
@@ -487,12 +549,7 @@ def attention_only_checks(dev, gen) -> list[dict]:
     for B, R, S, H in ATTN3_SHAPES:
         q = torch.randn(B, R, H, generator=gen) * 0.5
         s = torch.randn(B, S, H, generator=gen) * 0.5
-        slot = torch.arange(S)
-        valid = (slot[None, :] <= torch.arange(R)[:, None]).float()
-        valid = valid[None].expand(B, R, S).contiguous()    # causal
-        if B == 4:
-            valid[1, 3] = 0.0                                # all-masked rows
-            valid[3, 0] = 0.0
+        valid = causal_mask(dev, B, R, S, B == ATTN_MASKED["attention"])
         g = torch.randn(B, R, H, generator=gen)
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).split(".")[1]
@@ -500,7 +557,7 @@ def attention_only_checks(dev, gen) -> list[dict]:
             for fn in (AttentionFn.apply, attention_plain):
                 qq = q.to(dev, dt).requires_grad_()
                 ss = s.to(dev, dt).requires_grad_()
-                out = fn(qq, ss, valid.to(dev))
+                out = fn(qq, ss, valid)
                 grads.append(torch.autograd.grad(out, (qq, ss), g.to(dev, dt)))
                 outs.append(out.detach())
             torch.cuda.synchronize()
@@ -511,12 +568,13 @@ def attention_only_checks(dev, gen) -> list[dict]:
             check(err <= TOL[name] and grad_err <= GRAD_TOL[name],
                   f"attention {(B, R, S, H)} {name}: rel err {err} (tol "
                   f"{TOL[name]}), grad rel err {grad_err} (tol {GRAD_TOL[name]})")
-            args = (q.to(dev, dt), s.to(dev, dt), valid.to(dev))
+            args = (q.to(dev, dt), s.to(dev, dt), valid)
             row = {"phase": "attention", "shape": [B, R, S, H], "dtype": name,
                    "max_rel_err": err, "max_abs_err": abs_err(outs[:1], outs[1:]),
                    "grad_max_rel_err": grad_err,
                    "tol": TOL[name], "grad_tol": GRAD_TOL[name],
                    "ms": time_ms(lambda: masked_slot_attention(*args), 50),
+                   "launch_ms": launch_ms(lambda: masked_slot_attention(*args)),
                    "plain_ms": time_ms(lambda: attention_plain(*args), 50),
                    "library_ms": time_ms(lambda: sdpa_attention(*args), 50),
                    **attention_bound(B, R, S, H, name)}
@@ -1143,10 +1201,14 @@ def main() -> None:
                "gen_eval": gen_evaluated["launches"],
                "gen_serve": gen_served["launches"]}
 
-    def summary(rows, head_shape, path, **fixed):
-        head = next(r for r in rows if r["shape"] == head_shape
+    def head_row(rows, shape):
+        return next(r for r in rows if r["shape"] == shape
                     and r["dtype"] == "float32")
-        return {**fixed, "route": "cuda",
+
+    def summary(rows, head_shape, path, **fixed):
+        head = head_row(rows, head_shape)
+        extra = {"launch_ms": head["launch_ms"]} if "launch_ms" in head else {}
+        return {**fixed, **extra, "route": "cuda",
                 "launches": by_path[path][fixed["name"]],
                 "launches_by_path": {p: n[fixed["name"]] for p, n in by_path.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in rows
@@ -1171,7 +1233,12 @@ def main() -> None:
                 replaces="visdial_tpu/ops/attention_pallas.py:24"),
         summary(k4, [1, 10, 10, 512], "serve", name="attention_fusion",
                 source="visdial_tpu_torch/csrc/attention_fusion.cu",
-                replaces="visdial_tpu/ops/attention_pallas.py:115"),
+                replaces="visdial_tpu/ops/attention_pallas.py:115",
+                # the eval batch's head (gen eval, the disc streaming eval),
+                # on the tensor-core route
+                eval_head={k: head_row(k4, [32, 10, 10, 512]).get(k) for k in (
+                    "shape", "route", "ms", "launch_ms", "pack_ms", "plain_ms",
+                    "bound_ms", "bound_by", "max_abs_err")}),
         summary(k5, [2880, 512, 8804], "gen_train", name="lm_score",
                 source="visdial_tpu_torch/csrc/lm_score.cu",
                 replaces="visdial_tpu/ops/lm_score_pallas.py:37"),

@@ -16,9 +16,11 @@ from visdial_tpu.ops.attention_pallas import (_attention_fusion_ref,
                                               masked_slot_attention_pallas)
 from visdial_tpu_torch.ops.attention import (attention_fusion_ref,
                                              attention_plain,
+                                             fusion_preactivation,
                                              masked_slot_attention)
 from visdial_tpu_torch.ops import attention_cuda
 from visdial_tpu_torch.ops.attention_cuda import AttentionFn, attention_fusion
+from visdial_tpu_torch.ops.lstm_cuda import k_tile
 
 torch.set_num_threads(1)
 
@@ -42,7 +44,9 @@ def _case(B, R, S, H, *, masked_row: bool, seed=0):
 
 CASES = [pytest.param(3, 4, 4, 16, False, id="B3-causal"),
          pytest.param(3, 4, 4, 16, True, id="B3-masked-row"),
-         pytest.param(9, 5, 7, 24, True, id="B9-S7-masked-row")]
+         pytest.param(9, 5, 7, 24, True, id="B9-S7-masked-row"),
+         # img_spatial's 49 pool5 slots, at a narrow width
+         pytest.param(3, 10, 49, 16, True, id="B3-S49-masked-row")]
 
 
 @pytest.mark.parametrize("B,R,S,H,masked_row", CASES)
@@ -99,6 +103,80 @@ def test_fully_masked_row_attends_uniformly():
     for fn in (masked_slot_attention, attention_plain):
         got = fn(*map(torch.from_numpy, (q, s, valid)))
         np.testing.assert_allclose(got[1, 2].numpy(), s[1].mean(0), atol=ATOL)
+
+
+def test_expanded_mask_crosses_without_a_copy():
+    """The encoder hands its causal mask over as an expanded view (batch
+    stride 0): the kernels take it as it is (same storage, strides (0, S)),
+    another dtype is converted, and the outputs equal those of its
+    contiguous copy."""
+    B, R, S, H = 3, 4, 4, 16
+    q, s, valid, fw, fb = map(torch.from_numpy, _case(B, R, S, H, masked_row=False))
+    base = valid[0].clone()
+    view = base[None].expand(B, R, S)
+    got, vb, vr = attention_cuda._mask(view)
+    assert got.data_ptr() == base.data_ptr() and (vb, vr) == (0, S)
+    got, _, _ = attention_cuda._mask(view.bfloat16())
+    assert got.dtype == torch.float32 and torch.equal(got, view)
+    dense = view.contiguous()
+    for fn, extra in ((attention_cuda.masked_slot_attention, ()),
+                      (AttentionFn.apply, ()),
+                      (attention_fusion, (fw, fb))):
+        assert torch.equal(fn(q, s, view, *extra), fn(q, s, dense, *extra))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [16, 40, 100])
+def test_packed_fusion_operands_give_the_plain_preactivation(H, dtype):
+    """K4's tensor-core operands as its wrapper prepares them: Wf^T packed
+    K-major (H, 2 Hp), each half zero-padded to a whole k-tile, against
+    [q; mem] laid out at the same depths.  Through a plain matmul they give
+    attention_fusion_ref's pre-activation exactly (small integers: every sum
+    is exact)."""
+    rng = np.random.default_rng(H)
+    n = 6
+    ints = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.integers(-8, 9, shape).astype(np.float32))
+    q, mem = ints(n, H).to(dtype), ints(n, H).to(dtype)
+    fw, fb = ints(2 * H, H), ints(H)
+    wk = attention_cuda.pack_fusion_weight(fw, dtype)
+    Hp = -(-H // k_tile(dtype)) * k_tile(dtype)
+    assert wk.shape == (H, 2 * Hp) and wk.dtype == dtype and wk.is_contiguous()
+    assert not wk[:, H:Hp].any() and not wk[:, Hp + H:].any()
+    a = torch.zeros(n, 2 * Hp)
+    a[:, :H], a[:, Hp:Hp + H] = q.float(), mem.float()
+    got = a @ wk.float().T + fb
+    assert torch.equal(got, fusion_preactivation(q, mem, fw, fb))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fusion_route_threshold(dtype):
+    """K4 streams Wf up to FUSION_STREAM_ROWS rows (a served request: 10)
+    and takes the tensor cores above (an eval batch: 320), and wherever the
+    streaming block's shared memory would not fit (S = 64 slots of many
+    one-round dialogs at H = 2,048)."""
+    t = attention_cuda.FUSION_STREAM_ROWS[dtype]
+    assert 10 <= t < 320 and t <= attention_cuda.STREAM_MAX_ROWS
+    route = attention_cuda.fusion_route
+    assert route(1, 10, 10, 512, dtype) == route(t // 10, 10, 10, 512, dtype) \
+        == route(t, 1, 4, 512, dtype) == "stream"
+    assert route(t // 10 + 1, 10, 10, 512, dtype) == route(32, 10, 10, 512, dtype) \
+        == route(t + 1, 1, 10, 512, dtype) == "tiles"
+    assert route(t, 1, 64, 2048, dtype) == "tiles"
+    assert attention_cuda.stream_smem(t, 1, 64, 2048, dtype) > attention_cuda.MAX_SMEM
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_smem_at_serving(dtype):
+    """The few-rows route's shared memory at one served request (B, R, S, H
+    = 1, 10, 10, 512), counted by hand: clusters of 8 blocks of 64 columns
+    (ld = 64 + one 16-byte pad), 10 slot and 10 query rows in the dtype, 2 x
+    100 f32 scores, 128 Wf rows x 32 f32, 10 mem rows, 10 x 32 f32 sums."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    ld = 64 + 16 // size
+    att = -(-(20 * ld * size + 800) // 16) * 16
+    want = att + 128 * 32 * 4 + 10 * ld * size + 10 * 32 * 4
+    assert attention_cuda.stream_smem(1, 10, 10, 512, dtype) == want
 
 
 def test_wrapper_has_no_silent_fallback():

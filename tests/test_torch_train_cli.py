@@ -55,6 +55,24 @@ def _argv(cfg: Config, tmp_path, run_name: str, *extra) -> list[str]:
                    "--save_path", str(tmp_path), "--run_name", run_name, *extra]
 
 
+def _jax_train_event_keys() -> set[str]:
+    """The keys of the JAX CLI's `train` event, read from the dict literal
+    it logs in visdial_tpu/train.py."""
+    import ast
+
+    with open(os.path.join(ROOT, "visdial_tpu", "train.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Dict):
+            keys = {k.value for k in node.keys if isinstance(k, ast.Constant)}
+            pairs = dict(zip(node.keys, node.values))
+            if any(isinstance(k, ast.Constant) and k.value == "event"
+                   and isinstance(v, ast.Constant) and v.value == "train"
+                   for k, v in pairs.items()):
+                return keys
+    raise AssertionError("no train event in visdial_tpu/train.py")
+
+
 def _events(tmp_path, run_name):
     with open(os.path.join(tmp_path, run_name, "metrics.jsonl")) as f:
         return [json.loads(ln) for ln in f]
@@ -75,8 +93,10 @@ def test_checkpoint_resume_reproduces_the_unbroken_run(tmp_path):
     ev = _events(tmp_path, "split")
     assert [e["from"] for e in ev if e["event"] == "resumed"] == [
         os.path.join(str(tmp_path), "split", "step_00000004")]
-    whole = {e["step"]: e["loss"] for e in _events(tmp_path, "whole")
-             if e["event"] == "train"}
+    train_events = [e for e in _events(tmp_path, "whole") if e["event"] == "train"]
+    missing = _jax_train_event_keys() - set(train_events[0])
+    assert not missing, f"the port's train event lacks {sorted(missing)}"
+    whole = {e["step"]: e["loss"] for e in train_events}
     split = {e["step"]: e["loss"] for e in ev if e["event"] == "train"}
     assert sorted(split) == list(range(1, 8)) and split == whole
     a, _, _ = load_train_state(latest_checkpoint(str(tmp_path / "whole")), "cpu")

@@ -31,16 +31,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
+_ll = ctypes.c_longlong
 _SIGNATURES = {
     # dtype, x, mask, w, b, h0c, h, c, hs, cs, N, T, Ep, Kx, KW, H, stream
     "vd_lstm_layer_fwd": [_i] + [_p] * 9 + [_i] * 6 + [_p],
     # dtype, x, hprev, cprev, mask, w, wh, b, ghs, dh, dc, dhp, dgp, N, T, Ep,
     # Kx, KW, H, S, stream
     "vd_lstm_layer_bwd": [_i] + [_p] * 12 + [_i] * 7 + [_p],
-    # dtype, q, slots, valid, out, B, R, S, H, stream
-    "vd_attention": [_i] + [_p] * 4 + [_i] * 4 + [_p],
-    # dtype, q, slots, valid, wf, bias, out, B, R, S, H, stream
-    "vd_attention_fusion": [_i] + [_p] * 6 + [_i] * 4 + [_p],
+    # dtype, q, slots, valid, valid's batch and row strides, out, B, R, S,
+    # H, cluster, stream
+    "vd_attention": [_i] + [_p] * 3 + [_ll] * 2 + [_p] + [_i] * 5 + [_p],
+    # dtype, route, q, slots, valid, its batch and row strides, w, bias, mem,
+    # out, B, R, S, H, split, stream
+    "vd_attention_fusion": [_i] * 2 + [_p] * 3 + [_ll] * 2 + [_p] * 4
+                           + [_i] * 5 + [_p],
     # dtype, x, wk, b, tgt, part, logp, lse, NT, Hp, V, tiles_per_split,
     # splits, stream
     "vd_lm_score": [_i] + [_p] * 7 + [_i] * 5 + [_p],

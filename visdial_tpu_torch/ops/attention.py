@@ -40,12 +40,19 @@ def attention_plain(query: torch.Tensor, slots: torch.Tensor,
     return torch.einsum("brs,bsh->brh", att, slots.float()).to(query.dtype)
 
 
+def fusion_preactivation(query, mem, fusion_w, fusion_b):
+    """K4's pre-activation: [query; mem] (N, 2H) in their dtype times
+    fusion_w rounded to that dtype, in f32, plus fusion_b."""
+    cat = torch.cat([query, mem], dim=-1)
+    return cat.float() @ fusion_w.to(cat.dtype).float() + fusion_b.float()
+
+
 def attention_fusion_ref(query, slots, valid, fusion_w, fusion_b):
     """Plain PyTorch version of kernel K4 (attention_pallas.py::
     _attention_fusion_ref): attention -> concat -> linear -> tanh.
     fusion_w (2H, H) rows [query half; memory half], fusion_b (H,)."""
     B, R, H = query.shape
     mem = attention_plain(query, slots, valid)
-    cat = torch.cat([query.reshape(-1, H), mem.reshape(-1, H)], dim=-1)
-    pre = cat.float() @ fusion_w.to(cat.dtype).float() + fusion_b.float()
+    pre = fusion_preactivation(query.reshape(-1, H), mem.reshape(-1, H),
+                               fusion_w, fusion_b)
     return torch.tanh(pre).reshape(B, R, H).to(query.dtype)

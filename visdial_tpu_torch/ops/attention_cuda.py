@@ -7,16 +7,79 @@ masked_slot_attention_pallas (custom-vjp `_attention`) and
 attention_fusion_pallas (forward only, as the eval path uses it).  A CUDA
 tensor launches the kernel (or the call raises); a CPU tensor takes the
 plain version, ops/attention.py::attention_plain / attention_fusion_ref.
+
+K4 takes one of two routes (fusion_route): few rows run in one launch that
+streams Wf (2H, H) as it is, spread over the card; many rows run the
+attention (K3's kernel, into a scratch buffer for mem) and then the fusion
+product on the tensor cores, whose operands are K-major, so the call packs
+Wf^T first (pack_fusion_weight).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from . import _build
 from .attention import attention_fusion_ref, attention_plain
+from .lstm_cuda import k_tile
 
 MAX_SLOTS = 64
+# K4 streams Wf for calls of at most this many rows (B * R) and runs on the
+# tensor cores above it: where the two routes' device times cross, by dtype
+# (`scripts/attention_check.py --sweep` on an H100; PERF.md)
+FUSION_STREAM_ROWS = {torch.float32: 40, torch.bfloat16: 20}
+STREAM_MAX_ROWS = 128     # csrc/attention_fusion.cu's kStreamMaxRows
+MAX_SMEM = 232448         # shared memory a block may use (kMaxSmem)
+ROUTE_CODE = {"stream": 0, "tiles": 1}
+# K3's blocks a dialog and K4's k-slices of the fusion product (each a
+# thread-block cluster, 1 to 8); 0 takes the rule of
+# csrc/attention_fusion.cu::fill_split.  Set only by
+# `scripts/attention_check.py --clusters`, which compares the counts.
+K3_CLUSTER = 0
+K4_SPLIT = 0
+
+
+def stream_smem(B: int, R: int, S: int, H: int, dtype: torch.dtype) -> int:
+    """Shared memory a block of K4's few-rows route takes (bytes), as
+    csrc/attention_fusion.cu's StreamPlan and attn_smem size it: the group's
+    slot and query columns and its scores, Wf's rows, mem's columns and the
+    partial sums."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    v = 16 // size
+    chunks, slices = -(-H // v), -(-H // 32)
+    cl = 1
+    while cl < 8 and slices * cl < 128 and 2 * cl <= chunks:
+        cl *= 2
+    cols = -(-chunks // cl) * v
+    ld, M = cols + v, B * R
+    att = -(-((B * S + M) * ld * size + 2 * M * S * 4) // 16) * 16
+    return att + 2 * cols * 32 * 4 + M * ld * size + M * 32 * 4
+
+
+def fusion_route(B: int, R: int, S: int, H: int, dtype: torch.dtype) -> str:
+    """K4's route for a call of B dialogs x R rounds over S slots: "stream"
+    (one launch, CUDA cores, Wf read once) up to FUSION_STREAM_ROWS[dtype]
+    rows where its shared memory fits, else "tiles" (the attention, then
+    common.cuh::tile_product on the tensor cores, Wf packed)."""
+    if B * R <= FUSION_STREAM_ROWS[dtype] and stream_smem(B, R, S, H, dtype) <= MAX_SMEM:
+        return "stream"
+    return "tiles"
+
+
+def pack_fusion_weight(fusion_w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The tensor-core route's B operand from Wf (2H, H): Wf^T in `dtype`, a
+    contiguous (H, 2 Hp) tensor with wk[j, k] = Wf[k, j] and wk[j, Hp + k] =
+    Wf[H + k, j] for k < H and zeros elsewhere, Hp being H rounded up to a
+    whole k-tile (k_tile(dtype) values, 128 bytes), so that the q half and
+    the mem half each start a k-tile."""
+    H = fusion_w.shape[1]
+    Hp = -(-H // k_tile(dtype)) * k_tile(dtype)
+    new = fusion_w.new_empty if Hp == H else fusion_w.new_zeros
+    wk = new((H, 2, Hp), dtype=dtype)
+    wk[:, :, :H] = fusion_w.reshape(2, H, H).permute(2, 0, 1)   # (j, half, k)
+    return wk.view(H, 2 * Hp)
 
 
 def _check(what: str, query, slots, valid, *others) -> tuple[int, int, int, int]:
@@ -44,6 +107,25 @@ def _check(what: str, query, slots, valid, *others) -> tuple[int, int, int, int]
     return B, R, S, H
 
 
+def _mask(valid: torch.Tensor) -> tuple[torch.Tensor, int, int]:
+    """valid as the kernels read it, f32 with unit slot stride, and its
+    batch and row strides: an f32 view such as the encoder's expanded
+    causal mask (batch stride 0) crosses as it is; another dtype is
+    converted."""
+    if valid.dtype != torch.float32:
+        valid = valid.float()
+    if valid.stride(2) != 1:
+        valid = valid.contiguous()
+    return valid, valid.stride(0), valid.stride(1)
+
+
+def _on(device: torch.device):
+    """torch.cuda.device(device), entered only where it is not current."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def masked_slot_attention(query, slots, valid):
     """Attention-weighted slot sum (K3): query (B, R, H) and slots (B, S, H)
     float32 or bfloat16, valid (B, R, S) 1.0 where slot s is visible to
@@ -53,13 +135,12 @@ def masked_slot_attention(query, slots, valid):
     if query.device.type == "cpu":
         return attention_plain(query, slots, valid)
     B, R, S, H = _check("masked_slot_attention", query, slots, valid)
-    valid = valid.float().contiguous()
+    valid, vb, vr = _mask(valid)
     out = torch.empty_like(query)
-    lib = _build.library()
-    with torch.cuda.device(query.device):
-        err = lib.vd_attention(
+    with _on(query.device):
+        err = _build.library().vd_attention(
             _build.DTYPE_CODE[query.dtype], query.data_ptr(), slots.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), B, R, S, H,
+            valid.data_ptr(), vb, vr, out.data_ptr(), B, R, S, H, K3_CLUSTER,
             _build.stream_of(query))
     _build.check(err, "masked_slot_attention")
     masked_slot_attention.launches += 1
@@ -93,9 +174,10 @@ class AttentionFn(torch.autograd.Function):
 def attention_fusion(query, slots, valid, fusion_w, fusion_b):
     """joint = tanh([query; attention(query, slots)] @ fusion_w + fusion_b)
     (K4).  query (B, R, H) and slots (B, S, H) float32 or bfloat16, valid
-    (B, R, S), fusion_w (2H, H) (cast to query.dtype), fusion_b (H,).
-    Returns (B, R, H) in query.dtype.  Forward only (the eval path).
-    `attention_fusion.launches` counts the calls that went to the kernel."""
+    (B, R, S), fusion_w (2H, H) (rounded to query.dtype inside, as the TPU
+    wrapper casts it), fusion_b (H,).  Returns (B, R, H) in query.dtype.
+    Forward only (the eval path).  `attention_fusion.launches` counts the
+    calls that went to the kernel."""
     if query.device.type == "cpu":
         return attention_fusion_ref(query, slots, valid, fusion_w, fusion_b)
     B, R, S, H = _check("attention_fusion", query, slots, valid, fusion_w,
@@ -103,16 +185,22 @@ def attention_fusion(query, slots, valid, fusion_w, fusion_b):
     if tuple(fusion_w.shape) != (2 * H, H) or tuple(fusion_b.shape) != (H,):
         raise ValueError(f"attention_fusion: fusion_w {tuple(fusion_w.shape)}, "
                          f"fusion_b {tuple(fusion_b.shape)} do not fit H={H}")
-    wf = fusion_w.to(query.dtype).contiguous()
+    route = fusion_route(B, R, S, H, query.dtype)
+    if route == "tiles":
+        w = pack_fusion_weight(fusion_w, query.dtype)
+        mem = torch.empty_like(query)
+    else:
+        w = fusion_w.float().contiguous()   # f32 Wf crosses as it is
+        mem = query                         # not used
     bias = fusion_b.float().contiguous()
-    valid = valid.float().contiguous()
+    valid, vb, vr = _mask(valid)
     out = torch.empty_like(query)
-    lib = _build.library()
-    with torch.cuda.device(query.device):
-        err = lib.vd_attention_fusion(
-            _build.DTYPE_CODE[query.dtype], query.data_ptr(), slots.data_ptr(),
-            valid.data_ptr(), wf.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            B, R, S, H, _build.stream_of(query))
+    with _on(query.device):
+        err = _build.library().vd_attention_fusion(
+            _build.DTYPE_CODE[query.dtype], ROUTE_CODE[route], query.data_ptr(),
+            slots.data_ptr(), valid.data_ptr(), vb, vr, w.data_ptr(),
+            bias.data_ptr(), mem.data_ptr(), out.data_ptr(), B, R, S, H,
+            K4_SPLIT, _build.stream_of(query))
     _build.check(err, "attention_fusion")
     attention_fusion.launches += 1
     return out

@@ -242,7 +242,10 @@ def main(argv=None) -> dict:
                          "loss": last_loss, "running_loss": running,
                          "lr": float(np.asarray(m["lr"]).reshape(-1)[-1]),
                          "grad_norm": float(m["grad_norm"].reshape(-1)[-1]),
-                         "rounds_per_sec": rps})
+                         "rounds_per_sec": rps,
+                         # one device; multi-GPU training (ROADMAP.md M10)
+                         # divides by the world size
+                         "rounds_per_sec_per_chip": rps / 1})
                 t_last, s_last = time.time(), step
             if crossed(eval_every, prev) or step >= max_steps:
                 flush_losses()
