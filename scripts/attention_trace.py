@@ -2,9 +2,13 @@
 csrc/attention_fusion.cu a second time with -DVD_ATTN_TRACE (into
 build/visdial_tpu_torch/trace/), whose kernels stamp %globaltimer (ns) at
 the end of each phase in thread 0 of a launch's first and last block, then
-calls the C entries on operands prepared once (as attention_check.py's
-kernel_ms does: WARM calls, then the traced one) and prints, for each
-block, each phase's end in ns from the launch's first stamp.  On one GPU:
+calls the C entries on operands prepared once (WARM calls, then the traced
+one) and prints, for each block, each phase's end in ns from the launch's
+first stamp, and the SM clock the block ran its attention at (clock64
+cycles over globaltimer ns between the attention's first and last stamps).
+Each case runs twice: after WARM calls of itself ("idle": the card mostly
+waits on the host between them), and queued behind HOT 4096-square
+matmuls ("hot": the card busy up to the call).  On one GPU:
 
     python scripts/attention_trace.py
 
@@ -14,6 +18,7 @@ attention kernel's phases and the product kernel's on one time axis.
 """
 
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -26,7 +31,7 @@ sys.path.insert(0, ROOT)
 
 from visdial_tpu_torch.ops import _build, attention_cuda  # noqa: E402
 
-WARM = 20
+WARM, HOT = 20, 40
 ATTENTION = {1: "attention_start", 2: "staged", 3: "partial_scores",
              4: "cluster_sync", 6: "scores_summed_softmax", 7: "weighted_sums",
              8: "attention_end"}
@@ -94,24 +99,33 @@ def main() -> None:
     dev = torch.device("cuda")
     lib = build()
     print(json.dumps({"gpu": torch.cuda.get_device_name(0)}), flush=True)
-    stamps = (ctypes.c_ulonglong * 32)()
-    for kind, B, R, S, H in CASES:
-        for dtype in (torch.float32, torch.bfloat16):
-            run = call(lib, kind, B, R, S, H, dtype, dev)
-            for _ in range(WARM):
-                run()
-            torch.cuda.synchronize()
+    stamps = (ctypes.c_ulonglong * 64)()
+    big = torch.randn(4096, 4096, device=dev)
+    for (kind, B, R, S, H), dtype, state in itertools.product(
+            CASES, (torch.float32, torch.bfloat16), ("idle", "hot")):
+        run = call(lib, kind, B, R, S, H, dtype, dev)
+        for _ in range(WARM):
             run()
-            torch.cuda.synchronize()
-            _build.check(lib.vd_attention_trace(stamps), "vd_attention_trace")
-            phases = PHASES[kind]
-            t0 = min(stamps[i] for i in phases)
-            blocks = {blk: {name: stamps[16 * k + i] - t0 for i, name in
-                            sorted(phases.items(), key=lambda p: stamps[16 * k + p[0]])}
-                      for k, blk in enumerate(("first", "last"))}
-            print(json.dumps({"kind": kind, "shape": [B, R, S, H],
-                              "dtype": str(dtype).split(".")[1], "ns": blocks}),
-                  flush=True)
+        torch.cuda.synchronize()
+        if state == "hot":
+            for _ in range(HOT):
+                big @ big
+        run()
+        torch.cuda.synchronize()
+        _build.check(lib.vd_attention_trace(stamps), "vd_attention_trace")
+        phases = PHASES[kind]
+        t0 = min(stamps[i] for i in phases)
+        blocks = {blk: {name: stamps[16 * k + i] - t0 for i, name in
+                        sorted(phases.items(), key=lambda p: stamps[16 * k + p[0]])}
+                  for k, blk in enumerate(("first", "last"))}
+        mhz = {}
+        for k, blk in enumerate(("first", "last")):
+            ns = stamps[16 * k + 8] - stamps[16 * k + 1]
+            cyc = stamps[16 * (k + 2) + 8] - stamps[16 * (k + 2) + 1]
+            mhz[blk] = cyc / ns * 1e3 if ns > 0 else None
+        print(json.dumps({"kind": kind, "shape": [B, R, S, H], "state": state,
+                          "dtype": str(dtype).split(".")[1], "ns": blocks,
+                          "sm_mhz": mhz}), flush=True)
 
 
 if __name__ == "__main__":

@@ -125,9 +125,10 @@ __device__ __forceinline__ void cluster_wait() {
 
 // Phase timestamps, compiled in only with -DVD_ATTN_TRACE
 // (scripts/attention_trace.py): thread 0 of a launch's first and last block
-// write %globaltimer (ns) at point i into vd_attn_trace[first / last][i].
+// write %globaltimer (ns) at point i into vd_attn_trace[first / last][i],
+// and the SM's clock64 into vd_attn_trace[2 + first / last][i].
 #ifdef VD_ATTN_TRACE
-__device__ unsigned long long vd_attn_trace[2][16];
+__device__ unsigned long long vd_attn_trace[4][16];
 __device__ __forceinline__ void trace_point(int i) {
   const bool first = blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0;
   const bool last = blockIdx.x == gridDim.x - 1 && blockIdx.y == gridDim.y - 1 &&
@@ -136,6 +137,7 @@ __device__ __forceinline__ void trace_point(int i) {
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     vd_attn_trace[last ? 1 : 0][i] = t;
+    vd_attn_trace[last ? 3 : 2][i] = clock64();
   }
 }
 #define VD_TRACE(i) trace_point(i)
@@ -736,7 +738,7 @@ extern "C" int vd_attention_fusion(int dtype, int route, const void* q, const vo
 }
 
 #ifdef VD_ATTN_TRACE
-// The timestamps of the last traced launch (2 x 16 values, ns) into host.
+// The stamps of the last traced launch (4 x 16 values) into host.
 extern "C" int vd_attention_trace(unsigned long long* host) {
   return (int)cudaMemcpyFromSymbol(host, vd_attn_trace, sizeof(vd_attn_trace));
 }
