@@ -331,8 +331,7 @@ def kernel_report() -> list[dict]:
         if m:
             f32, bm, bn, stages = m[1] == "float", int(m[2]), int(m[3]), int(m[4])
             ring = (stages + (2 if f32 else 0)) * (bm + bn) * 128
-            row["dynamic_smem"] = max(ring, bm * (bn + 8) * 4) + 1024 + (
-                bm * bn * 4 if "fusion_tiles" in n else 0)   # pushed sums
+            row["dynamic_smem"] = max(ring, bm * (bn + 8) * 4) + 1024
         else:
             row["dynamic_smem"] = "by shape"
         tensor_cores = "attention_kernel" not in n and "fusion_stream" not in n

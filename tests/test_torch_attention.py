@@ -170,14 +170,12 @@ def test_fusion_route_threshold(dtype):
 def test_stream_smem_at_serving(dtype):
     """The few-rows route's shared memory at one served request (B, R, S, H
     = 1, 10, 10, 512), counted by hand: clusters of 8 blocks of 64 columns
-    (ld = 64 + one 16-byte pad), 10 slot and 10 query rows in the dtype,
-    8 blocks' 100 partial scores and the 100 final ones (f32), 128 Wf rows
-    x 32 f32, 10 mem rows, and 8 blocks' sums for the 2 rows a block
-    finishes (8 x 2 x 32 f32)."""
+    (ld = 64 + one 16-byte pad), 10 slot and 10 query rows in the dtype, 2 x
+    100 f32 scores, 128 Wf rows x 32 f32, 10 mem rows, 10 x 32 f32 sums."""
     size = 2 if dtype == torch.bfloat16 else 4
     ld = 64 + 16 // size
-    att = -(-(20 * ld * size + 9 * 100 * 4) // 16) * 16
-    want = att + 128 * 32 * 4 + 10 * ld * size + 8 * 2 * 32 * 4
+    att = -(-(20 * ld * size + 800) // 16) * 16
+    want = att + 128 * 32 * 4 + 10 * ld * size + 10 * 32 * 4
     assert attention_cuda.stream_smem(1, 10, 10, 512, dtype) == want
 
 

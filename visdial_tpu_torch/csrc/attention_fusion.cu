@@ -113,12 +113,9 @@ __device__ __forceinline__ void grid_dependency_wait() {
 __device__ __forceinline__ void launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
-// The two halves of a cluster barrier (release / acquire).  A block arrives
-// as it starts and waits before its first store into a peer's shared
-// memory: every block of the cluster has then started (its shared memory
-// exists).  The exchanges push (remote stores) and read locally after a
-// full cluster barrier, so no block reads a peer's memory and none has to
-// wait for its peers before it exits.
+// The two halves of a cluster barrier (release / acquire): a block arrives
+// once it has read its peers' shared memory, and waits before it exits, so
+// that no block's shared memory goes while a peer may still read it.
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
 }
@@ -183,12 +180,18 @@ __device__ __forceinline__ uint4 pack16(const float (&f)[Vec<T>::N]) {
   return v;
 }
 
-// The sum over senders j < n, in rank order, of p[j * stride + i]: the
-// slots the cluster's blocks pushed into this block (the same order, and so
-// the same value, in every block that sums the same slots).
-__device__ __forceinline__ float sum_pushed(const float* p, int i, int stride, int n) {
-  float d = p[i];
-  for (int j = 1; j < n; ++j) d += p[j * stride + i];
+// The sum over the cluster's n blocks, in rank order, of p[i] in each one's
+// shared memory, the remote loads issued together (the same value in every
+// block that asks).
+__device__ __forceinline__ float cluster_sum(cg::cluster_group cluster, float* p,
+                                             int i, int n) {
+  float v[kMaxCluster];
+#pragma unroll
+  for (int j = 0; j < kMaxCluster; ++j) v[j] = j < n ? cluster.map_shared_rank(p, j)[i] : 0.f;
+  float d = v[0];
+#pragma unroll
+  for (int j = 1; j < kMaxCluster; ++j)
+    if (j < n) d += v[j];
   return d;
 }
 
@@ -198,20 +201,19 @@ __device__ __forceinline__ float sum_pushed(const float* p, int i, int stride, i
 // Shared memory of cluster_attention, byte offsets: the block's columns of
 // the group's slots (nb S rows) and queries (nb R rows) in T, each row `ld`
 // values (the block's columns rounded up to 16 bytes, plus 16 bytes that
-// spread a warp's rows over the banks), then the CL blocks' partial scores
-// (CL x nb R x S f32, pushed by each block) and the final scores (nb R x S
-// f32); `bytes` is rounded up to 16.
+// spread a warp's rows over the banks), then the partial and the final
+// scores (nb R x S f32 each); `bytes` is rounded up to 16.
 struct AttnSmem {
   int ld, qs, part, sc, bytes;
 };
 __host__ __device__ __forceinline__ AttnSmem attn_smem(int nb, int R, int S, int cols,
-                                                       int cl, int tsize) {
+                                                       int tsize) {
   const int v = 16 / tsize;
   AttnSmem L;
   L.ld = (cols + v - 1) / v * v + v;
   L.qs = nb * S * L.ld * tsize;
   L.part = L.qs + nb * R * L.ld * tsize;
-  L.sc = L.part + cl * nb * R * S * 4;
+  L.sc = L.part + nb * R * S * 4;
   L.bytes = (L.sc + nb * R * S * 4 + 15) / 16 * 16;
   return L;
 }
@@ -241,17 +243,15 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, in
 // [rank cols, rank cols + cols) of H, in a cluster whose blocks split H so:
 // stages those columns of the group's slots and queries at smem (AttnSmem;
 // the mask lands meanwhile), computes the nb R x S partial scores over them
-// (a thread a (row, slot) pair, 16-byte shared reads) and pushes them into
-// every block of the cluster (distributed shared memory), adds the cluster's
-// partials in rank order (the same sum in every block; no atomics), masks
-// (valid[b vb + r vr + s] is 1.0 where slot
+// (a thread a (row, slot) pair, 16-byte shared reads), adds the cluster's
+// partials in rank order through distributed shared memory (the same sum in
+// every block; no atomics), masks (valid[b vb + r vr + s] is 1.0 where slot
 // s is visible to round r; vb = 0: one mask for every dialog), takes each
 // row's softmax (a warp a row), and hands the weighted slot sums over the
 // block's columns, 16 bytes of columns at a time, to emit(m, k, sums) (row
 // m of the group, column rank cols + k; columns past H sum zeros).  Every
-// thread of every block of the cluster calls it, after cluster_arrive() and
-// before any other cluster barrier; it leaves the staged queries in shared
-// memory.
+// thread of every block of the cluster calls it; it leaves the staged
+// queries in shared memory.
 template <typename T, typename Emit>
 __device__ __forceinline__ void cluster_attention(
     cg::cluster_group cluster, unsigned char* smem, const T* __restrict__ q,
@@ -260,7 +260,7 @@ __device__ __forceinline__ void cluster_attention(
   constexpr int V = Vec<T>::N;
   const int CL = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int tid = threadIdx.x;
-  const AttnSmem L = attn_smem(nb, R, S, cols, CL, sizeof(T));
+  const AttnSmem L = attn_smem(nb, R, S, cols, sizeof(T));
   T* sl = reinterpret_cast<T*>(smem);
   T* qs = reinterpret_cast<T*>(smem + L.qs);
   float* part = reinterpret_cast<float*>(smem + L.part);
@@ -284,9 +284,7 @@ __device__ __forceinline__ void cluster_attention(
   __syncthreads();
   VD_TRACE(2);
 
-  // 2. partial scores over those columns, a thread a (row, slot) pair, each
-  // pushed into slot `rank` of every block's part
-  cluster_wait();     // every block of the cluster has started
+  // 2. partial scores over those columns, a thread a (row, slot) pair
   for (int p = tid; p < P; p += kThreads) {
     const int m = p / S;
     const T* qr = qs + m * L.ld;
@@ -300,10 +298,10 @@ __device__ __forceinline__ void cluster_attention(
 #pragma unroll
       for (int e = 0; e < V; ++e) d = fmaf(a[e], c[e], d);
     }
-    for (int j = 0; j < CL; ++j) cluster.map_shared_rank(part, j)[rank * P + p] = d;
+    part[p] = d;
   }
   VD_TRACE(3);
-  cluster.sync();     // every block's partials have landed in every block
+  cluster.sync();
   VD_TRACE(4);
 
   // 3. a warp a row: the cluster's partials of its S <= 64 scores added in
@@ -317,7 +315,7 @@ __device__ __forceinline__ void cluster_attention(
       const int s = lane + 32 * h;
       v[h] = kNegInf;
       if (s < S) {
-        const float d = sum_pushed(part, m * S + s, P, CL);
+        const float d = cluster_sum(cluster, part, m * S + s, CL);
         if (row[s] > 0.f) v[h] = d;
       }
     }
@@ -328,6 +326,7 @@ __device__ __forceinline__ void cluster_attention(
     if (lane < S) row[lane] = e0 * inv;
     if (lane + 32 < S) row[lane + 32] = e1 * inv;
   }
+  cluster_arrive();   // this block has read its peers' partials
   __syncthreads();
   VD_TRACE(6);
 
@@ -351,12 +350,12 @@ __device__ __forceinline__ void cluster_attention(
     emit(m, k, sum);
   }
   VD_TRACE(7);
+  cluster_wait();     // every block has read the partials (ours among them)
   VD_TRACE(8);
 }
 
 // K3: one dialog a cluster.  Grid: B CL blocks, clusters of CL (blocks a
-// dialog); kThreads threads; dynamic shared memory attn_smem(1, R, S, cols,
-// CL).
+// dialog); kThreads threads; dynamic shared memory attn_smem(1, R, S, cols).
 // Also K4's prologue on its tensor-core route, where out is mem's scratch.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -366,7 +365,6 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ slots,
   constexpr int V = Vec<T>::N;
   VD_TRACE(0);
   launch_dependents();   // K4's product may start copying Wf
-  cluster_arrive();      // this block has started (cluster_attention waits)
   extern __shared__ __align__(16) unsigned char smem[];
   const cg::cluster_group cluster = cg::this_cluster();
   const int b = blockIdx.x / (int)cluster.num_blocks();
@@ -408,9 +406,8 @@ template <typename T> __device__ __forceinline__ float4 load4(const T* p) {
 // query columns and mem columns (rounded to T) are the block's slice of
 // [q; mem], and against it rows [c0, c0 + cols) and [H + c0, H + c0 + cols)
 // of Wf (2H, H) f32.  Shared memory after cluster_attention's (attn_smem(B,
-// R, S, cols, CL)): those rows of Wf's 32 columns (2 cols x 32 f32), mem's
-// columns (M x ld in T), and the partial sums the CL blocks push for the
-// rows this block finishes (CL x ceil(M / CL) x 32 f32).  vec: H is a
+// R, S, cols)): those rows of Wf's 32 columns (2 cols x 32 f32), mem's
+// columns (M x ld in T), the block's partial sums (M x 32 f32).  vec: H is a
 // whole number of 16-byte chunks of T, and q, slots and wf are 16-byte
 // aligned.
 template <typename T>
@@ -427,13 +424,11 @@ fusion_stream_kernel(const T* __restrict__ q, const T* __restrict__ slots,
   const int M = B * R, j0 = blockIdx.y * kStreamCols;
   const int c0 = rank * cols, nc = max(0, min(cols, H - c0));
   const int nk = (nc + V - 1) / V * V;
-  const int RP = (M + CL - 1) / CL;   // rows a block finishes
-  const AttnSmem L = attn_smem(B, R, S, cols, CL, sizeof(T));
+  const AttnSmem L = attn_smem(B, R, S, cols, sizeof(T));
   float* ws = reinterpret_cast<float*>(smem + L.bytes);
   T* ms = reinterpret_cast<T*>(ws + 2 * cols * kStreamCols);
   float* ps = reinterpret_cast<float*>(ms + M * L.ld);
   VD_TRACE(0);
-  cluster_arrive();   // this block has started (cluster_attention waits)
 
   // 1. the block's rows of Wf: row i < cols is Wf row c0 + i (q's half),
   // row cols + i is Wf row H + c0 + i (mem's); they land with the attention's
@@ -466,7 +461,7 @@ fusion_stream_kernel(const T* __restrict__ q, const T* __restrict__ slots,
 
   // 3. the block's partial sums over its slice of [q; mem]: lane = column,
   // warp w rows w, w + 8, ..., four at a time, each Wf value read once for
-  // the four; row m's sum is pushed into slot `rank` of block m % CL's ps
+  // the four
   const T* qs = reinterpret_cast<const T*>(smem + L.qs);
   for (int m0 = warp; m0 < M; m0 += 4 * kWarps) {
     int row[4];
@@ -494,29 +489,29 @@ fusion_stream_kernel(const T* __restrict__ q, const T* __restrict__ slots,
       }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + i * kWarps;
-      if (m < M)
-        cluster.map_shared_rank(ps, m % CL)[(rank * RP + m / CL) * kStreamCols + lane] =
-            acc[i][0] + acc[i][1];
-    }
+    for (int i = 0; i < 4; ++i)
+      if (m0 + i * kWarps < M)
+        ps[(m0 + i * kWarps) * kStreamCols + lane] = acc[i][0] + acc[i][1];
   }
   VD_TRACE(11);
-  cluster.sync();     // every block's sums have landed
+  cluster.sync();
   VD_TRACE(12);
 
-  // 4. the blocks' sums in rank order, tanh: block `rank` finishes rows m
+  // 4. the blocks' sums in rank order, tanh: block `rank` takes rows m
   // with m % CL == rank; a thread keeps one column (kThreads is a multiple
   // of 32) and every kWarps-th of those rows
-  const int j = j0 + lane;
+  const int c = lane, j = j0 + c;
   if (j < H) {
     const float bj = bias[j];
-    for (int t = warp; rank + CL * t < M; t += kWarps) {
-      const float pre = sum_pushed(ps, t * kStreamCols + lane, RP * kStreamCols, CL);
-      out[(size_t)(rank + CL * t) * H + j] = from_f<T>(tanhf(pre + bj));
+#pragma unroll 2
+    for (int m = rank + CL * warp; m < M; m += CL * kWarps) {
+      const float pre = cluster_sum(cluster, ps, m * kStreamCols + c, CL);
+      out[(size_t)m * H + j] = from_f<T>(tanhf(pre + bj));
     }
   }
   VD_TRACE(13);
+  cluster_arrive();
+  cluster_wait();
   VD_TRACE(15);
 }
 
@@ -527,9 +522,7 @@ fusion_stream_kernel(const T* __restrict__ q, const T* __restrict__ slots,
 // threads.  wk is Wf^T packed (H, 2 Hp): wk[j, k] = Wf[k, j] and wk[j, Hp +
 // k] = Wf[H + k, j] for k < H, zeros elsewhere; Hp is H rounded up to a
 // whole k-tile.  Block rank takes k-tiles [t0, t1) of the 2 Hp / BK, where
-// the first Hp / BK read q and the rest mem.  Dynamic shared memory: the
-// tile product's (TileSmem) and then the sums the KS blocks push for the
-// tile's rows this block finishes (KS x BM / KS x BN f32).
+// the first Hp / BK read q and the rest mem.
 template <typename T, int BM, int BN, int STAGES>
 __global__ void __launch_bounds__(BM * 2)
 fusion_tiles_kernel(const T* __restrict__ q, const T* __restrict__ mem,
@@ -554,48 +547,33 @@ fusion_tiles_kernel(const T* __restrict__ q, const T* __restrict__ mem,
   const Operand<T> b{wk + (size_t)t0 * BK, 2LL * Hp, H, (t1 - t0) * BK};
 
   VD_TRACE(0);
-  cluster_arrive();   // this block has started
   if (t1 > nkh) grid_dependency_wait();   // mem is the attention launch's output
   VD_TRACE(9);
   float acc[BN / 2];
   vd::tile_product<T, BM, BN, STAGES>(acc, smem, a0, nk0, a1, b, t1 - t0, m0, n0);
-
-  // the accumulator, in wgmma's layout (common.cuh::stage_acc: thread l of
-  // warp w of warpgroup g holds rows 64g + 16w + l/4 and + 8, columns 8i +
-  // 2(l%4) and + 1), pushed row by row into slot `rank` of the block that
-  // finishes the row (row % KS; KS divides BM)
-  float* sums = reinterpret_cast<float*>(smem + L::BYTES - 1024);
-  constexpr int RB = BM;   // rows of a slot: BM / KS at most, KS >= 1
-  const int lane = threadIdx.x % 32;
-  const int row0 = (threadIdx.x / 128) * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
-  cluster_wait();     // every block of the cluster has started
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + 8 * h;
-    float* dst = cluster.map_shared_rank(sums, row % KS) + (rank * (RB / KS) + row / KS) * BN;
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i)
-      *reinterpret_cast<float2*>(dst + 8 * i + 2 * (lane % 4)) =
-          make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
-  }
+  float* c = reinterpret_cast<float*>(smem);
+  vd::stage_acc<BN, L::LDC>(acc, c);
   VD_TRACE(11);
-  cluster.sync();     // every block's sums have landed
+  cluster.sync();
   VD_TRACE(12);
 
-  // the k-slices' sums in rank order, tanh: block `rank` finishes the
-  // tile's rows with row % KS == rank; a thread keeps one column (BM * 2 is
-  // a multiple of BN) and every (BM * 2 / BN)-th of those rows
+  // the k-slices' sums in rank order, tanh: block `rank` takes the tile's
+  // rows with row % KS == rank (KS divides BM); a thread keeps one column
+  // (BM * 2 is a multiple of BN) and every (BM * 2 / BN)-th of those rows
   static_assert((BM * 2) % BN == 0, "a thread keeps its column");
   const int col = threadIdx.x % BN, j = n0 + col;
   if (j < H) {
     const float bj = bias[j];
-    for (int t = threadIdx.x / BN; t < RB / KS && m0 + rank + KS * t < M;
-         t += BM * 2 / BN) {
-      const float pre = sum_pushed(sums, t * BN + col, (RB / KS) * BN, KS);
-      out[(size_t)(m0 + rank + KS * t) * H + j] = from_f<T>(tanhf(pre + bj));
+#pragma unroll 4
+    for (int row = rank + KS * (threadIdx.x / BN); row < BM; row += KS * (BM * 2 / BN)) {
+      if (m0 + row >= M) break;
+      const float pre = cluster_sum(cluster, c, row * L::LDC + col, KS);
+      out[(size_t)(m0 + row) * H + j] = from_f<T>(tanhf(pre + bj));
     }
   }
   VD_TRACE(13);
+  cluster_arrive();
+  cluster_wait();
   VD_TRACE(15);
 }
 
@@ -651,7 +629,7 @@ cudaError_t launch_attention(const void* q, const void* slots, const float* vali
   // a block uses ~12 KB of shared memory at S = 10: several share an SM
   const int cl = fill_split(B, chunks, cluster, 2 * kFillBlocks);
   const int cols = (chunks + cl - 1) / cl * V;
-  const AttnSmem L = attn_smem(1, R, S, cols, cl, sizeof(T));
+  const AttnSmem L = attn_smem(1, R, S, cols, sizeof(T));
   if (L.bytes > kMaxSmem) return cudaErrorInvalidValue;
   const auto kernel = attention_kernel<T>;
   static const cudaError_t attr = allow_smem(kernel);
@@ -673,10 +651,10 @@ template <typename T> struct StreamPlan {
     const int chunks = (H + V - 1) / V;
     cl = fill_split((H + kStreamCols - 1) / kStreamCols, chunks, split);
     cols = (chunks + cl - 1) / cl * V;
-    const AttnSmem L = attn_smem(B, R, S, cols, cl, sizeof(T));
+    const AttnSmem L = attn_smem(B, R, S, cols, sizeof(T));
     const long long M = (long long)B * R;
     smem = L.bytes + 2LL * cols * kStreamCols * 4 + M * L.ld * sizeof(T) +
-           (long long)cl * ((M + cl - 1) / cl) * kStreamCols * 4;
+           M * kStreamCols * 4;
   }
 };
 
@@ -713,9 +691,9 @@ cudaError_t launch_tiles(const void* q, const void* mem, const void* wk, const f
   const auto kernel = fusion_tiles_kernel<T, kTileM, kTileN, kTileStages>;
   static const cudaError_t attr = allow_smem(kernel);
   if (attr != cudaSuccess) return attr;
-  return launch_cluster(kernel, dim3(ks, tiles_n, tiles_m), kTileM * 2,
-                        L::BYTES + kTileM * kTileN * 4, ks, true, stream, (const T*)q,
-                        (const T*)mem, (const T*)wk, bias, (T*)out, M, H, Hp);
+  return launch_cluster(kernel, dim3(ks, tiles_n, tiles_m), kTileM * 2, L::BYTES, ks, true,
+                        stream, (const T*)q, (const T*)mem, (const T*)wk, bias, (T*)out, M,
+                        H, Hp);
 }
 
 template <typename T>

@@ -44,9 +44,8 @@ K4_SPLIT = 0
 def stream_smem(B: int, R: int, S: int, H: int, dtype: torch.dtype) -> int:
     """Shared memory a block of K4's few-rows route takes (bytes), as
     csrc/attention_fusion.cu's StreamPlan and attn_smem size it: the group's
-    slot and query columns, the partial scores pushed by each of the
-    cluster's cl blocks and the final scores, Wf's rows, mem's columns and
-    the partial sums pushed for the rows the block finishes."""
+    slot and query columns and its scores, Wf's rows, mem's columns and the
+    partial sums."""
     size = 2 if dtype == torch.bfloat16 else 4
     v = 16 // size
     chunks, slices = -(-H // v), -(-H // 32)
@@ -55,8 +54,8 @@ def stream_smem(B: int, R: int, S: int, H: int, dtype: torch.dtype) -> int:
         cl *= 2
     cols = -(-chunks // cl) * v
     ld, M = cols + v, B * R
-    att = -(-((B * S + M) * ld * size + (cl + 1) * M * S * 4) // 16) * 16
-    return att + 2 * cols * 32 * 4 + M * ld * size + cl * -(-M // cl) * 32 * 4
+    att = -(-((B * S + M) * ld * size + 2 * M * S * 4) // 16) * 16
+    return att + 2 * cols * 32 * 4 + M * ld * size + M * 32 * 4
 
 
 def fusion_route(B: int, R: int, S: int, H: int, dtype: torch.dtype) -> str:
