@@ -37,11 +37,13 @@ K3 runs with the encoder's mask at 32 dialogs and with all-masked rows at 4;
 K4 with all-masked rows at 7.  K4 rows name the route the wrapper took
 (attention_cuda.fusion_route); --sweep adds K4 on each route at 1 to 32
 dialogs of 10 rounds, which is how FUSION_STREAM_ROWS was set; --clusters
-adds K3 at 1, 2, 4 and 8 blocks a dialog (attention_cuda.K3_CLUSTER) and
-K4 at 2, 4 and 8 k-slices (K4_SPLIT).  Fails at the first miss.
+adds K3 at 1, 2, 4 and 8 blocks a dialog and K4 at 2, 4 and 8 k-slices, in
+place of the wrapper's rules (attention_cuda.attention_blocks,
+stream_blocks and fusion_splits).  Fails at the first miss.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -162,6 +164,20 @@ def timings(fn) -> dict:
             "device_kernels": kernels}
 
 
+@contextlib.contextmanager
+def forced(**counts):
+    """attention_cuda's cluster rules (attention_blocks, stream_blocks,
+    fusion_splits) replaced by fixed counts for the duration."""
+    rules = {name: getattr(attention_cuda, name) for name in counts}
+    for name, n in counts.items():
+        setattr(attention_cuda, name, lambda *_, n=n: n)
+    try:
+        yield
+    finally:
+        for name, rule in rules.items():
+            setattr(attention_cuda, name, rule)
+
+
 def k3_row(label, gen, dev, B, R, S, H, dt) -> dict:
     q, s, valid, _, _ = case(gen, dev, B, R, S, H, masked=B == 4)
     name = str(dt).split(".")[1]
@@ -248,8 +264,8 @@ def main() -> None:
             print(json.dumps(k4_row(args.label, gen, dev, *shape, dt)), flush=True)
         if args.sweep:
             for B in SWEEP_DIALOGS:
-                for route in ("stream", "tiles")[
-                        B * 10 > attention_cuda.STREAM_MAX_ROWS:]:
+                fits = attention_cuda.stream_fits(B, 10, 10, 512, dt)
+                for route in ("stream", "tiles")[not fits:]:
                     row = k4_row(args.label, gen, dev, B, 10, 10, 512, dt, route)
                     print(json.dumps({k: row[k] for k in (
                         "label", "shape", "dtype", "route", "max_abs_err", "ms",
@@ -257,21 +273,19 @@ def main() -> None:
         if args.clusters:
             for shape in (K3_SHAPES[0], K3_SHAPES[2]):
                 for cl in (1, 2, 4, 8):
-                    attention_cuda.K3_CLUSTER = cl
-                    row = k3_row(args.label, gen, dev, *shape, dt)
+                    with forced(attention_blocks=cl):
+                        row = k3_row(args.label, gen, dev, *shape, dt)
                     print(json.dumps({"cluster": cl, **{k: row[k] for k in (
                         "label", "shape", "dtype", "max_rel_err", "ms", "launch_ms",
                         "graph_ms", "device_ms")}}), flush=True)
-                attention_cuda.K3_CLUSTER = 0
             for shape in K4_SHAPES[:2]:       # each on its route
                 for split in (2, 4, 8):
-                    attention_cuda.K4_SPLIT = split
-                    row = k4_row(args.label, gen, dev, *shape, dt)
+                    with forced(stream_blocks=split, fusion_splits=split):
+                        row = k4_row(args.label, gen, dev, *shape, dt)
                     print(json.dumps({"split": split, **{k: row[k] for k in (
                         "label", "shape", "dtype", "route", "max_abs_err", "ms",
                         "launch_ms", "graph_ms", "device_ms", "device_kernels")}}),
                           flush=True)
-                attention_cuda.K4_SPLIT = 0
 
 
 if __name__ == "__main__":

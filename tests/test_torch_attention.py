@@ -107,9 +107,11 @@ def test_fully_masked_row_attends_uniformly():
 
 def test_expanded_mask_crosses_without_a_copy():
     """The encoder hands its causal mask over as an expanded view (batch
-    stride 0): the kernels take it as it is (same storage, strides (0, S)),
-    another dtype is converted, and the outputs equal those of its
-    contiguous copy."""
+    stride 0): `_mask` hands the kernels its storage as it is, with strides
+    (0, S), and converts another dtype.  On the CPU the three wrappers take
+    the plain version, so the outputs' equality with the contiguous copy's
+    holds the plain path to the view; the `cuda` cases hold the kernels to
+    it."""
     B, R, S, H = 3, 4, 4, 16
     q, s, valid, fw, fb = map(torch.from_numpy, _case(B, R, S, H, masked_row=False))
     base = valid[0].clone()
@@ -150,33 +152,39 @@ def test_packed_fusion_operands_give_the_plain_preactivation(H, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fusion_route_threshold(dtype):
+def test_fusion_route_threshold(dtype, monkeypatch):
     """K4 streams Wf up to FUSION_STREAM_ROWS rows (a served request: 10)
     and takes the tensor cores above (an eval batch: 320), and wherever the
-    streaming block's shared memory would not fit (S = 64 slots of many
-    one-round dialogs at H = 2,048)."""
+    streaming block's shared memory would not fit (stream_fits, which asks
+    the library; the `cuda` cases hold its answers)."""
     t = attention_cuda.FUSION_STREAM_ROWS[dtype]
-    assert 10 <= t < 320 and t <= attention_cuda.STREAM_MAX_ROWS
+    assert 10 <= t < 320
     route = attention_cuda.fusion_route
+    monkeypatch.setattr(attention_cuda, "stream_fits", lambda *_: True)
     assert route(1, 10, 10, 512, dtype) == route(t // 10, 10, 10, 512, dtype) \
         == route(t, 1, 4, 512, dtype) == "stream"
     assert route(t // 10 + 1, 10, 10, 512, dtype) == route(32, 10, 10, 512, dtype) \
         == route(t + 1, 1, 10, 512, dtype) == "tiles"
-    assert route(t, 1, 64, 2048, dtype) == "tiles"
-    assert attention_cuda.stream_smem(t, 1, 64, 2048, dtype) > attention_cuda.MAX_SMEM
+    monkeypatch.setattr(attention_cuda, "stream_fits", lambda *_: False)
+    assert route(1, 10, 10, 512, dtype) == route(t, 1, 64, 2048, dtype) == "tiles"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_stream_smem_at_serving(dtype):
-    """The few-rows route's shared memory at one served request (B, R, S, H
-    = 1, 10, 10, 512), counted by hand: clusters of 8 blocks of 64 columns
-    (ld = 64 + one 16-byte pad), 10 slot and 10 query rows in the dtype, 2 x
-    100 f32 scores, 128 Wf rows x 32 f32, 10 mem rows, 10 x 32 f32 sums."""
-    size = 2 if dtype == torch.bfloat16 else 4
-    ld = 64 + 16 // size
-    att = -(-(20 * ld * size + 800) // 16) * 16
-    want = att + 128 * 32 * 4 + 10 * ld * size + 10 * 32 * 4
-    assert attention_cuda.stream_smem(1, 10, 10, 512, dtype) == want
+def test_cluster_plans_at_the_head_shapes(dtype):
+    """The blocks a cluster the wrapper hands the kernels at the model's
+    width (H = 512): K3 at the training batch (32 dialogs) and at one, the
+    few-rows route at a served request (16 clusters of 8: 128 blocks), the
+    tensor-core product at the eval batch (320 rows: 40 tiles, 4 k-slices
+    in f32, 8 in bf16); and the rule's limits (the cluster size, the pieces
+    there are to split)."""
+    ac = attention_cuda
+    assert ac.attention_blocks(32, 512, dtype) == ac.attention_blocks(1, 512, dtype) == 8
+    assert ac.attention_blocks(256, 512, dtype) == 1
+    assert ac.stream_blocks(512, dtype) == 8
+    assert ac.fusion_splits(320, 512, dtype) == (8 if dtype == torch.bfloat16 else 4)
+    assert ac.attention_blocks(32, 16, dtype) == (2 if dtype == torch.bfloat16 else 4)
+    assert ac.fill_split(1, 1000) == ac.MAX_CLUSTER and ac.fill_split(1, 3) == 2
+    assert ac.fill_split(64, 1000) == 2 and ac.fill_split(200, 1000) == 1
 
 
 def test_wrapper_has_no_silent_fallback():

@@ -192,8 +192,8 @@ def test_attention_fusion_routes_match_plain(dev, monkeypatch, B, R, S, H, route
     by ~1e-5."""
     from visdial_tpu_torch.ops import attention_cuda
 
-    if route == "stream" and B * R > attention_cuda.STREAM_MAX_ROWS:
-        route = "tiles"   # the few-rows route takes at most 128 rows
+    if route == "stream" and not attention_cuda.stream_fits(B, R, S, H, dtype):
+        route = "tiles"   # the few-rows block's shared memory would not fit
     monkeypatch.setattr(attention_cuda, "fusion_route", lambda *_: route)
     g = torch.Generator().manual_seed(B * H + S)
     scale, w_scale = (0.5, 0.08) if H > 100 else (1.0, 0.3)
@@ -210,6 +210,21 @@ def test_attention_fusion_routes_match_plain(dev, monkeypatch, B, R, S, H, route
     assert attention_fusion.launches == before + 1
     assert got.dtype == dtype and got.shape == (B, R, H)
     assert float((got.float() - want.float()).abs().max()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fusion_route_asks_the_library_what_fits(dev, dtype):
+    """The few-rows route's shared memory, sized by the library alone: it
+    fits at a served request and up to the threshold at the model's width,
+    so those calls stream Wf; 64 slots of many one-round dialogs at H =
+    2,048 do not fit, and the call takes the tensor cores."""
+    from visdial_tpu_torch.ops import attention_cuda
+
+    t = attention_cuda.FUSION_STREAM_ROWS[dtype]
+    for B in range(1, t // 10 + 1):
+        assert attention_cuda.fusion_route(B, 10, 10, 512, dtype) == "stream"
+    assert not attention_cuda.stream_fits(t, 1, 64, 2048, dtype)
+    assert attention_cuda.fusion_route(t, 1, 64, 2048, dtype) == "tiles"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -32,11 +32,12 @@
 //
 // What the design does about it.
 //  * K3 reads each dialog's slots once.  A cluster of CL blocks takes one
-//    dialog (CL so that B CL reaches 256 blocks, at most 8: 8 at B = 32),
-//    each block H / CL of its columns: the block copies its columns of the
-//    dialog's S x H slots and R x H queries into shared memory with 16-byte
-//    cp.async (the mask lands meanwhile), computes the R x S partial scores
-//    over them (a thread a (r, s) pair, 16-byte shared reads), and the
+//    dialog (CL so that B CL reaches 256 blocks, at most 8: 8 at B = 32;
+//    ops/attention_cuda.py::attention_blocks), each block H / CL of its
+//    columns: the block copies its columns of the dialog's S x H slots and
+//    R x H queries into shared memory with 16-byte cp.async (the mask
+//    lands meanwhile), computes the R x S partial scores over them (a
+//    thread a (r, s) pair, 16-byte shared reads), and the
 //    cluster adds the CL partials in rank order through distributed shared
 //    memory, so every block holds the same scores and no atomics run.  Each
 //    block then takes the softmax (a warp a row) and writes its own columns
@@ -47,9 +48,10 @@
 //    function over a group of dialogs.
 //  * Few rows (serving; ops/attention_cuda.py::fusion_route): Wf is read
 //    once a call, spread over 128 blocks, in one launch
-//    (fusion_stream_kernel).  A cluster of CL blocks takes 32 output
-//    columns; its block `rank` takes columns [c0, c0 + cols) of H: it copies
-//    Wf's rows c0.. and H + c0.. of those 32 columns (f32, 16 bytes a copy;
+//    (fusion_stream_kernel, where vd_fusion_stream_fits).  A cluster of CL
+//    blocks takes 32 output columns; its block `rank` takes columns [c0,
+//    c0 + cols) of H: it copies Wf's rows c0.. and H + c0.. of those 32
+//    columns (f32, 16 bytes a copy;
 //    rounded to T in shared memory) while cluster_attention computes every
 //    dialog's attention over the same columns, and so holds every row's
 //    slice of [q; mem] (the staged queries and mem's columns) in shared
@@ -63,11 +65,12 @@
 //    packed K-major per call by the wrapper (H, 2 Hp), each half padded to a
 //    whole k-tile; bf16 wgmma, 3xTF32 with round-to-nearest k-tile sums for
 //    f32 (fusion_tiles_kernel).  64 x 64 tiles give 40 at 320 rows, so the
-//    k-tiles are split over a cluster of KS blocks (4 in f32, 8 in bf16)
-//    whose staged accumulators meet in rank order as above.  mem goes through
-//    a scratch buffer (655 KB at 320 rows in f32, in L2): building a row
-//    tile's mem in shared memory would need 128 KB for the mem half of a
-//    64-row f32 tile beside the ring.
+//    k-tiles are split over a cluster of KS blocks (4 in f32, 8 in bf16;
+//    ops/attention_cuda.py::fusion_splits) whose staged accumulators meet
+//    in rank order as above.  mem goes through a scratch buffer (655 KB at
+//    320 rows in f32, in L2): building a row tile's mem in shared memory
+//    would need 128 KB for the mem half of a 64-row f32 tile beside the
+//    ring.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -92,13 +95,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSlots = 64;
 constexpr int kMaxCluster = 8;       // the portable cluster size
-constexpr int kFillBlocks = 128;     // blocks that fill the H100's 132 SMs
 constexpr int kMaxSmem = 232448;     // shared memory a block may use
 constexpr float kNegInf = -1e30f;
-// K4's few-rows route: a cluster's output columns (a lane each) and the
-// most rows a call may give it (its [q; mem] slice lives in shared memory)
+// K4's few-rows route: a cluster's output columns (a lane each)
 constexpr int kStreamCols = 32;
-constexpr int kStreamMaxRows = 128;
 // K4's tensor-core route: tiles and ring stages
 constexpr int kTileM = 64, kTileN = 64, kTileStages = 3;
 
@@ -122,28 +122,6 @@ __device__ __forceinline__ void cluster_arrive() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
-
-// Phase timestamps, compiled in only with -DVD_ATTN_TRACE
-// (scripts/attention_trace.py): thread 0 of a launch's first and last block
-// write %globaltimer (ns) at point i into vd_attn_trace[first / last][i],
-// and the SM's clock64 into vd_attn_trace[2 + first / last][i].
-#ifdef VD_ATTN_TRACE
-__device__ unsigned long long vd_attn_trace[4][16];
-__device__ __forceinline__ void trace_point(int i) {
-  const bool first = blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0;
-  const bool last = blockIdx.x == gridDim.x - 1 && blockIdx.y == gridDim.y - 1 &&
-                    blockIdx.z == gridDim.z - 1;
-  if (threadIdx.x == 0 && (first || last)) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    vd_attn_trace[last ? 1 : 0][i] = t;
-    vd_attn_trace[last ? 3 : 2][i] = clock64();
-  }
-}
-#define VD_TRACE(i) trace_point(i)
-#else
-#define VD_TRACE(i)
-#endif
 
 // 16 bytes of T (4 f32 or 8 bf16 values) as floats, and back
 template <typename T> struct Vec {
@@ -269,7 +247,6 @@ __device__ __forceinline__ void cluster_attention(
   const int nc = max(0, min(cols, H - c0));    // the block's real columns
   const int nk = (nc + V - 1) / V * V;         // ... zero-padded to 16 bytes
   const int M = nb * R, P = M * S;
-  VD_TRACE(1);
 
   // 1. the block's columns of the group's slots and queries, and the mask
   // (into sc) while they land
@@ -282,7 +259,6 @@ __device__ __forceinline__ void cluster_attention(
   }
   vd::cp_async_wait<0>();
   __syncthreads();
-  VD_TRACE(2);
 
   // 2. partial scores over those columns, a thread a (row, slot) pair
   for (int p = tid; p < P; p += kThreads) {
@@ -300,9 +276,7 @@ __device__ __forceinline__ void cluster_attention(
     }
     part[p] = d;
   }
-  VD_TRACE(3);
   cluster.sync();
-  VD_TRACE(4);
 
   // 3. a warp a row: the cluster's partials of its S <= 64 scores added in
   // rank order, masked, and their softmax
@@ -328,7 +302,6 @@ __device__ __forceinline__ void cluster_attention(
   }
   cluster_arrive();   // this block has read its peers' partials
   __syncthreads();
-  VD_TRACE(6);
 
   // 5. sum_s att_ms slot_s[k], 16 bytes of columns a thread
   const int nch = nk / V;
@@ -349,9 +322,7 @@ __device__ __forceinline__ void cluster_attention(
     }
     emit(m, k, sum);
   }
-  VD_TRACE(7);
   cluster_wait();     // every block has read the partials (ours among them)
-  VD_TRACE(8);
 }
 
 // K3: one dialog a cluster.  Grid: B CL blocks, clusters of CL (blocks a
@@ -363,7 +334,6 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ slots,
                  const float* __restrict__ valid, long long vb, long long vr,
                  T* __restrict__ out, int R, int S, int H, int cols, int vec) {
   constexpr int V = Vec<T>::N;
-  VD_TRACE(0);
   launch_dependents();   // K4's product may start copying Wf
   extern __shared__ __align__(16) unsigned char smem[];
   const cg::cluster_group cluster = cg::this_cluster();
@@ -381,7 +351,6 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ slots,
                              if (k + e < nc) o[e] = from_f<T>(sum[e]);
                          }
                        });
-  VD_TRACE(15);
 }
 
 // ---------------------------------------------------------------------------
@@ -428,7 +397,6 @@ fusion_stream_kernel(const T* __restrict__ q, const T* __restrict__ slots,
   float* ws = reinterpret_cast<float*>(smem + L.bytes);
   T* ms = reinterpret_cast<T*>(ws + 2 * cols * kStreamCols);
   float* ps = reinterpret_cast<float*>(ms + M * L.ld);
-  VD_TRACE(0);
 
   // 1. the block's rows of Wf: row i < cols is Wf row c0 + i (q's half),
   // row cols + i is Wf row H + c0 + i (mem's); they land with the attention's
@@ -457,7 +425,6 @@ fusion_stream_kernel(const T* __restrict__ q, const T* __restrict__ slots,
     for (int i = tid; i < 2 * cols * kStreamCols; i += kThreads) ws[i] = to_f(from_f<T>(ws[i]));
     __syncthreads();
   }
-  VD_TRACE(10);
 
   // 3. the block's partial sums over its slice of [q; mem]: lane = column,
   // warp w rows w, w + 8, ..., four at a time, each Wf value read once for
@@ -493,9 +460,7 @@ fusion_stream_kernel(const T* __restrict__ q, const T* __restrict__ slots,
       if (m0 + i * kWarps < M)
         ps[(m0 + i * kWarps) * kStreamCols + lane] = acc[i][0] + acc[i][1];
   }
-  VD_TRACE(11);
   cluster.sync();
-  VD_TRACE(12);
 
   // 4. the blocks' sums in rank order, tanh: block `rank` takes rows m
   // with m % CL == rank; a thread keeps one column (kThreads is a multiple
@@ -509,10 +474,8 @@ fusion_stream_kernel(const T* __restrict__ q, const T* __restrict__ slots,
       out[(size_t)m * H + j] = from_f<T>(tanhf(pre + bj));
     }
   }
-  VD_TRACE(13);
   cluster_arrive();
   cluster_wait();
-  VD_TRACE(15);
 }
 
 // ---------------------------------------------------------------------------
@@ -546,16 +509,12 @@ fusion_tiles_kernel(const T* __restrict__ q, const T* __restrict__ mem,
   const int nk0 = (in_q ? min(t1, nkh) : t1) - t0;
   const Operand<T> b{wk + (size_t)t0 * BK, 2LL * Hp, H, (t1 - t0) * BK};
 
-  VD_TRACE(0);
   if (t1 > nkh) grid_dependency_wait();   // mem is the attention launch's output
-  VD_TRACE(9);
   float acc[BN / 2];
   vd::tile_product<T, BM, BN, STAGES>(acc, smem, a0, nk0, a1, b, t1 - t0, m0, n0);
   float* c = reinterpret_cast<float*>(smem);
   vd::stage_acc<BN, L::LDC>(acc, c);
-  VD_TRACE(11);
   cluster.sync();
-  VD_TRACE(12);
 
   // the k-slices' sums in rank order, tanh: block `rank` takes the tile's
   // rows with row % KS == rank (KS divides BM); a thread keeps one column
@@ -571,10 +530,8 @@ fusion_tiles_kernel(const T* __restrict__ q, const T* __restrict__ mem,
       out[(size_t)(m0 + row) * H + j] = from_f<T>(tanhf(pre + bj));
     }
   }
-  VD_TRACE(13);
   cluster_arrive();
   cluster_wait();
-  VD_TRACE(15);
 }
 
 // ---------------------------------------------------------------------------
@@ -585,15 +542,6 @@ template <typename K> cudaError_t allow_smem(K kernel) {
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-// The split (blocks a cluster): `want` (1 to 8) where it is given, else the
-// smallest power of two KS <= 8 with blocks x KS >= fill; at most `most`.
-int fill_split(long long blocks, int most, int want = 0, int fill = kFillBlocks) {
-  if (want > 0) return max(1, min(want, most));
-  int ks = 1;
-  while (ks < kMaxCluster && blocks * ks < fill && 2 * ks <= most) ks *= 2;
-  return ks;
-}
 
 // A launch in clusters of `cluster` blocks along x; `dependent` lets it start
 // before the launch ahead of it in the stream has finished (that kernel
@@ -620,74 +568,65 @@ cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, in
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// The columns of H each of a cluster's cl blocks takes: a whole number of
+// 16-byte chunks of T
+template <typename T> int block_cols(int H, int cl) {
+  constexpr int V = Vec<T>::N;
+  return ((H + V - 1) / V + cl - 1) / cl * V;
+}
+
 template <typename T>
 cudaError_t launch_attention(const void* q, const void* slots, const float* valid,
                              long long vb, long long vr, void* out, int B, int R, int S,
-                             int H, int cluster, cudaStream_t stream) {
-  constexpr int V = Vec<T>::N;
-  const int chunks = (H + V - 1) / V;
-  // a block uses ~12 KB of shared memory at S = 10: several share an SM
-  const int cl = fill_split(B, chunks, cluster, 2 * kFillBlocks);
-  const int cols = (chunks + cl - 1) / cl * V;
+                             int H, int cl, cudaStream_t stream) {
+  const int cols = block_cols<T>(H, cl);
   const AttnSmem L = attn_smem(1, R, S, cols, sizeof(T));
   if (L.bytes > kMaxSmem) return cudaErrorInvalidValue;
   const auto kernel = attention_kernel<T>;
   static const cudaError_t attr = allow_smem(kernel);
   if (attr != cudaSuccess) return attr;
-  const bool vec = H % V == 0 && aligned16(q) && aligned16(slots) && aligned16(out);
+  const bool vec = H % Vec<T>::N == 0 && aligned16(q) && aligned16(slots) && aligned16(out);
   return launch_cluster(kernel, dim3(B * cl), kThreads, L.bytes, cl, false, stream,
                         (const T*)q, (const T*)slots, valid, vb, vr, (T*)out, R, S, H,
                         cols, (int)vec);
 }
 
-// The few-rows route's blocks a cluster, columns of H a block and shared
-// memory (ops/attention_cuda.py::stream_smem mirrors it): clusters of 32
-// output columns (16 at H = 512), each of CL blocks (8 there).
-template <typename T> struct StreamPlan {
-  int cl, cols;
-  long long smem;
-  StreamPlan(int B, int R, int S, int H, int split) {
-    constexpr int V = Vec<T>::N;
-    const int chunks = (H + V - 1) / V;
-    cl = fill_split((H + kStreamCols - 1) / kStreamCols, chunks, split);
-    cols = (chunks + cl - 1) / cl * V;
-    const AttnSmem L = attn_smem(B, R, S, cols, sizeof(T));
-    const long long M = (long long)B * R;
-    smem = L.bytes + 2LL * cols * kStreamCols * 4 + M * L.ld * sizeof(T) +
-           M * kStreamCols * 4;
-  }
-};
+// The few-rows route's shared memory a block, for clusters of cl blocks
+// (fusion_stream_kernel lays it out)
+template <typename T> long long stream_smem(int B, int R, int S, int H, int cl) {
+  // each slot and query row takes at least 16 bytes: past this, no plan fits
+  if ((long long)B * (S + R) > kMaxSmem) return kMaxSmem + 1LL;
+  const int cols = block_cols<T>(H, cl);
+  const AttnSmem L = attn_smem(B, R, S, cols, sizeof(T));
+  const long long M = (long long)B * R;
+  return L.bytes + 2LL * cols * kStreamCols * 4 + M * L.ld * sizeof(T) + M * kStreamCols * 4;
+}
 
 template <typename T>
 cudaError_t launch_stream(const void* q, const void* slots, const float* valid,
                           long long vb, long long vr, const float* wf, const float* bias,
-                          void* out, int B, int R, int S, int H, int split,
+                          void* out, int B, int R, int S, int H, int cl,
                           cudaStream_t stream) {
-  if ((long long)B * R > kStreamMaxRows) return cudaErrorInvalidValue;
-  const StreamPlan<T> plan(B, R, S, H, split);
-  if (plan.smem > kMaxSmem) return cudaErrorInvalidValue;
+  const long long smem = stream_smem<T>(B, R, S, H, cl);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const auto kernel = fusion_stream_kernel<T>;
   static const cudaError_t attr = allow_smem(kernel);
   if (attr != cudaSuccess) return attr;
   const bool vec = H % Vec<T>::N == 0 && aligned16(q) && aligned16(slots) && aligned16(wf);
-  return launch_cluster(kernel, dim3(plan.cl, (H + kStreamCols - 1) / kStreamCols),
-                        kThreads, (int)plan.smem, plan.cl, false, stream, (const T*)q,
-                        (const T*)slots, valid, vb, vr, wf, bias, (T*)out, B, R, S, H,
-                        plan.cols, (int)vec);
+  return launch_cluster(kernel, dim3(cl, (H + kStreamCols - 1) / kStreamCols), kThreads,
+                        (int)smem, cl, false, stream, (const T*)q, (const T*)slots, valid,
+                        vb, vr, wf, bias, (T*)out, B, R, S, H, block_cols<T>(H, cl),
+                        (int)vec);
 }
 
 template <typename T>
 cudaError_t launch_tiles(const void* q, const void* mem, const void* wk, const float* bias,
-                         void* out, int M, int H, int split, cudaStream_t stream) {
+                         void* out, int M, int H, int ks, cudaStream_t stream) {
   using L = vd::TileSmem<T, kTileM, kTileN, kTileStages>;
   constexpr int BK = vd::TileK<T>::BK;
   const int Hp = (H + BK - 1) / BK * BK;
   const int tiles_m = (M + kTileM - 1) / kTileM, tiles_n = (H + kTileN - 1) / kTileN;
-  if (tiles_m > 65535) return cudaErrorInvalidValue;
-  // KS = 4 at 320 rows in f32 (82,944 bytes a block, two an SM; eight
-  // splits measured slower), 8 in bf16 (50,176 bytes, four an SM)
-  const int ks = fill_split((long long)tiles_m * tiles_n, 2 * Hp / BK, split,
-                            sizeof(T) == 2 ? 2 * kFillBlocks : kFillBlocks);
+  if (tiles_m > 65535 || ks > 2 * Hp / BK) return cudaErrorInvalidValue;
   const auto kernel = fusion_tiles_kernel<T, kTileM, kTileN, kTileStages>;
   static const cudaError_t attr = allow_smem(kernel);
   if (attr != cudaSuccess) return attr;
@@ -699,66 +638,73 @@ cudaError_t launch_tiles(const void* q, const void* mem, const void* wk, const f
 template <typename T>
 cudaError_t launch_fusion(int route, const void* q, const void* slots, const float* valid,
                           long long vb, long long vr, const void* w, const float* bias,
-                          void* mem, void* out, int B, int R, int S, int H, int split,
+                          void* mem, void* out, int B, int R, int S, int H, int cl, int ks,
                           cudaStream_t stream) {
   if (route == 0)
     return launch_stream<T>(q, slots, valid, vb, vr, (const float*)w, bias, out, B, R, S, H,
-                            split, stream);
+                            cl, stream);
   const cudaError_t err =
-      launch_attention<T>(q, slots, valid, vb, vr, mem, B, R, S, H, 0, stream);
+      launch_attention<T>(q, slots, valid, vb, vr, mem, B, R, S, H, cl, stream);
   if (err != cudaSuccess) return err;
-  return launch_tiles<T>(q, mem, w, bias, out, B * R, H, split, stream);
+  return launch_tiles<T>(q, mem, w, bias, out, B * R, H, ks, stream);
 }
+
+bool cluster_ok(int n) { return n >= 1 && n <= kMaxCluster; }
 
 }  // namespace
 
 // K4.  dtype 0 = float32, 1 = bfloat16 for q (B, R, H), slots (B, S, H),
 // mem (B, R, H) and out (B, R, H); valid f32, element (b, r, s) at b vb + r
-// vr + s; bias (H,) f32.  route 0 (few rows, at most 128, one launch): w is
-// Wf (2H, H) f32, mem is not used; route 1 (tensor cores, two launches): w
-// is Wf^T packed in the dtype as ops/attention_cuda.py::pack_fusion_weight
-// packs it, (H, 2 Hp), and mem is scratch.  split: the product's k-slices
-// (blocks a cluster, 1 to 8), or 0 for the rule (fill_split).  Returns a
-// cudaError_t value (0 on success).
+// vr + s; bias (H,) f32.  route 0 (few rows, one launch, where
+// vd_fusion_stream_fits): w is Wf (2H, H) f32, mem is not used, cl blocks a
+// cluster split H; route 1 (tensor cores, two launches): w is Wf^T packed in
+// the dtype as ops/attention_cuda.py::pack_fusion_weight packs it, (H, 2 Hp),
+// mem is scratch, the attention takes cl blocks a dialog and the product ks
+// k-slices (blocks a cluster, at most the product's k-tiles).  cl and ks are
+// 1 to 8, chosen by ops/attention_cuda.py.  Returns a cudaError_t value (0 on
+// success).
 extern "C" int vd_attention_fusion(int dtype, int route, const void* q, const void* slots,
                                    const float* valid, long long vb, long long vr,
                                    const void* w, const float* bias, void* mem, void* out,
-                                   int B, int R, int S, int H, int split, void* stream) {
+                                   int B, int R, int S, int H, int cl, int ks, void* stream) {
   if (S < 1 || S > kMaxSlots || B < 1 || R < 1 || H < 1 || (route != 0 && route != 1) ||
-      split < 0 || split > kMaxCluster)
+      !cluster_ok(cl) || (route == 1 && !cluster_ok(ks)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)launch_fusion<float>(route, q, slots, valid, vb, vr, w, bias, mem, out, B,
-                                     R, S, H, split, s);
+                                     R, S, H, cl, ks, s);
   if (dtype == 1)
     return (int)launch_fusion<__nv_bfloat16>(route, q, slots, valid, vb, vr, w, bias, mem,
-                                             out, B, R, S, H, split, s);
+                                             out, B, R, S, H, cl, ks, s);
   return (int)cudaErrorInvalidValue;
 }
 
-#ifdef VD_ATTN_TRACE
-// The stamps of the last traced launch (4 x 16 values) into host.
-extern "C" int vd_attention_trace(unsigned long long* host) {
-  return (int)cudaMemcpyFromSymbol(host, vd_attn_trace, sizeof(vd_attn_trace));
+// 1 where K4's few-rows route (route 0) with clusters of cl blocks fits a
+// block's shared memory at this shape, else 0: the route's one size rule.
+extern "C" int vd_fusion_stream_fits(int dtype, int B, int R, int S, int H, int cl) {
+  if (S < 1 || S > kMaxSlots || B < 1 || R < 1 || H < 1 || !cluster_ok(cl) ||
+      (dtype != 0 && dtype != 1))
+    return 0;
+  const long long smem = dtype == 0 ? stream_smem<float>(B, R, S, H, cl)
+                                    : stream_smem<__nv_bfloat16>(B, R, S, H, cl);
+  return smem <= kMaxSmem;
 }
-#endif
 
 // K3.  dtype 0 = float32, 1 = bfloat16 for q (B, R, H), slots (B, S, H) and
-// out (B, R, H); valid f32, element (b, r, s) at b vb + r vr + s; cluster:
-// the blocks a dialog (1 to 8), or 0 for the rule (fill_split).  Returns a
-// cudaError_t value.
+// out (B, R, H); valid f32, element (b, r, s) at b vb + r vr + s; cl: the
+// blocks a dialog (1 to 8, chosen by ops/attention_cuda.py::attention_blocks).
+// Returns a cudaError_t value.
 extern "C" int vd_attention(int dtype, const void* q, const void* slots,
                             const float* valid, long long vb, long long vr, void* out,
-                            int B, int R, int S, int H, int cluster, void* stream) {
-  if (S < 1 || S > kMaxSlots || B < 1 || R < 1 || H < 1 || cluster < 0 ||
-      cluster > kMaxCluster)
+                            int B, int R, int S, int H, int cl, void* stream) {
+  if (S < 1 || S > kMaxSlots || B < 1 || R < 1 || H < 1 || !cluster_ok(cl))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)launch_attention<float>(q, slots, valid, vb, vr, out, B, R, S, H, cluster, s);
+    return (int)launch_attention<float>(q, slots, valid, vb, vr, out, B, R, S, H, cl, s);
   if (dtype == 1)
     return (int)launch_attention<__nv_bfloat16>(q, slots, valid, vb, vr, out, B, R, S, H,
-                                                cluster, s);
+                                                cl, s);
   return (int)cudaErrorInvalidValue;
 }

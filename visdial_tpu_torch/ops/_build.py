@@ -39,12 +39,14 @@ _SIGNATURES = {
     # Kx, KW, H, S, stream
     "vd_lstm_layer_bwd": [_i] + [_p] * 12 + [_i] * 7 + [_p],
     # dtype, q, slots, valid, valid's batch and row strides, out, B, R, S,
-    # H, cluster, stream
+    # H, cl, stream
     "vd_attention": [_i] + [_p] * 3 + [_ll] * 2 + [_p] + [_i] * 5 + [_p],
     # dtype, route, q, slots, valid, its batch and row strides, w, bias, mem,
-    # out, B, R, S, H, split, stream
+    # out, B, R, S, H, cl, ks, stream
     "vd_attention_fusion": [_i] * 2 + [_p] * 3 + [_ll] * 2 + [_p] * 4
-                           + [_i] * 5 + [_p],
+                           + [_i] * 6 + [_p],
+    # dtype, B, R, S, H, cl
+    "vd_fusion_stream_fits": [_i] * 6,
     # dtype, x, wk, b, tgt, part, logp, lse, NT, Hp, V, tiles_per_split,
     # splits, stream
     "vd_lm_score": [_i] + [_p] * 7 + [_i] * 5 + [_p],

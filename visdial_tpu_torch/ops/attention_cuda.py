@@ -30,32 +30,58 @@ MAX_SLOTS = 64
 # tensor cores above it: where the two routes' device times cross, by dtype
 # (`scripts/attention_check.py --sweep` on an H100; PERF.md)
 FUSION_STREAM_ROWS = {torch.float32: 40, torch.bfloat16: 20}
-STREAM_MAX_ROWS = 128     # csrc/attention_fusion.cu's kStreamMaxRows
-MAX_SMEM = 232448         # shared memory a block may use (kMaxSmem)
 ROUTE_CODE = {"stream": 0, "tiles": 1}
-# K3's blocks a dialog and K4's k-slices of the fusion product (each a
-# thread-block cluster, 1 to 8); 0 takes the rule of
-# csrc/attention_fusion.cu::fill_split.  Set only by
-# `scripts/attention_check.py --clusters`, which compares the counts.
-K3_CLUSTER = 0
-K4_SPLIT = 0
+FILL_BLOCKS = 128    # blocks that fill the H100's 132 SMs
+# csrc/attention_fusion.cu's kMaxCluster, kStreamCols and kTileM (= kTileN),
+# which the rules below read
+MAX_CLUSTER = 8      # the portable thread-block cluster size
+STREAM_COLS = 32     # K4's few-rows output columns a cluster
+TILE = 64            # K4's tensor-core output tiles
 
 
-def stream_smem(B: int, R: int, S: int, H: int, dtype: torch.dtype) -> int:
-    """Shared memory a block of K4's few-rows route takes (bytes), as
-    csrc/attention_fusion.cu's StreamPlan and attn_smem size it: the group's
-    slot and query columns and its scores, Wf's rows, mem's columns and the
-    partial sums."""
-    size = 2 if dtype == torch.bfloat16 else 4
-    v = 16 // size
-    chunks, slices = -(-H // v), -(-H // 32)
-    cl = 1
-    while cl < 8 and slices * cl < 128 and 2 * cl <= chunks:
-        cl *= 2
-    cols = -(-chunks // cl) * v
-    ld, M = cols + v, B * R
-    att = -(-((B * S + M) * ld * size + 2 * M * S * 4) // 16) * 16
-    return att + 2 * cols * 32 * 4 + M * ld * size + M * 32 * 4
+def fill_split(blocks: int, most: int, fill: int = FILL_BLOCKS) -> int:
+    """Blocks a cluster for a launch of `blocks` clusters: the smallest power
+    of two n <= MAX_CLUSTER with blocks x n >= fill, and 2n <= `most` (the
+    pieces there are to split)."""
+    n = 1
+    while n < MAX_CLUSTER and blocks * n < fill and 2 * n <= most:
+        n *= 2
+    return n
+
+
+def _chunks(H: int, dtype: torch.dtype) -> int:
+    """16-byte chunks of a row of H values of dtype."""
+    return -(-H // (8 if dtype == torch.bfloat16 else 4))
+
+
+def attention_blocks(B: int, H: int, dtype: torch.dtype) -> int:
+    """K3's blocks a dialog (a cluster that splits H), also K4's attention on
+    its tensor-core route: 2 x FILL_BLOCKS blocks in all, as a block takes
+    ~12 KB of shared memory at S = 10 and several share an SM (8 at 32
+    dialogs; `scripts/attention_check.py --clusters`)."""
+    return fill_split(B, _chunks(H, dtype), 2 * FILL_BLOCKS)
+
+
+def stream_blocks(H: int, dtype: torch.dtype) -> int:
+    """Blocks a cluster on K4's few-rows route, each cluster STREAM_COLS
+    output columns (8 at H = 512: 128 blocks)."""
+    return fill_split(-(-H // STREAM_COLS), _chunks(H, dtype))
+
+
+def fusion_splits(M: int, H: int, dtype: torch.dtype) -> int:
+    """k-slices (blocks a cluster) of K4's tensor-core product at M rows: 4
+    in f32 at 320 rows (two blocks an SM; eight measured slower), 8 in bf16
+    (four an SM)."""
+    tiles = -(-M // TILE) * -(-H // TILE)
+    fill = 2 * FILL_BLOCKS if dtype == torch.bfloat16 else FILL_BLOCKS
+    return fill_split(tiles, 2 * -(-H // k_tile(dtype)), fill)
+
+
+def stream_fits(B: int, R: int, S: int, H: int, dtype: torch.dtype) -> bool:
+    """Whether K4's few-rows launch fits a block's shared memory at this
+    shape: the library sizes it (vd_fusion_stream_fits)."""
+    return bool(_build.library().vd_fusion_stream_fits(
+        _build.DTYPE_CODE[dtype], B, R, S, H, stream_blocks(H, dtype)))
 
 
 def fusion_route(B: int, R: int, S: int, H: int, dtype: torch.dtype) -> str:
@@ -63,7 +89,7 @@ def fusion_route(B: int, R: int, S: int, H: int, dtype: torch.dtype) -> str:
     (one launch, CUDA cores, Wf read once) up to FUSION_STREAM_ROWS[dtype]
     rows where its shared memory fits, else "tiles" (the attention, then
     common.cuh::tile_product on the tensor cores, Wf packed)."""
-    if B * R <= FUSION_STREAM_ROWS[dtype] and stream_smem(B, R, S, H, dtype) <= MAX_SMEM:
+    if B * R <= FUSION_STREAM_ROWS[dtype] and stream_fits(B, R, S, H, dtype):
         return "stream"
     return "tiles"
 
@@ -140,8 +166,8 @@ def masked_slot_attention(query, slots, valid):
     with _on(query.device):
         err = _build.library().vd_attention(
             _build.DTYPE_CODE[query.dtype], query.data_ptr(), slots.data_ptr(),
-            valid.data_ptr(), vb, vr, out.data_ptr(), B, R, S, H, K3_CLUSTER,
-            _build.stream_of(query))
+            valid.data_ptr(), vb, vr, out.data_ptr(), B, R, S, H,
+            attention_blocks(B, H, query.dtype), _build.stream_of(query))
     _build.check(err, "masked_slot_attention")
     masked_slot_attention.launches += 1
     return out
@@ -185,22 +211,25 @@ def attention_fusion(query, slots, valid, fusion_w, fusion_b):
     if tuple(fusion_w.shape) != (2 * H, H) or tuple(fusion_b.shape) != (H,):
         raise ValueError(f"attention_fusion: fusion_w {tuple(fusion_w.shape)}, "
                          f"fusion_b {tuple(fusion_b.shape)} do not fit H={H}")
-    route = fusion_route(B, R, S, H, query.dtype)
+    dt = query.dtype
+    route = fusion_route(B, R, S, H, dt)
     if route == "tiles":
-        w = pack_fusion_weight(fusion_w, query.dtype)
+        w = pack_fusion_weight(fusion_w, dt)
         mem = torch.empty_like(query)
+        cl, ks = attention_blocks(B, H, dt), fusion_splits(B * R, H, dt)
     else:
         w = fusion_w.float().contiguous()   # f32 Wf crosses as it is
         mem = query                         # not used
+        cl, ks = stream_blocks(H, dt), 0    # ks is not used
     bias = fusion_b.float().contiguous()
     valid, vb, vr = _mask(valid)
     out = torch.empty_like(query)
     with _on(query.device):
         err = _build.library().vd_attention_fusion(
-            _build.DTYPE_CODE[query.dtype], ROUTE_CODE[route], query.data_ptr(),
+            _build.DTYPE_CODE[dt], ROUTE_CODE[route], query.data_ptr(),
             slots.data_ptr(), valid.data_ptr(), vb, vr, w.data_ptr(),
-            bias.data_ptr(), mem.data_ptr(), out.data_ptr(), B, R, S, H,
-            K4_SPLIT, _build.stream_of(query))
+            bias.data_ptr(), mem.data_ptr(), out.data_ptr(), B, R, S, H, cl, ks,
+            _build.stream_of(query))
     _build.check(err, "attention_fusion")
     attention_fusion.launches += 1
     return out
