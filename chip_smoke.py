@@ -5,18 +5,24 @@
 
 Builds the port's CUDA kernels from csrc/ and holds each against its plain
 PyTorch version on the card at the shapes the serving, training and
-evaluation paths give it: K1 (LSTM forward, with and without cell states),
-K2 (LSTM backward, through LSTMLayerFn), K3 (slot attention, through
-AttentionFn), K4 (attention + fusion), K5 (LM-head log-probs and row
-logsumexp) and K6 (LM-head d-logits, and TokenLogprobFn's gradients).  Then
-it drives the main paths of the flagship MN-QIH models (random weights from
-a seed, full width): disc served over a 50,000-answer pool through
-InferenceEngine and the JSON-lines CLI, disc trained through train_step
-(kernel path against the plain path at dropout 0 and 0.5, then 20 steps),
-gen trained the same way, gen evaluated through evaluate_split over 100
-candidates a round, gen served (greedy and beam 5), and the train CLI for
-both decoders with a resume.  Each path must have gone through its kernels
-and agree with a run of the plain versions on the same card.
+evaluation paths give it: K1 (LSTM forward, with and without cell states;
+also over LF's 256-step history and HRE's dialog LSTM), K2 (LSTM backward,
+through LSTMLayerFn; also with LF's gradient only at the history bounds),
+K3 (slot attention, through AttentionFn; also over 49 pool5 locations), K4
+(attention + fusion), K5 (LM-head log-probs and row logsumexp) and K6
+(LM-head d-logits, and TokenLogprobFn's gradients).  Then it drives the
+main paths at full width (random weights from a seed): flagship MN-QIH-disc
+served over a 50,000-answer pool through InferenceEngine and the JSON-lines
+CLI, trained through train_step (kernel path against the plain path at
+dropout 0 and 0.5, then 20 steps), MN-QIH-gen trained the same way,
+evaluated through evaluate_split over 100 candidates a round and served
+(greedy and beam 5); LF-QIH-disc trained, evaluated and served the same
+way; each other encoder family (LF's ablations and its per-round history,
+HRE, HREA, MN with the pool5 map) through one train step and one eval
+batch; the train CLI for both decoders with a resume; and the evaluate CLI
+on the train CLI's checkpoint with the v1.0 rankings dump.  Each path must
+have gone through its kernels and agree with a run of the plain versions on
+the same card.
 
 Each phase prints one JSON line.  Then come the raw nvidia-smi line (card
 name, power limit), the kernel summary line (each kernel's launches on its
@@ -42,10 +48,15 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# f32: both sides sum K <= 812 products of f32 operands in another order over
-# up to 40 recurrent steps; bf16: outputs are rounded to bf16 (one ulp is
-# 2^-8 at |h| < 1), and an order-dependent flip of h's rounding feeds the
-# next step.
+# f32: both sides sum K <= 1,024 products of f32 operands in another order
+# at every step; bf16: outputs are rounded to bf16 (one ulp is 2^-8 at |h| <
+# 1), and an order-dependent flip of h's rounding feeds the next step.  The
+# same limits hold over LF's 256 history steps as over 40: a difference
+# that enters the carries at step t is multiplied at each later step by the
+# step's Jacobian, f * (cell) plus o * tanh' * (the gates' W_h terms),
+# whose norm is below 1 at these weights (uniform +-0.08 over H = 512,
+# sigmoid' <= 1/4), so it decays geometrically instead of adding up over T;
+# the rows of LSTM_SHAPES at T = 256 check it.
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # Gradients, relative to the largest reference value: f32 as above; bf16
 # also rounds dgp (and both sides' residuals) to bf16 at every step, and
@@ -55,30 +66,69 @@ SCORE_TOL = 1e-3   # served scores: 512-term dot products of f32 LSTM states
 LSTM_SHAPES = [(8192, 8, 300, 512), (8192, 8, 512, 512),
                (10, 40, 300, 512), (10, 16, 300, 512),
                (320, 40, 300, 512), (320, 16, 300, 512),
-               (32000, 8, 300, 512), (32000, 8, 512, 512)]   # N, T, E, H
+               (32000, 8, 300, 512), (32000, 8, 512, 512),
+               # LF's history (a training batch, a served request, and the
+               # per-round hist_concat path), HRE/HREA's dialog LSTM
+               (32, 256, 300, 512), (1, 256, 300, 512), (320, 256, 300, 512),
+               (32, 10, 512, 512), (1, 10, 512, 512)]         # N, T, E, H
+# how a shape's rows are aligned (lstm_case): LF's incremental history is
+# left-aligned with ragged ends, hist_concat right-aligned, the dialog LSTM
+# unmasked; the rest mix right- and left-aligned rows
+ALIGN = {(32, 256, 300, 512): "left", (1, 256, 300, 512): "left",
+         (320, 256, 300, 512): "right", (32, 10, 512, 512): "ones",
+         (1, 10, 512, 512): "ones"}
+# LF's history layer, where K1 and K2 are reported beside the head shape
+HIST_HEAD = (32, 256, 300, 512)
 # the head shape of K1 and K2, where the single-pass TF32 control runs
 LSTM_HEAD = (32000, 8, 300, 512)
 # the training path: the option LSTM's 32,000 candidate rows (both layers),
-# the question and fact LSTMs' 320 rows (first layers)
+# the question and fact LSTMs' 320 rows (first layers), LF's history (left-
+# aligned, and per round right-aligned) and the dialog LSTM
 BWD_SHAPES = [(32000, 8, 300, 512), (32000, 8, 512, 512),
-              (320, 40, 300, 512), (320, 16, 300, 512)]
+              (320, 40, 300, 512), (320, 16, 300, 512),
+              (32, 256, 300, 512), (320, 256, 300, 512), (32, 10, 512, 512)]
+# K2 as LF's top history layer sees it: g_hs nonzero only at the 10 rounds'
+# prefix bounds of each row, g_hT = g_cT = 0
+SPARSE_BWD = (32, 256, 300, 512)
 # K4 (B, R, S, H): a served request, an eval batch, ragged rows with
 # all-masked rows (the two sides of its route threshold are added)
 ATTN_SHAPES = [(1, 10, 10, 512), (32, 10, 10, 512), (7, 10, 10, 512)]
 # K3: the training batch, one dialog, a batch with all-masked rows, and
 # img_spatial's 49 slots and the limit of 64
 ATTN3_SHAPES = [(32, 10, 10, 512), (1, 10, 10, 512), (4, 10, 10, 512),
-                (32, 10, 49, 512), (32, 10, 64, 512)]
+                (32, 10, 49, 512), (1, 10, 49, 512), (32, 10, 64, 512)]
 # the masks of those shapes: the encoder's causal mask as it hands it over,
 # an expanded view (batch stride 0), but at these dialog counts a copy with
-# all-masked rows
+# all-masked rows; at img_spatial's 49 pool5 locations the image pathway's
+# all-ones mask, also an expanded view
 ATTN_MASKED = {"attention": 4, "attention_fusion": 7}
+SPATIAL_SLOTS = 49
 # train: loss is a mean of 320 f32 NLLs; grad_norm and the gradients are
 # sums in another order (K2 and the f32 contractions vs autograd + cuBLAS)
 LOSS_TOL, GNORM_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
 TRAIN_STEPS = 20
-# gen eval's rate: runs of each path over 8 full 32-dialog batches
+# the evals' rate: runs of each path over 8 full 32-dialog batches
 EVAL_DIALOGS, EVAL_REPS = 256, 3
+# the other encoder families (label, encoder, flagship_setup options), each
+# through one train step and one eval batch
+FAMILIES = [("lf-ques", "lf-ques", {}), ("lf-ques-hist", "lf-ques-hist", {}),
+            ("lf-ques-im", "lf-ques-im", {}),
+            ("hre-ques-hist", "hre-ques-hist", {}),
+            ("hre-ques-im-hist", "hre-ques-im-hist", {}),
+            ("hrea-ques-im-hist", "hrea-ques-im-hist", {}),
+            ("lf-ques-im-hist-concat", "lf-ques-im-hist",
+             {"lf_hist_incremental": False}),
+            ("mn-ques-im-hist-spatial", "mn-ques-im-hist", {"img_spatial": True})]
+FAMILY_EVAL_DIALOGS = 32
+# disc evals run on the init weights with every parameter outside the LSTMs
+# (embeddings, projections, fusions) times this: at the init (uniform +-0.08)
+# a round's 100 disc scores lie within ~1e-4 of each other, so any rank
+# comparison would be one of near ties; x4 spreads them (std ~0.5 for
+# LF-QIH-disc).  The LSTMs keep their init scale: with W x4 LF's 256-step
+# history is chaotic (in f32, a relative change of 1e-6 in its input moves h
+# by ~2 after 200 steps), so two summation orders would disagree by units
+# however right the kernel is
+EVAL_SCALE = 4.0
 # K5 / K6 (NT, H, V): gen training's 320 x 9 tokens, one 8,192-row scoring
 # chunk of gen eval (x 9 steps), ragged rows with the flagship vocab's
 # ragged tail, and one row over a vocab narrower than a tile
@@ -164,18 +214,24 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def lstm_case(gen, N, T, E, H):
-    """w, b, x, mask, h0, c0 on the CPU: mixed right- and left-aligned rows,
-    an eighth of them all-pad."""
+def lstm_case(gen, N, T, E, H, align: str = "mixed"):
+    """w, b, x, mask, h0, c0 on the CPU.  align "mixed": right- and
+    left-aligned rows, an eighth of them all-pad; "left" / "right": every
+    row so, of ragged lengths from 1 to T; "ones": every step real."""
     w = torch.empty(E + H, 4 * H).uniform_(-0.08, 0.08, generator=gen)
     b = torch.empty(4 * H).uniform_(-0.5, 0.5, generator=gen)
     x = torch.randn(N, T, E, generator=gen) * 0.5
     lens = torch.randint(0, T + 1, (N,), generator=gen)
-    lens[: max(N // 8, 1)] = 0                     # all-pad rows
+    if align == "mixed":
+        lens[: max(N // 8, 1)] = 0                 # all-pad rows
+    else:
+        lens = lens.clamp(min=1) if align != "ones" else torch.full((N,), T)
     steps = torch.arange(T)
     right = steps[None] >= (T - lens)[:, None]     # right-aligned rows
     left = steps[None] < lens[:, None]             # left-aligned rows
-    mask = torch.where((torch.arange(N) % 2 == 0)[:, None], right, left)
+    mask = {"mixed": torch.where((torch.arange(N) % 2 == 0)[:, None], right,
+                                 left),
+            "left": left, "right": right, "ones": left}[align]
     h0 = torch.randn(N, H, generator=gen) * 0.5
     c0 = torch.randn(N, H, generator=gen) * 0.5
     return w, b, x, mask.float(), h0, c0
@@ -357,7 +413,8 @@ def lstm_checks(dev, gen) -> list[dict]:
 
     rows = []
     for N, T, E, H in LSTM_SHAPES:
-        w, b, x, mask, h0, c0 = lstm_case(gen, N, T, E, H)
+        align = ALIGN.get((N, T, E, H), "mixed")
+        w, b, x, mask, h0, c0 = lstm_case(gen, N, T, E, H, align)
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).split(".")[1]
             args = [t.to(dev) for t in (w, b, x.to(dt), mask, h0, c0)]
@@ -379,7 +436,7 @@ def lstm_checks(dev, gen) -> list[dict]:
                   f"{name}: max abs err {cs_err} > {TOL[name]}")
             del got_cs, want_cs
             row = {"phase": "lstm_layer", "shape": [N, T, E, H], "dtype": name,
-                   "max_abs_err": err, "cs_max_abs_err": cs_err,
+                   "align": align, "max_abs_err": err, "cs_max_abs_err": cs_err,
                    "tol": TOL[name],
                    "ms": time_ms(lambda: lstm_layer(*args)),
                    "plain_ms": time_ms(lambda: lstm_layer_plain(*args)),
@@ -471,10 +528,19 @@ def lstm_bwd_checks(dev, gen) -> list[dict]:
                                                  lstm_layer_bwd)
 
     rows = []
-    for N, T, E, H in BWD_SHAPES:
-        case = lstm_case(gen, N, T, E, H)
+    for (N, T, E, H), sparse in ([(shape, False) for shape in BWD_SHAPES]
+                                 + [(SPARSE_BWD, True)]):
+        align = ALIGN.get((N, T, E, H), "mixed")
+        case = lstm_case(gen, N, T, E, H, align)
         g_hs = torch.randn(N, T, H, generator=gen)
         g_ht, g_ct = torch.randn(2, N, H, generator=gen)
+        if sparse:   # 10 prefix bounds a row, inside its real steps
+            lens = case[3].sum(1).long().clamp(min=1)
+            at = torch.zeros(N, T, dtype=torch.bool)
+            at[torch.arange(N)[:, None],
+               torch.randint(0, T, (N, 10), generator=gen) % lens[:, None]] = True
+            g_hs = torch.where(at[..., None], g_hs, 0.0)
+            g_ht, g_ct = torch.zeros(2, N, H)
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).split(".")[1]
             w, b, x, mask, h0, c0 = (t.to(dev) for t in case)
@@ -514,7 +580,8 @@ def lstm_bwd_checks(dev, gen) -> list[dict]:
                     GRAD_TOL[name], "lstm_layer_bwd", (N, T, E, H))
             del k2, k2_plain
             row = {**extra, "phase": "lstm_layer_bwd", "shape": [N, T, E, H],
-                   "dtype": name, "grad_max_rel_err": err,
+                   "dtype": name, "align": align, "sparse_g_hs": sparse,
+                   "grad_max_rel_err": err,
                    "k2_max_rel_err": k2_err, "max_abs_err": k2_abs,
                    "tol": GRAD_TOL[name],
                    "bwd_ms": ms[0], "bwd_plain_ms": ms[1],
@@ -549,7 +616,10 @@ def attention_only_checks(dev, gen) -> list[dict]:
     for B, R, S, H in ATTN3_SHAPES:
         q = torch.randn(B, R, H, generator=gen) * 0.5
         s = torch.randn(B, S, H, generator=gen) * 0.5
-        valid = causal_mask(dev, B, R, S, B == ATTN_MASKED["attention"])
+        if S == SPATIAL_SLOTS:
+            valid = torch.ones((1, R, S), device=dev).expand(B, R, S)
+        else:
+            valid = causal_mask(dev, B, R, S, B == ATTN_MASKED["attention"])
         g = torch.randn(B, R, H, generator=gen)
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).split(".")[1]
@@ -570,6 +640,7 @@ def attention_only_checks(dev, gen) -> list[dict]:
                   f"{TOL[name]}), grad rel err {grad_err} (tol {GRAD_TOL[name]})")
             args = (q.to(dev, dt), s.to(dev, dt), valid)
             row = {"phase": "attention", "shape": [B, R, S, H], "dtype": name,
+                   "mask": "all-ones" if S == SPATIAL_SLOTS else "causal",
                    "max_rel_err": err, "max_abs_err": abs_err(outs[:1], outs[1:]),
                    "grad_max_rel_err": grad_err,
                    "tol": TOL[name], "grad_tol": GRAD_TOL[name],
@@ -812,28 +883,60 @@ def compare_steps(cfg, state0, batch, seed: int) -> dict:
             "grad_max_rel_err": grad_err, "param_max_abs_err": param_err}
 
 
-def train(dev, decoder: str = "disc") -> dict:
-    """A training path: flagship MN-QIH-<decoder> at full width, f32."""
+def path_kernels(cfg, train: bool) -> tuple[set, set]:
+    """(the kernels a path of cfg's model must launch, those it must not):
+    K1 always, K2 in training; K3 where it attends over slots in training
+    (MN, HREA) or over pool5 locations (img_spatial, train and eval); K4
+    for MN's and HREA's eval tail; K5 for the gen decoder, K6 in its
+    training."""
+    from visdial_tpu_torch.config import encoder_family, encoder_uses_image
+
+    fam = encoder_family(cfg.encoder)
+    spatial = cfg.img_spatial and encoder_uses_image(cfg.encoder)
+    need = {"lstm_layer"}
+    if train:
+        need |= {"lstm_layer_bwd"} | (
+            {"attention"} if fam in ("mn", "hrea") or spatial else set())
+    else:
+        need |= ({"attention_fusion"} if fam in ("mn", "hrea") else set()) | (
+            {"attention"} if spatial else set())
+    if cfg.decoder == "gen":
+        need |= {"lm_score", "lm_dlogits"} if train else {"lm_score"}
+    return need, set(_wrappers()) - need
+
+
+def check_launches(launches: dict, cfg, train: bool, what: str) -> None:
+    need, never = path_kernels(cfg, train)
+    check(all(launches[k] > 0 for k in need) and all(launches[k] == 0
+                                                     for k in never),
+          f"{what}: launches {launches}, expected > 0 for {sorted(need)} "
+          f"and 0 for {sorted(never)}")
+
+
+def train(dev, decoder: str = "disc", encoder: str = "mn-ques-im-hist",
+          phase: str = "") -> dict:
+    """A training path: flagship <encoder>-<decoder> at full width, f32."""
     from visdial_tpu_torch.parallel.train_step import train_step
     from visdial_tpu_torch.profile_train import flagship_setup
 
-    cfg, batches, state0 = flagship_setup(dev, TRAIN_STEPS, decoder=decoder)
-    row = {"phase": "train" if decoder == "disc" else "gen_train",
-           "model": f"mn-ques-im-hist-{decoder}", "vocab": cfg.vocab_size,
+    cfg, batches, state0 = flagship_setup(dev, TRAIN_STEPS, decoder=decoder,
+                                          encoder=encoder)
+    row = {"phase": phase or ("train" if decoder == "disc" else "gen_train"),
+           "model": f"{encoder}-{decoder}", "vocab": cfg.vocab_size,
            "batch_dialogs": cfg.batch_size}
     if decoder == "disc":
         check(cfg.vocab_size == 8804 and "opt_uniq" in batches[0],
               "train batches: vocab 8,804 and the dedup layout")
         row.update({"candidate_rows": int(batches[0]["opt_uniq"].shape[0]),
                     "unique_rows": int((batches[0]["opt_uniq"] != 0).any(1).sum())})
-        kernels = ("lstm_layer", "lstm_layer_bwd", "attention")
     else:
         check(cfg.vocab_size == 8804 and "ans_out" in batches[0]
               and "opt" not in batches[0], "gen train batches: vocab 8,804 and "
               "teacher-forced answers without candidates")
         row["lm_tokens"] = int(batches[0]["ans_out"].numel())
-        kernels = ("lstm_layer", "lstm_layer_bwd", "attention", "lm_score",
-                   "lm_dlogits")
+    if "hist_flat" in batches[0]:
+        row["hist_shape"] = list(batches[0]["hist_flat"].shape)
+        row["hist_tokens"] = int((batches[0]["hist_flat"] != 0).sum())
     row["dropout0"] = compare_steps(cfg, state0, batches[0], seed=1)
     cfg = cfg.replace(dropout=0.5)
     row["dropout05"] = compare_steps(cfg, state0, batches[0], seed=2)
@@ -854,8 +957,7 @@ def train(dev, decoder: str = "disc") -> dict:
     launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
-    check(all(launches[k] > 0 for k in kernels),
-          f"a kernel of the {row['phase']} path never launched: {launches}")
+    check_launches(launches, cfg, True, row["phase"])
     torch.cuda.reset_peak_memory_stats(dev)
     _, plain_ms = run(state0, "plain", 5)
     rounds = cfg.batch_size * cfg.num_rounds
@@ -871,12 +973,85 @@ def train(dev, decoder: str = "disc") -> dict:
     return row
 
 
-def gen_eval(dev) -> dict:
-    """The gen evaluation path: evaluate_split (width-bucketed) of the
-    flagship MN-QIH-gen over 48 dialogs x 10 rounds x 100 candidates, the
-    kernel path against the plain path (ranks equal; this run also warms
-    both paths up).  Then the rate: EVAL_REPS runs of each path, in turn,
-    over EVAL_DIALOGS dialogs (full 32-dialog batches)."""
+def disc_scores(params, split, vocab, cfg, dev, impl: str) -> torch.Tensor:
+    """(dialogs, R, K) disc scores of `split`, batch by batch through the
+    option table, as evaluate_split computes them."""
+    from visdial_tpu_torch.data.loader import EvalLoader
+    from visdial_tpu_torch.models.model import (batch_to_device,
+                                                model_option_table,
+                                                model_scores_with_table)
+
+    out = []
+    with torch.inference_mode():
+        table = model_option_table(
+            params, torch.from_numpy(split.opt_list).long().to(dev), cfg,
+            impl=impl)
+        for b in EvalLoader(split, vocab, cfg, option_tokens=False):
+            d = batch_to_device(b.as_dict(), dev)
+            s = model_scores_with_table(params, d, table, cfg, impl=impl)
+            out.append(s[torch.from_numpy(b.dialog_valid.astype(bool)).to(dev)])
+    return torch.cat(out)
+
+
+def scaled(params: dict, k: float) -> dict:
+    """params with every leaf outside the LSTMs times k (EVAL_SCALE)."""
+    from visdial_tpu_torch.utils.params import flatten, unflatten
+
+    return unflatten({n: v if "lstm" in n else v * k
+                      for n, v in flatten(params).items()})
+
+
+def eval_pair(params, split, vocab, cfg, dev, what: str) -> dict:
+    """evaluate_split of `split` on the kernel path (its launches read
+    right after it) and on the plain path.  Ranks must be equal; for the
+    disc decoder a rank may differ only where the plain scores of the
+    ground truth and another candidate lie within twice the largest score
+    difference between the paths (a near tie), and that difference must be
+    within SCORE_TOL."""
+    import numpy as np
+
+    from visdial_tpu_torch.eval_harness import evaluate_split
+
+    reset_launches()
+    mk, rk = evaluate_split(params, split, vocab, cfg, dev, impl="cuda",
+                            return_ranks=True)
+    launches = kernel_launches()
+    check_launches(launches, cfg, False, what)
+    mp, rp = evaluate_split(params, split, vocab, cfg, dev, impl="plain",
+                            return_ranks=True)
+    rounds = split.num_dialogs * cfg.num_rounds
+    check(len(rk) == len(rp) == rounds and math.isfinite(mk["mrr"]),
+          f"{what}: ranked {len(rk)} rounds, mrr {mk['mrr']}")
+    row = {"launches": launches, "dialogs": split.num_dialogs,
+           "rounds": int(len(rk)), "mrr": mk["mrr"], "plain_mrr": mp["mrr"],
+           "mean_rank": mk["mean_rank"],
+           "rank_mismatches": int((rk != rp).sum())}
+    if cfg.decoder == "disc":
+        s_k = disc_scores(params, split, vocab, cfg, dev, "cuda")
+        s_p = disc_scores(params, split, vocab, cfg, dev, "plain")
+        err = float((s_k - s_p).abs().max())
+        check(bool(torch.isfinite(s_k).all()) and err <= SCORE_TOL,
+              f"{what}: score err {err} > {SCORE_TOL}")
+        gt = torch.from_numpy(split.gt_ind).long().to(dev)
+        s_gt = s_p.gather(-1, gt[..., None])
+        near = ((s_p - s_gt).abs() <= 2 * err).sum(-1).flatten().cpu().numpy() - 1
+        row.update({"score_max_abs_err": err, "score_tol": SCORE_TOL})
+        check(bool((np.abs(rk - rp) <= near).all()),
+              f"{what}: {row['rank_mismatches']} ranks differ from the plain "
+              "path's beyond the near ties")
+    else:
+        check(row["rank_mismatches"] == 0, f"{what}: {row['rank_mismatches']} "
+              "ranks differ from the plain path's")
+    return row
+
+
+def evaluate(dev, encoder: str = "mn-ques-im-hist", decoder: str = "gen",
+             phase: str = "gen_eval") -> dict:
+    """An evaluation path: evaluate_split (gen width-bucketed) of the
+    flagship <encoder>-<decoder> over 48 dialogs x 10 rounds x 100
+    candidates, the kernel path against the plain path (eval_pair; this
+    run also warms both paths up).  Then the rate: EVAL_REPS runs of each
+    path, in turn, over EVAL_DIALOGS dialogs (full 32-dialog batches)."""
     import numpy as np
 
     from visdial_tpu_torch.config import Config
@@ -884,32 +1059,16 @@ def gen_eval(dev) -> dict:
     from visdial_tpu_torch.eval_harness import evaluate_split
     from visdial_tpu_torch.models.model import model_init
 
-    base = Config(encoder="mn-ques-im-hist", decoder="gen", dropout=0.0)
+    base = Config(encoder=encoder, decoder=decoder, dropout=0.0)
     split, vocab = make_random_split(base, num_dialogs=48, seed=0)
     cfg = base.replace(vocab_size=vocab.size)
     check(cfg.gen_eval_bucketed, "gen eval takes the bucketed path")
     params = model_init(cfg, seed=0, device=dev)
-    reset_launches()
-    mk, rk = evaluate_split(params, split, vocab, cfg, dev, impl="cuda",
-                            return_ranks=True)
-    launches = kernel_launches()
-    check(all(launches[k] > 0 for k in ("lstm_layer", "attention_fusion",
-                                        "lm_score")),
-          f"a kernel of the gen eval path never launched: {launches}")
-    check(launches["lstm_layer_bwd"] == launches["lm_dlogits"] == 0,
-          f"gen eval launched a training kernel: {launches}")
-    mp, rp = evaluate_split(params, split, vocab, cfg, dev, impl="plain",
-                            return_ranks=True)
-    check(len(rk) == 48 * cfg.num_rounds and math.isfinite(mk["mrr"]),
-          f"gen eval ranked {len(rk)} rounds, mrr {mk['mrr']}")
-    mismatched = int((rk != rp).sum())
-    check(mismatched == 0, f"gen eval: {mismatched} ranks differ from the "
-          "plain path's")
-    row = {"phase": "gen_eval", "model": "mn-ques-im-hist-gen",
-           "vocab": cfg.vocab_size, "dialogs": 48, "rounds": int(len(rk)),
-           "candidates": cfg.num_options, "launches": launches,
-           "mrr": mk["mrr"], "mean_rank": mk["mean_rank"],
-           "ranks_equal": bool(np.array_equal(rk, rp))}
+    if decoder == "disc":
+        params = scaled(params, EVAL_SCALE)
+    row = {"phase": phase, "model": f"{encoder}-{decoder}",
+           "vocab": cfg.vocab_size, "candidates": cfg.num_options,
+           **eval_pair(params, split, vocab, cfg, dev, phase)}
     split, _ = make_random_split(base, num_dialogs=EVAL_DIALOGS, seed=1)
     runs = {"cuda": [], "plain": []}
     for _ in range(EVAL_REPS):
@@ -917,16 +1076,16 @@ def gen_eval(dev) -> dict:
             runs[impl].append(evaluate_split(params, split, vocab, cfg, dev,
                                              impl=impl, return_ranks=True))
     rounds = len(runs["cuda"][0][1])
-    check(rounds == EVAL_DIALOGS * cfg.num_rounds, f"gen eval timed {rounds} "
+    check(rounds == EVAL_DIALOGS * cfg.num_rounds, f"{phase} timed {rounds} "
           "rounds")
     for impl, rs in runs.items():
         check(all(np.array_equal(r, rs[0][1]) for _, r in rs),
-              f"gen eval ({impl}): ranks differ between repeated runs")
+              f"{phase} ({impl}): ranks differ between repeated runs")
     # an unchecked near tie may move a rank by one; the 48-dialog run above
     # holds the ranks equal
     diff = np.abs(runs["cuda"][0][1] - runs["plain"][0][1])
     check(diff.max() <= 1 and (diff > 0).sum() <= rounds // 1000,
-          f"gen eval: ranks of {int((diff > 0).sum())} of {rounds} timed "
+          f"{phase}: ranks of {int((diff > 0).sum())} of {rounds} timed "
           f"rounds differ from the plain path's, by up to {diff.max()}")
     rates = {impl: [m["evals_per_sec"] for m, _ in rs] for impl, rs in runs.items()}
     row.update({"timed_dialogs": EVAL_DIALOGS, "timed_rounds": rounds,
@@ -938,6 +1097,39 @@ def gen_eval(dev) -> dict:
                 "plain_evals_per_sec_runs": rates["plain"]})
     emit(row)
     return row
+
+
+def families(dev) -> list[dict]:
+    """Every other encoder family at full width: one train step of the
+    kernel path against the plain path at dropout 0 (compare_steps), then
+    one eval batch of FAMILY_EVAL_DIALOGS dialogs (eval_pair); each path's
+    launches must be the family's kernels (path_kernels)."""
+    from visdial_tpu_torch.data.synthetic import make_random_split
+    from visdial_tpu_torch.profile_train import flagship_setup
+
+    rows = []
+    for label, encoder, opts in FAMILIES:
+        t0 = time.perf_counter()
+        cfg, batches, state0 = flagship_setup(dev, 1, encoder=encoder, **opts)
+        reset_launches()
+        step = compare_steps(cfg, state0, batches[0], seed=1)
+        train_launches = kernel_launches()
+        check_launches(train_launches, cfg, True, f"{label} train")
+        split, vocab = make_random_split(cfg, num_dialogs=FAMILY_EVAL_DIALOGS,
+                                         seed=2)
+        ev = eval_pair(scaled(state0.params, EVAL_SCALE), split, vocab, cfg,
+                       dev, f"{label} eval")
+        row = {"phase": "families", "family": label, "model": f"{encoder}-disc",
+               "img_spatial": cfg.img_spatial,
+               "lf_hist_incremental": cfg.lf_hist_incremental,
+               "train_launches": train_launches, "dropout0": step,
+               "eval_launches": ev.pop("launches"), "eval": ev,
+               "wall_s": time.perf_counter() - t0}
+        emit(row)
+        rows.append(row)
+        del state0, batches
+        torch.cuda.empty_cache()
+    return rows
 
 
 def gen_serve(dev) -> dict:
@@ -1058,14 +1250,50 @@ def train_cli() -> dict:
     return row
 
 
-def serve(dev) -> dict:
-    """The main path: flagship MN-QIH-disc served over a 50k-answer pool."""
+def evaluate_cli() -> dict:
+    """The evaluate CLI on the checkpoint train_cli wrote (MN-QIH-disc,
+    step 6) over a --synthetic split, with the v1.0 rankings dump: the JAX
+    CLI's JSON keys, and every dumped ranking a permutation of 1..100."""
+    run = os.path.join(ROOT, "build", "visdial_tpu_torch", "smoke_train", "smoke")
+    ranks_path = os.path.join(run, "ranks.json")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "visdial_tpu_torch.evaluate", "--load_path",
+         os.path.join(run, "step_00000006"), "--synthetic", "64",
+         "--save_ranks", ranks_path],
+        capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+    check(proc.returncode == 0, f"evaluate CLI exited {proc.returncode}:\n"
+          f"{proc.stderr[-4000:]}")
+    lines = read_jsonl(proc.stdout)
+    keys = {"model", "split", "mrr", "r@1", "r@5", "r@10", "mean_rank",
+            "num_examples", "evals_per_sec", "eval_seconds"}
+    check(len(lines) == 1 and set(lines[0]) == keys
+          and lines[0]["model"] == "mn-ques-im-hist-disc"
+          and lines[0]["num_examples"] == 640 and math.isfinite(lines[0]["mrr"]),
+          f"evaluate CLI output: {proc.stdout[-2000:]}")
+    with open(ranks_path) as f:
+        sub = json.load(f)
+    perm = list(range(1, 101))
+    check(len(sub) == 640 and all(sorted(e["ranks"]) == perm for e in sub)
+          and {e["round_id"] for e in sub} == set(range(1, 11)),
+          f"evaluate CLI --save_ranks: {len(sub)} entries")
+    row = {"phase": "evaluate_cli", **lines[0], "dumped_rounds": len(sub)}
+    emit(row)
+    return row
+
+
+def serve(dev, encoder: str = "mn-ques-im-hist", phase: str = "serve",
+          beside: dict | None = None) -> dict:
+    """A serving path: flagship <encoder>-disc served over a 50k-answer
+    pool (the main path with MN-QIH; `beside`, another serve row, puts its
+    latencies next to this one's)."""
     from visdial_tpu_torch.config import Config
     from visdial_tpu_torch.data.synthetic import make_random_split
     from visdial_tpu_torch.infer import InferenceEngine
     from visdial_tpu_torch.models.model import model_init
 
-    base = Config(encoder="mn-ques-im-hist", decoder="disc", dropout=0.0)
+    base = Config(encoder=encoder, decoder="disc", dropout=0.0)
     split, vocab = make_random_split(base, num_dialogs=8,
                                      num_unique_answers=50_000, seed=0)
     cfg = base.replace(vocab_size=vocab.size)
@@ -1085,10 +1313,7 @@ def serve(dev) -> dict:
         answers.append(eng.rank_answers(question, caption, history, top_k=5))
         lat_ms.append((time.perf_counter() - t0) * 1e3)
     launches = kernel_launches()
-    check(launches["lstm_layer"] > 0 and launches["attention_fusion"] > 0,
-          f"a kernel of the serving path never launched: {launches}")
-    check(launches["lstm_layer_bwd"] == launches["attention"] == 0,
-          f"serving launched a training kernel: {launches}")
+    check_launches(launches, cfg, False, phase)
 
     # the same requests through the plain versions on the same card
     plain = InferenceEngine(params=params, cfg=cfg.replace(use_pallas=False),
@@ -1116,13 +1341,16 @@ def serve(dev) -> dict:
                       f"top-k differs from the plain run: {top_k} vs {top_p}")
     check(score_err <= SCORE_TOL, f"served score err {score_err} > {SCORE_TOL}")
     lat_ms.sort()
-    row = {"phase": "serve", "model": "mn-ques-im-hist-disc",
+    row = {"phase": phase, "model": f"{encoder}-disc",
            "vocab": cfg.vocab_size, "pool": int(split.opt_list.shape[0]),
            "requests": len(REQUESTS), "launches": launches,
            "table_build_s": table_s, "p50_ms": lat_ms[len(lat_ms) // 2],
            "max_ms": lat_ms[-1], "table_max_abs_err": table_err,
            "score_max_abs_err": score_err, "score_tol": SCORE_TOL,
            "topk_near_ties": near_ties, "top1": answers[0][0]["answer"]}
+    if beside:
+        row.update({f"{beside['model']}_p50_ms": beside["p50_ms"],
+                    f"{beside['model']}_max_ms": beside["max_ms"]})
     emit(row)
     return {"row": row, "params": params, "cfg": cfg}
 
@@ -1177,21 +1405,38 @@ def main() -> None:
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "allow_tf32": False})
 
-    kernel_report()
+    walls = {}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[name] = time.perf_counter() - t
+        return out
+
+    timed("kernel_report", kernel_report)
     gen = torch.Generator().manual_seed(0)
-    k5, k6 = lm_checks(dev, gen)
-    k1 = lstm_checks(dev, gen)
-    k2 = lstm_bwd_checks(dev, gen)
-    k3 = attention_only_checks(dev, gen)
-    k4 = attention_checks(dev, gen)
-    served = serve(dev)
-    serve_cli(served["params"], served["cfg"])
+    k5, k6 = timed("lm_checks", lm_checks, dev, gen)
+    k1 = timed("lstm_layer", lstm_checks, dev, gen)
+    k2 = timed("lstm_layer_bwd", lstm_bwd_checks, dev, gen)
+    k3 = timed("attention", attention_only_checks, dev, gen)
+    k4 = timed("attention_fusion", attention_checks, dev, gen)
+    served = timed("serve", serve, dev)
+    timed("serve_cli", serve_cli, served["params"], served["cfg"])
     del served["params"]
-    trained = train(dev)
-    gen_trained = train(dev, "gen")
-    gen_evaluated = gen_eval(dev)
-    gen_served = gen_serve(dev)
-    train_cli()
+    trained = timed("train", train, dev)
+    gen_trained = timed("gen_train", train, dev, "gen")
+    gen_evaluated = timed("gen_eval", evaluate, dev)
+    gen_served = timed("gen_serve", gen_serve, dev)
+    lf_trained = timed("train_lf", train, dev, "disc", "lf-ques-im-hist",
+                       "train_lf")
+    lf_evaluated = timed("eval_lf", evaluate, dev, "lf-ques-im-hist", "disc",
+                         "eval_lf")
+    lf_served = timed("serve_lf", serve, dev, "lf-ques-im-hist", "serve_lf",
+                      served["row"])
+    fams = timed("families", families, dev)
+    timed("train_cli", train_cli)
+    timed("evaluate_cli", evaluate_cli)
+    emit({"phase": "wall_seconds", **walls, "total": sum(walls.values())})
 
     # launches: each kernel's count from the run of the main path it is
     # listed under (training for K1-K3, serving for K4, gen training for K5
@@ -1199,11 +1444,23 @@ def main() -> None:
     by_path = {"serve": served["row"]["launches"], "train": trained["launches"],
                "gen_train": gen_trained["launches"],
                "gen_eval": gen_evaluated["launches"],
-               "gen_serve": gen_served["launches"]}
+               "gen_serve": gen_served["launches"],
+               "train_lf": lf_trained["launches"],
+               "eval_lf": lf_evaluated["launches"],
+               "serve_lf": lf_served["row"]["launches"]}
+    for f in fams:
+        by_path[f"{f['family']}:train"] = f["train_launches"]
+        by_path[f"{f['family']}:eval"] = f["eval_launches"]
 
-    def head_row(rows, shape):
+    def head_row(rows, shape, **match):
         return next(r for r in rows if r["shape"] == shape
-                    and r["dtype"] == "float32")
+                    and r["dtype"] == "float32"
+                    and all(r.get(k) == v for k, v in match.items()))
+
+    def side_head(rows, shape, keys, **match):
+        head = head_row(rows, shape, **match)
+        return {k: head.get(k) for k in ("shape",) + keys + (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
 
     def summary(rows, head_shape, path, **fixed):
         head = head_row(rows, head_shape)
@@ -1224,21 +1481,29 @@ def main() -> None:
     emit({"kernels": [
         summary(k1, [32000, 8, 300, 512], "train", name="lstm_layer",
                 source="visdial_tpu_torch/csrc/lstm_fwd.cu",
-                replaces="visdial_tpu/ops/lstm_pallas.py:99"),
+                replaces="visdial_tpu/ops/lstm_pallas.py:99",
+                # LF's history layer (train_lf), left-aligned
+                history_head=side_head(k1, list(HIST_HEAD), ("align", "cs_ms"))),
         summary(k2, [32000, 8, 300, 512], "train", name="lstm_layer_bwd",
                 source="visdial_tpu_torch/csrc/lstm_bwd.cu",
-                replaces="visdial_tpu/ops/lstm_pallas.py:305"),
+                replaces="visdial_tpu/ops/lstm_pallas.py:305",
+                # LF's top history layer: g_hs only at the bounds
+                history_head=side_head(k2, list(HIST_HEAD),
+                                       ("align", "sparse_g_hs", "bwd_ms"),
+                                       sparse_g_hs=True)),
         summary(k3, [32, 10, 10, 512], "train", name="attention",
                 source="visdial_tpu_torch/csrc/attention_fusion.cu",
-                replaces="visdial_tpu/ops/attention_pallas.py:24"),
+                replaces="visdial_tpu/ops/attention_pallas.py:24",
+                # img_spatial's 49 pool5 locations, all visible
+                spatial_head=side_head(k3, [32, 10, 49, 512],
+                                       ("launch_ms", "library_ms"))),
         summary(k4, [1, 10, 10, 512], "serve", name="attention_fusion",
                 source="visdial_tpu_torch/csrc/attention_fusion.cu",
                 replaces="visdial_tpu/ops/attention_pallas.py:115",
                 # the eval batch's head (gen eval, the disc streaming eval),
                 # on the tensor-core route
-                eval_head={k: head_row(k4, [32, 10, 10, 512]).get(k) for k in (
-                    "shape", "route", "ms", "launch_ms", "pack_ms", "plain_ms",
-                    "bound_ms", "bound_by", "max_abs_err")}),
+                eval_head=side_head(k4, [32, 10, 10, 512],
+                                    ("route", "launch_ms", "pack_ms"))),
         summary(k5, [2880, 512, 8804], "gen_train", name="lm_score",
                 source="visdial_tpu_torch/csrc/lm_score.cu",
                 replaces="visdial_tpu/ops/lm_score_pallas.py:37"),

@@ -33,7 +33,8 @@ checkout's kernels.  Each row is one JSON line; the columns:
   bound_ms    chip_smoke.attention_bound: bytes at 3.35 TB/s or operations
               at the operand type's peak, whichever is larger.
 
-K3 runs with the encoder's mask at 32 dialogs and with all-masked rows at 4;
+K3 runs with the encoder's mask at 32 dialogs, with all-masked rows at 4,
+and at img_spatial's 49 pool5 locations with that pathway's all-ones mask;
 K4 with all-masked rows at 7.  K4 rows name the route the wrapper took
 (attention_cuda.fusion_route); --sweep adds K4 on each route at 1 to 32
 dialogs of 10 rounds, which is how FUSION_STREAM_ROWS was set; --clusters
@@ -71,12 +72,16 @@ SWEEP_DIALOGS = [1, 2, 3, 4, 6, 8, 12, 16, 24, 32]
 
 
 def case(gen, dev, B, R, S, H, masked: bool):
-    """q, slots (on the CPU), the causal mask on `dev` as the encoder builds
-    it, an expanded view of one (R, S) mask (or, with `masked`, a
-    materialised one with two all-masked rows), Wf and b (on the CPU)."""
+    """q, slots (on the CPU), the mask on `dev` as the encoder builds it,
+    an expanded view of one (R, S) mask: causal, or all ones at S = 49 (the
+    img_spatial pathway's pool5 locations); with `masked`, a materialised
+    one with two all-masked rows.  Wf and b (on the CPU)."""
     q = torch.randn(B, R, H, generator=gen) * 0.5
     s = torch.randn(B, S, H, generator=gen) * 0.5
-    valid = (torch.arange(S)[None, :] <= torch.arange(R)[:, None]).float()
+    if S == cs.SPATIAL_SLOTS:
+        valid = torch.ones(R, S)
+    else:
+        valid = (torch.arange(S)[None, :] <= torch.arange(R)[:, None]).float()
     valid = valid.to(dev)[None].expand(B, R, S)
     if masked:
         valid = valid.contiguous()

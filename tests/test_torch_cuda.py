@@ -422,3 +422,131 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         lm_dlogits(x, w, b[:5], tgt, cot, cot)
     with pytest.raises(ValueError, match="lse"):
         lm_dlogits(x, w, b, tgt, cot[:3], cot)
+
+
+def _history_case(N, T, E, H, dtype, align, seed):
+    """w (the model's init scale), b, x, mask, h0 = c0 = 0 at the widths
+    the encoders give K1 and K2: LF's history left-aligned with ragged ends
+    (lengths 1..T, as each dialog's concat ends where its tokens do), or the
+    dialog LSTM's all-ones mask."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.empty(E + H, 4 * H).uniform_(-INIT_SCALE, INIT_SCALE, generator=g)
+    b = torch.empty(4 * H).uniform_(-0.5, 0.5, generator=g)
+    x = (torch.randn(N, T, E, generator=g) * 0.5).to(dtype)
+    if align == "left":
+        lens = torch.randint(1, T + 1, (N,), generator=g)
+        lens[0] = T
+        mask = (torch.arange(T)[None] < lens[:, None]).float()
+    else:
+        mask = torch.ones(N, T)
+    h0 = torch.zeros(2, N, H)
+    return w, b, x, mask, h0[0], h0[1], g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,T,E,H,align", [(32, 256, 300, 512, "left"),
+                                           (32, 10, 512, 512, "ones")],
+                         ids=["lf-history", "dialog-lstm"])
+def test_lstm_encoder_shapes_match_plain(dev, N, T, E, H, align, dtype):
+    """K1 (with and without cell states) and K2 at LF's history layer, 256
+    steps left-aligned with rows ending at different steps (the tile skip
+    must carry each row past its end), and at HRE/HREA's one-layer dialog
+    LSTM over 512-wide fact states; K2 against its plain version on the
+    forward's residuals."""
+    w, b, x, mask, h0, c0, g = _history_case(N, T, E, H, dtype, align, T)
+    args = [t.to(dev) for t in (w, b, x, mask, h0, c0)]
+    for save_cell in (False, True):
+        got = lstm_layer(*args, save_cell=save_cell)
+        want = lstm_layer_plain(*args, save_cell=save_cell)
+        torch.cuda.synchronize()
+        for a, r in zip(got, want):
+            assert a.dtype == r.dtype and a.shape == r.shape
+            assert float((a.float() - r.float()).abs().max()) <= TOL[dtype]
+    hs, cs, _, _ = want
+    h_prev = torch.cat([args[4].to(dtype)[:, None], hs[:, :-1]], dim=1)
+    c_prev = torch.cat([args[5].to(dtype)[:, None], cs[:, :-1]], dim=1)
+    ghs = torch.randn(N, T, H, generator=g).to(dev, dtype)
+    bwd = (*args[:4], h_prev, c_prev, ghs, *torch.randn(2, N, H, generator=g).to(dev))
+    got, want = lstm_layer_bwd(*bwd), lstm_layer_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    for a, r in zip(got, want):
+        scale = float(r.float().abs().max())
+        assert float((a.float() - r.float()).abs().max()) <= TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_layer_fn_grads_at_history_bounds(dev, dtype):
+    """LF's top history layer: the output gets gradient only at each
+    round's prefix bound (10 a row, inside its real steps) and none at the
+    final state (g_hT = g_cT = 0, materialised as zeros); dW, db, dx, dh0
+    and dc0 through LSTMLayerFn (K1, K2) against autograd through the plain
+    layer, relative to the largest reference value."""
+    N, T, E, H = 32, 256, 300, 512
+    w, b, x, mask, h0, c0, g = _history_case(N, T, E, H, dtype, "left", 7)
+    lens = mask.sum(1).long()
+    at = torch.zeros(N, T, dtype=torch.bool)
+    at[torch.arange(N)[:, None],
+       torch.randint(0, T, (N, 10), generator=g) % lens[:, None]] = True
+    ghs = torch.where(at[..., None], torch.randn(N, T, H, generator=g), 0.0)
+    grads = []
+    for fn in (LSTMLayerFn.apply, lstm_layer_plain):
+        ins = [t.to(dev).requires_grad_() for t in (w, b, x)] + [mask.to(dev)] + [
+            t.to(dev).requires_grad_() for t in (h0, c0)]
+        hs, _, _ = fn(*ins)
+        grads.append(torch.autograd.grad(hs, ins[:3] + ins[4:],
+                                         ghs.to(dev, dtype)))
+    for a, r in zip(*grads):
+        scale = float(r.float().abs().max())
+        assert scale > 0
+        assert float((a.float() - r.float()).abs().max()) <= 3 * TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 32])
+def test_attention_fusion_as_hrea_tail(dev, B, dtype):
+    """K4 as HREA's eval tail: the slots are the dialog LSTM's outputs (K1
+    over (B, 10) fact states, all-ones mask), the query a tanh fusion, the
+    causal mask as the encoder hands it over; a served request (B = 1, the
+    few-rows route) and an eval batch (B = 32, the tensor cores)."""
+    from visdial_tpu_torch.ops import attention_cuda
+
+    R, H = 10, 512
+    w, b, facts, mask, h0, c0, g = _history_case(B, R, H, H, dtype, "ones", B)
+    d_outs, _, _ = lstm_layer(*[t.to(dev) for t in (w, b, facts, mask, h0, c0)])
+    q = torch.tanh(torch.randn(B, R, H, generator=g)).to(dev, dtype)
+    fw = torch.empty(2 * H, H).uniform_(-INIT_SCALE, INIT_SCALE, generator=g)
+    fb = torch.empty(H).uniform_(-INIT_SCALE, INIT_SCALE, generator=g)
+    args = [q, d_outs, _causal(B, R, R, dev, False), fw.to(dev), fb.to(dev)]
+    assert attention_cuda.fusion_route(B, R, R, H, dtype) == (
+        "stream" if B == 1 else "tiles")
+    got = attention_fusion(*args)
+    want = attention_fusion_ref(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, R, H)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 32])
+def test_attention_only_kernel_spatial_mask(dev, B, dtype):
+    """K3 as the img_spatial pathway calls it: 49 pool5 locations, every
+    one visible (an all-ones mask expanded from (1, R, S), batch stride 0),
+    forward and AttentionFn's grads against the plain version."""
+    R, S, H = 10, 49, 512
+    g = torch.Generator().manual_seed(B + 49)
+    q = torch.randn(B, R, H, generator=g) * 0.5
+    s = torch.randn(B, S, H, generator=g) * 0.5
+    valid = torch.ones((1, R, S), device=dev).expand(B, R, S)
+    cot = torch.randn(B, R, H, generator=g).to(dev, dtype)
+    outs, grads = [], []
+    for fn in (AttentionFn.apply, attention_plain):
+        qq = q.to(dev, dtype).requires_grad_()
+        ss = s.to(dev, dtype).requires_grad_()
+        out = fn(qq, ss, valid)
+        grads.append(torch.autograd.grad(out, (qq, ss), cot))
+        outs.append(out.detach())
+    torch.cuda.synchronize()
+    assert float((outs[0].float() - outs[1].float()).abs().max()) <= TOL[dtype]
+    for a, r in zip(*grads):
+        scale = float(r.float().abs().max())
+        assert float((a.float() - r.float()).abs().max()) <= TOL[dtype] * scale

@@ -1,10 +1,11 @@
-"""The port's MN-QIH-gen path (visdial_tpu_torch/models/decoders.py gen half,
+"""The port's gen path (visdial_tpu_torch/models/decoders.py gen half,
 model.py, eval_harness.py, infer.py, train.py) against the JAX package on
-the CPU, f32, dropout 0: the loss and every parameter gradient, the
-forwardConnect gradient into the joint embedding, candidate scores on the
-sorted and unsorted paths, bucketed against direct evaluation, greedy and
-beam decoding, the serving engine on one checkpoint, the golden fixture, and
-a tiny train CLI run with resume.
+the CPU, f32, dropout 0: with the MN encoders the loss and every parameter
+gradient, the forwardConnect gradient into the joint embedding, candidate
+scores on the sorted and unsorted paths, bucketed against direct
+evaluation, greedy and beam decoding, the serving engine on one
+checkpoint; with every encoder the golden fixture; and a tiny train CLI run
+with resume.
 
 impl='cuda' on CPU tensors runs the kernel path's control flow (length sort
 and its inverse, LSTMLayerFn with K2's dh0, TokenLogprobFn) with each
@@ -55,11 +56,17 @@ from test_golden import FIXTURE, GOLDEN_PATH, NUM_DIALOGS, TRAIN_STEPS
 
 torch.set_num_threads(1)
 
-ENCODERS = ["mn-ques-im-hist", "mn-ques-hist"]
+ENCODERS = ["mn-ques-im-hist", "mn-ques-hist", "lf-ques", "lf-ques-hist",
+            "lf-ques-im", "lf-ques-im-hist", "hre-ques-hist",
+            "hre-ques-im-hist", "hrea-ques-im-hist"]
+# the decoder's own checks run on the MN pair; every family's encoder is
+# held to JAX in tests/test_torch_encoders.py, LF's gen serving in
+# tests/test_torch_infer.py
+SETUP_ENCODERS = ENCODERS[:2]
 ATOL = 1e-4
 
 
-@pytest.fixture(scope="module", params=ENCODERS)
+@pytest.fixture(scope="module", params=SETUP_ENCODERS)
 def setup(request):
     """JAX init scaled 4x (gradients and scores far from zero), the port's
     params from it, and a train batch with one answerless round."""
@@ -285,7 +292,7 @@ def test_sampling_draws_from_the_generator(setup):
                        greedy=False)
 
 
-@pytest.mark.parametrize("encoder", ENCODERS)
+@pytest.mark.parametrize("encoder", SETUP_ENCODERS)
 def test_generate_answer_matches_jax_engine(tmp_path, encoder):
     """One JAX-written gen checkpoint (init scaled 8x): the port's engine
     decodes the same answers with the same log-probs as the JAX engine,

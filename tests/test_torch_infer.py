@@ -16,6 +16,7 @@ import torch
 from visdial_tpu.data.prepro import tokenize as shared_tokenize
 from visdial_tpu.data.synthetic import make_synthetic_split
 from visdial_tpu.infer import InferenceEngine as JaxEngine
+from visdial_tpu.models.encoders import encoder_apply as jax_encoder_apply
 from visdial_tpu.parallel.train_step import init_train_state
 from visdial_tpu.utils.checkpoint import save_checkpoint
 from visdial_tpu_torch.data.prepro import tokenize
@@ -79,12 +80,36 @@ def test_cli_json_lines(tmp_path, monkeypatch, capsys):
         assert scores == sorted(scores, reverse=True)
 
 
-@pytest.mark.parametrize("encoder,decoder", [("lf-ques-im-hist", "gen"),
-                                             ("lf-ques-im-hist", "disc")])
-def test_unported_checkpoints_raise(tmp_path, encoder, decoder):
-    path = _checkpoint(tmp_path, encoder, decoder)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(path, synthetic=4, device="cpu")
+@pytest.mark.parametrize("decoder", ["disc", "gen"])
+def test_lf_checkpoints_serve_like_jax_engine(tmp_path, decoder):
+    """An LF-QIH checkpoint (history read at each round's prefix bound, the
+    image fused into the final concat) loads and serves: disc pool scores
+    (every answer of the pool) within 1e-4 of the JAX engine's, gen answers
+    and log-probs equal to its, greedy and beam 3."""
+    path = _checkpoint(tmp_path, "lf-ques-im-hist", decoder)
+    want_eng = JaxEngine(path, synthetic=8)
+    eng = InferenceEngine(path, synthetic=8, device="cpu")
+    assert eng.cfg.encoder == "lf-ques-im-hist" and eng.impl == "plain"
+    for question, caption, history in QUERIES:
+        if decoder == "disc":
+            batch, t = want_eng._batch(caption, history, question, None)
+            joint = jax_encoder_apply(want_eng.params["encoder"],
+                                      want_eng.params["embed"], batch,
+                                      want_eng.cfg, impl="xla")
+            want = np.asarray(joint[t] @ want_eng._table.T)
+            got = eng.pool_scores(question, caption, history).numpy()
+            assert got.shape == want.shape and np.abs(want).max() > 1e-2
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+            top = eng.rank_answers(question, caption, history, top_k=3)
+            assert [a["score"] for a in top] == sorted(got, reverse=True)[:3]
+            continue
+        for beam in (0, 3):
+            want = want_eng.generate_answer(question, caption, history,
+                                            beam_size=beam)
+            got = eng.generate_answer(question, caption, history, beam_size=beam)
+            assert got["answer"] == want["answer"]
+            np.testing.assert_allclose(got["log_prob"], want["log_prob"],
+                                       atol=1e-4)
 
 
 def test_tokenizer_equals_shared_tokenizer():

@@ -1,6 +1,7 @@
-"""The port's MN-family disc model (visdial_tpu_torch/models/) against the
-JAX package: joint embeddings, candidate scores, the option table and
-table scoring (atol 1e-4), and the golden fixture's scores and ranks."""
+"""The port's disc model (visdial_tpu_torch/models/), every encoder family,
+against the JAX package: joint embeddings, candidate scores, the option
+table and table scoring (atol 1e-4), scores with the img_spatial pathway,
+and the golden fixture's scores and ranks."""
 
 from functools import partial
 
@@ -32,7 +33,9 @@ from test_golden import FIXTURE, GOLDEN_PATH, NUM_DIALOGS, TRAIN_STEPS
 torch.set_num_threads(1)
 
 ATOL = 1e-4
-ENCODERS = ["mn-ques-im-hist", "mn-ques-hist"]
+ENCODERS = ["mn-ques-im-hist", "mn-ques-hist", "lf-ques", "lf-ques-hist",
+            "lf-ques-im", "lf-ques-im-hist", "hre-ques-hist",
+            "hre-ques-im-hist", "hrea-ques-im-hist"]
 
 
 @pytest.fixture(scope="module", params=ENCODERS)
@@ -104,13 +107,25 @@ def test_length_sorted_rows_come_back_in_order(setup):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
-def test_other_families_raise(setup):
-    cfg, _, _, params, batch = setup
-    for other in (cfg.replace(encoder="lf-ques-im-hist"),
-                  cfg.replace(img_spatial=True, img_feat_size=49 * 512)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            encoder_apply(params["encoder"], params["embed"],
-                          batch_to_device(batch, "cpu"), other)
+@pytest.mark.parametrize("encoder", ["mn-ques-im-hist", "lf-ques-im-hist"])
+def test_img_spatial_scores_match(encoder):
+    """img_spatial (4 pool5 locations of 8 channels here): the encoder
+    attends over the projected locations with the question state; model
+    scores against JAX, both impls."""
+    cfg = small_config(encoder=encoder, decoder="disc", img_spatial=True,
+                       img_spatial_slots=4, img_spatial_channels=8,
+                       img_feat_size=32)
+    split, vocab = make_synthetic_split(cfg, num_dialogs=6, seed=0)
+    cfg = cfg.replace(vocab_size=vocab.size)
+    jparams = jax.tree.map(lambda p: p * 4,
+                           jax_model.model_init(jax.random.PRNGKey(1), cfg))
+    params = params_from_numpy(_tree_to_dict(jparams), cfg, "cpu")
+    assert tuple(params["encoder"]["img_proj"]["w"].shape) == (8, 24)
+    batch = BatchAssembler(split, vocab, cfg).assemble(np.arange(3)).as_dict()
+    want = jax_model.model_scores(jparams, batch, cfg, impl="xla")
+    for impl in ("plain", "cuda"):
+        got = model_scores(params, batch_to_device(batch, "cpu"), cfg, impl=impl)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
 @pytest.mark.parametrize("encoder", ENCODERS)

@@ -33,14 +33,20 @@ from test_golden import FIXTURE, GOLDEN_PATH, NUM_DIALOGS, TRAIN_STEPS
 
 torch.set_num_threads(1)
 
-ENCODERS = ["mn-ques-im-hist", "mn-ques-hist"]
+ENCODERS = ["mn-ques-im-hist", "mn-ques-hist", "lf-ques", "lf-ques-hist",
+            "lf-ques-im", "lf-ques-im-hist", "hre-ques-hist",
+            "hre-ques-im-hist", "hrea-ques-im-hist"]
+# the whole-model gradient in both option layouts; every family's encoder
+# gradients are held to JAX in tests/test_torch_encoders.py
+GRAD_ENCODERS = ENCODERS[:2]
 
 
-def _grad_case(encoder, dedup):
+def _grad_case(encoder, dedup, decoder="disc"):
     """8 dialogs x 4 rounds x 64 options = 2,048 candidate rows, so the
     kernel path length-sorts them; JAX init scaled 4x so that gradients are
     far from zero; a few rounds with round_valid = 0."""
-    cfg = small_config(encoder=encoder, num_options=64, batch_size=8)
+    cfg = small_config(encoder=encoder, decoder=decoder, num_options=64,
+                       batch_size=8)
     split, vocab = make_synthetic_split(cfg, num_dialogs=8, seed=0)
     cfg = cfg.replace(vocab_size=vocab.size)
     jparams = jax.tree.map(lambda p: p * 4,
@@ -53,7 +59,7 @@ def _grad_case(encoder, dedup):
 
 
 @pytest.mark.parametrize("dedup", [True, False], ids=["dedup", "expanded"])
-@pytest.mark.parametrize("encoder", ENCODERS)
+@pytest.mark.parametrize("encoder", GRAD_ENCODERS)
 def test_loss_and_every_grad_match_jax(encoder, dedup):
     """model_loss and the gradient of every param leaf against jax.grad of
     the JAX model_loss (impl='xla'), atol 1e-4 and rtol 1e-4 of the leaf's
@@ -198,10 +204,23 @@ def test_multi_train_step_equals_single_steps():
     assert torch.equal(s1.gen.get_state(), s2.gen.get_state())
 
 
-def test_gen_decoder_training_raises():
-    """gen training is ported for the MN encoders; another family still
-    raises."""
-    cfg = small_config(encoder="lf-ques-im-hist", decoder="gen", vocab_size=40)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_loss(init_train_state(cfg).params,
-                   {"ques": torch.zeros(1, 1, 1, dtype=torch.long)}, cfg)
+def test_gen_decoder_training_of_lf_matches_jax():
+    """gen training runs every encoder family: LF-QIH-gen's loss and every
+    parameter gradient on both paths against jax.grad of the JAX
+    model_loss, as above."""
+    cfg, jparams, batch = _grad_case("lf-ques-im-hist", False, "gen")
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jax_model.model_loss(p, batch, cfg, train=True, impl="xla"))(
+        jparams)
+    want = _tree_to_dict(jgrads)
+    params = params_from_numpy(_tree_to_dict(jparams), cfg, "cpu")
+    for impl in ("cuda", "plain"):
+        loss, grads = loss_and_grads(params, batch_to_device(batch, "cpu"), cfg,
+                                     gen=None, impl=impl)
+        np.testing.assert_allclose(float(loss), float(jloss), atol=1e-5)
+        got = {k: v.numpy() for k, v in flatten(grads).items()}
+        assert got.keys() == want.keys() and "encoder/hist_lstm/layers/0/w" in got
+        for k in want:
+            scale = float(np.abs(want[k]).max())
+            np.testing.assert_allclose(got[k], want[k],
+                                       atol=max(1e-4 * scale, 1e-7), err_msg=k)

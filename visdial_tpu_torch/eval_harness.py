@@ -14,8 +14,10 @@ every candidate to full width and model_scores scores them.
 
 Either way the scores are ranked on the device, and the ranks of the rounds
 with dialog_valid and round_valid set give MRR / R@1 / R@5 / R@10 / mean
-rank.  The resident evals and the staging thread are not ported yet
-(ROADMAP.md, M8).
+rank.  With collect_rankings every candidate is ranked on the device too
+(the v1.0 submission rankings) and kept for the rounds with dialog_valid
+and round_scoreable set.  The resident evals and the staging thread are not
+ported yet (ROADMAP.md, M8).
 """
 
 from __future__ import annotations
@@ -33,10 +35,12 @@ from .models.encoders import encoder_apply
 from .models.model import (_impl, batch_to_device, model_option_table,
                            model_scores, model_scores_with_table)
 from .parallel.train_step import gen_rows_score
-from .utils.metrics import ranks_from_scores, retrieval_metrics
+from .utils.metrics import (candidate_rankings, ranks_from_scores,
+                            retrieval_metrics)
 
-# batch fields the MN encoder reads
-_ENCODER_KEYS = ("ques", "facts", "img")
+# batch fields any encoder reads (eval_harness.py::_ENCODER_BATCH_KEYS)
+_ENCODER_KEYS = ("ques", "hist_concat", "hist_flat", "hist_bounds", "facts",
+                 "img")
 
 
 class _GenBucketPlan:
@@ -121,14 +125,20 @@ def _gen_bucket_scorer(params, data: VisDialSplit, vocab: Vocabulary,
 def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
                    device, *, batch_size: int | None = None,
                    ties: str = "optimistic", impl: str | None = None,
-                   return_ranks: bool = False):
+                   return_ranks: bool = False, collect_rankings: bool = False):
     """Score every candidate of every round of `data` and return the
     retrieval metrics plus 'evals_per_sec' (rounds ranked per second, the
     disc option table's build excluded, as in the JAX harness) and
     'eval_seconds'.  gen takes the bucketed path when
-    cfg.gen_eval_bucketed, else the direct one (the same scores).  With
-    return_ranks the return is (metrics, ranks): the gt rank of every
-    ranked round, in loader order."""
+    cfg.gen_eval_bucketed, else the direct one (the same scores).
+
+    With return_ranks the return is (metrics, ranks): the gt rank of every
+    ranked round, in loader order.  With collect_rankings it is (metrics,
+    cand_ranks) (eval_harness.py::evaluate_split): cand_ranks
+    (num_dialogs, R, K) int32 holds candidate_rankings of every round that
+    is scoreable (a full candidate list, with or without a ground truth:
+    the v1.0 test split's rounds have none), zeros elsewhere.  With both,
+    (metrics, ranks, cand_ranks)."""
     device = torch.device(device)
     impl = impl or _impl(cfg, device)
     direct = cfg.decoder == "gen" and not cfg.gen_eval_bucketed
@@ -137,6 +147,8 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
                         batch_size=batch_size, option_tokens=direct)
     keys = _ENCODER_KEYS + ("gt_ind",)
     all_ranks = []
+    cand_out = (np.zeros((data.num_dialogs, cfg.num_rounds, cfg.num_options),
+                         np.int32) if collect_rankings else None)
     with torch.inference_mode():
         if cfg.decoder == "disc":
             table = model_option_table(
@@ -158,7 +170,7 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
             torch.cuda.synchronize(device)
         t0 = time.time()
         n_rounds = 0
-        for batch in loader:
+        for bi, batch in enumerate(loader):
             d = batch.as_dict()
             dev = batch_to_device({k: d[k] for k in keys if k in d}, device)
             scores = score(dev, batch)
@@ -167,9 +179,19 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
                     & batch.round_valid.astype(bool))
             all_ranks.append(ranks[keep])
             n_rounds += int(keep.sum())
+            if collect_rankings:
+                cand = candidate_rankings(scores).cpu().numpy()
+                dump = (batch.dialog_valid.astype(bool)[:, None]
+                        & batch.round_scoreable.astype(bool))
+                start = bi * loader.bs
+                n = min(start + cand.shape[0], data.num_dialogs) - start
+                cand_out[start:start + n] = np.where(dump[:n, :, None],
+                                                     cand[:n], 0)
         elapsed = time.time() - t0
     ranks = np.concatenate(all_ranks)
     metrics = retrieval_metrics(ranks)
     metrics["evals_per_sec"] = n_rounds / max(elapsed, 1e-9)
     metrics["eval_seconds"] = elapsed
-    return (metrics, ranks) if return_ranks else metrics
+    extra = ((ranks,) if return_ranks else ()) + (
+        (cand_out,) if collect_rankings else ())
+    return (metrics, *extra) if extra else metrics

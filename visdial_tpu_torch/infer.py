@@ -31,7 +31,7 @@ from .data.loader import BatchAssembler
 from .data.synthetic import make_synthetic_split
 
 from .data.prepro import tokenize
-from .models.encoders import check_ported, encoder_apply
+from .models.encoders import encoder_apply
 from .models.model import (_impl, batch_to_device, model_generate,
                            model_option_table)
 from .utils.checkpoint import load_checkpoint
@@ -59,7 +59,6 @@ class InferenceEngine:
                 data, vocab = load_split(cfg.data_dir, "val")
         if any(v is None for v in (params, cfg, data, vocab)):
             raise ValueError("need load_path or explicit (params, cfg, data, vocab)")
-        check_ported(cfg)
         self.cfg = cfg
         # batches are assembled in float32; the encoder casts on the device
         self._asm_cfg = cfg.replace(compute_dtype="float32")

@@ -1,11 +1,14 @@
 """Profile the flagship training step on one GPU with torch.profiler.
 
     python -m visdial_tpu_torch.profile_train [--steps 3] [--warmup 3] \
-        [--dropout 0.5] [--decoder disc|gen] [--trace train_trace.json]
+        [--dropout 0.5] [--decoder disc|gen] [--encoder mn-ques-im-hist] \
+        [--img_spatial] [--trace train_trace.json]
 
 The workload is chip_smoke.py's `train` phase (`gen_train` with --decoder
-gen): MN-QIH at full width (E 300, H 512, 2 layers, fc7 4096, batch 32
-dialogs, f32), random weights from seed 0, batches from TrainLoader over
+gen, `train_lf` with --encoder lf-ques-im-hist): MN-QIH by default at full
+width (E 300, H 512, 2 layers, fc7 4096 or with --img_spatial pool5 49 x
+512, batch 32 dialogs, f32), random weights from seed 0, batches from
+TrainLoader over
 make_random_split(num_dialogs=64, num_unique_answers=100_000, seed=0)
 (vocab 8,804; disc batches carry deduplicated candidate rows, gen batches
 the teacher-forced answers).  After the warm-up steps it traces --steps train steps and prints one
@@ -31,9 +34,14 @@ from .parallel.train_step import init_train_state, train_step
 
 
 def flagship_setup(device, steps: int, dropout: float = 0.0,
-                   decoder: str = "disc"):
-    """(cfg, `steps` device batches cycling the epochs, fresh TrainState)."""
-    base = Config(encoder="mn-ques-im-hist", decoder=decoder, dropout=dropout)
+                   decoder: str = "disc", encoder: str = "mn-ques-im-hist",
+                   img_spatial: bool = False, **overrides):
+    """(cfg, `steps` device batches cycling the epochs, fresh TrainState)
+    for `encoder` at the flagship widths; img_spatial takes the 49 x 512
+    pool5 map in place of fc7; `overrides` are further Config fields."""
+    spatial = {"img_spatial": True, "img_feat_size": 49 * 512} if img_spatial else {}
+    base = Config(encoder=encoder, decoder=decoder, dropout=dropout,
+                  **spatial, **overrides)
     split, vocab = make_random_split(base, num_dialogs=64,
                                      num_unique_answers=100_000, seed=0)
     cfg = base.replace(vocab_size=vocab.size)
@@ -76,13 +84,16 @@ def main(argv=None) -> None:
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--dropout", type=float, default=0.5)
     p.add_argument("--decoder", choices=("disc", "gen"), default="disc")
+    p.add_argument("--encoder", type=str, default="mn-ques-im-hist")
+    p.add_argument("--img_spatial", action="store_true")
     p.add_argument("--trace", type=str, default="")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
     dev = torch.device("cuda:0")
     cfg, batches, state = flagship_setup(dev, args.warmup + args.steps,
-                                         args.dropout, args.decoder)
+                                         args.dropout, args.decoder,
+                                         args.encoder, args.img_spatial)
     for b in batches[:args.warmup]:
         state, _ = train_step(state, b, cfg)
     torch.cuda.synchronize()

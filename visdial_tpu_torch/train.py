@@ -11,8 +11,8 @@ The flags are the JAX CLI's (built from the Config fields) plus --device
 metrics (events config, train, eval, checkpoint, non_finite_loss, done, and
 notice/resumed/step_time/profile) to stdout and <save_path>/<run_name>/
 metrics.jsonl, and full resumable checkpoints (params, optimizer moments,
-step, dropout generator, config) in the JAX package's format.  Ported: the
-MN encoders with the disc and gen decoders (ROADMAP.md lists the rest).
+step, dropout generator, config) in the JAX package's format.  Every
+encoder (with or without img_spatial) trains with either decoder.
 """
 
 from __future__ import annotations
@@ -25,13 +25,13 @@ import time
 import numpy as np
 import torch
 
-from .config import RESUME_OVERRIDABLE, Config, resume_config_mismatches
+from .config import (RESUME_OVERRIDABLE, Config, encoder_family,
+                     encoder_uses_history, resume_config_mismatches)
 from .data.dataset import load_split
 from .data.loader import TrainLoader
 from .data.synthetic import make_synthetic_split
 
 from .eval_harness import evaluate_split
-from .models.encoders import check_ported
 from .models.model import batch_to_device
 from .parallel.train_step import init_train_state, multi_train_step, train_step
 from .utils.checkpoint import latest_checkpoint, load_train_state, save_checkpoint
@@ -103,7 +103,6 @@ def main(argv=None) -> dict:
         train_data, vocab = load_split(cfg.data_dir, "train")
         val_data, _ = load_split(cfg.data_dir, "val")
     cfg = cfg.replace(vocab_size=vocab.size).validate()
-    check_ported(cfg)
 
     run_name = args.run_name or f"{cfg.encoder}-{cfg.decoder}-{int(time.time())}"
     ckpt_dir = os.path.join(cfg.save_path, run_name)
@@ -112,6 +111,15 @@ def main(argv=None) -> dict:
              "device": str(device),
              "device_name": (torch.cuda.get_device_name(device)
                              if device.type == "cuda" else "cpu")})
+    if (encoder_family(cfg.encoder) == "lf" and encoder_uses_history(cfg.encoder)
+            and cfg.lf_hist_incremental and cfg.dropout > 0):
+        # the deterministic math is exactly the per-round re-encoding; only
+        # the noise's shape differs (config.py, lf_hist_incremental)
+        log.log({"event": "notice",
+                 "msg": "LF incremental-history path: inter-layer dropout "
+                        "masks are shared across a dialog's rounds (~10x "
+                        "fewer token-steps); pass --lf_hist_incremental "
+                        "false for reference-exact per-round noise"})
     if cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1:
         log.log({"event": "notice",
                  "msg": "mesh_data/mesh_model: multi-device training is not "
