@@ -10,7 +10,9 @@ also over LF's 256-step history and HRE's dialog LSTM), K2 (LSTM backward,
 through LSTMLayerFn; also with LF's gradient only at the history bounds),
 K3 (slot attention, through AttentionFn; also over 49 pool5 locations), K4
 (attention + fusion), K5 (LM-head log-probs and row logsumexp) and K6
-(LM-head d-logits, and TokenLogprobFn's gradients).  Then it drives the
+(LM-head d-logits, and TokenLogprobFn's gradients); K1 and K2 are timed
+beside cuDNN's LSTM (torch.nn.LSTM, the library yardstick only).  Then it
+drives the
 main paths at full width (random weights from a seed): flagship MN-QIH-disc
 served over a 50,000-answer pool through InferenceEngine and the JSON-lines
 CLI, trained through train_step (kernel path against the plain path at
@@ -19,10 +21,14 @@ evaluated through evaluate_split over 100 candidates a round and served
 (greedy and beam 5); LF-QIH-disc trained, evaluated and served the same
 way; each other encoder family (LF's ablations and its per-round history,
 HRE, HREA, MN with the pool5 map) through one train step and one eval
-batch; the train CLI for both decoders with a resume; and the evaluate CLI
-on the train CLI's checkpoint with the v1.0 rankings dump.  Each path must
-have gone through its kernels and agree with a run of the plain versions on
-the same card.
+batch; MN-QIH-disc and -gen evaluated resident, staged and plain over 256
+dialogs; the train CLI for both decoders with a resume; the evaluate CLI on
+the train CLI's checkpoint with the v1.0 rankings dump; dense fine-tuning of
+that checkpoint (kernel step against plain, 20 steps, the finetune CLI);
+the generate CLI on the gen checkpoint (greedy, beam 5, a test-style
+split); and the sweep CLI over MN-QIH x {disc, gen}.  Each path must have
+gone through its kernels and agree with a run of the plain versions on the
+same card.
 
 Each phase prints one JSON line.  Then come the raw nvidia-smi line (card
 name, power limit), the kernel summary line (each kernel's launches on its
@@ -79,6 +85,8 @@ ALIGN = {(32, 256, 300, 512): "left", (1, 256, 300, 512): "left",
          (1, 10, 512, 512): "ones"}
 # LF's history layer, where K1 and K2 are reported beside the head shape
 HIST_HEAD = (32, 256, 300, 512)
+# HRE/HREA's dialog LSTM, every step real: cuDNN takes it with no packing
+DIALOG_HEAD = (32, 10, 512, 512)
 # the head shape of K1 and K2, where the single-pass TF32 control runs
 LSTM_HEAD = (32000, 8, 300, 512)
 # the training path: the option LSTM's 32,000 candidate rows (both layers),
@@ -109,6 +117,13 @@ LOSS_TOL, GNORM_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
 TRAIN_STEPS = 20
 # the evals' rate: runs of each path over 8 full 32-dialog batches
 EVAL_DIALOGS, EVAL_REPS = 256, 3
+# dense fine-tuning: the train CLI's MN-QIH-disc checkpoint on 64 annotated
+# dialogs, steps at the JAX finetune test's learning rate
+FT_DIALOGS, FT_STEPS, FT_LR = 64, 20, 0.02
+# generate: the dialogs of --synthetic the CLI decodes (two batches)
+GEN_DIALOGS = 64
+# where the CLI phases write their checkpoints and outputs (git-ignored)
+SMOKE_DIR = os.path.join(ROOT, "build", "visdial_tpu_torch")
 # the other encoder families (label, encoder, flagship_setup options), each
 # through one train step and one eval batch
 FAMILIES = [("lf-ques", "lf-ques", {}), ("lf-ques-hist", "lf-ques-hist", {}),
@@ -407,6 +422,106 @@ def kernel_report() -> list[dict]:
     return rows
 
 
+def cudnn_lstm(w, b, x, mask, h0, c0, train: bool = False):
+    """K1's function as one cuDNN call, the yardstick `library_ms` (the port
+    never calls it): a one-layer torch.nn.LSTM carrying W[:E].T as
+    weight_ih, W[E:].T as weight_hh, b as bias_ih and a zero bias_hh
+    (tests/test_torch_parity.py::_to_torch_lstm; gate order i, f, g, o in
+    both).  A row's real steps, right- or left-aligned in x, go to cuDNN
+    left-aligned in a PackedSequence of the same lengths; rows with no real
+    step are left out (their state passes through unchanged).  With every
+    step real, x goes as it is.  Returns (module, pack, hx, rows): pack()
+    builds the input from x (the gather and pack_padded_sequence, the
+    packing time), hx the rows' (h0, c0)."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    N, T, E = x.shape
+    H = w.shape[1] // 4
+    m = torch.nn.LSTM(E, H, batch_first=True).to(x.device)
+    with torch.no_grad():
+        m.weight_ih_l0.copy_(w[:E].T)
+        m.weight_hh_l0.copy_(w[E:].T)
+        m.bias_ih_l0.copy_(b)
+        m.bias_hh_l0.zero_()
+    m.train(train)
+    lens = mask.sum(1).long()
+    if bool((lens == T).all()):
+        return m, lambda t=x: t, (h0[None], c0[None]), None
+    rows = torch.nonzero(lens > 0)[:, 0]
+    real = mask[rows] != 0
+    # the real steps first, in time order (a stable sort of pad-ness)
+    order = torch.argsort((~real).to(torch.int8), dim=1, stable=True)
+    lens_host = lens[rows].cpu()
+
+    def pack(t=x):
+        left = t[rows].gather(1, order[..., None].expand(-1, -1, t.shape[-1]))
+        return pack_padded_sequence(left, lens_host, batch_first=True,
+                                    enforce_sorted=False)
+
+    return m, pack, (h0[rows][None], c0[rows][None]), rows
+
+
+def cudnn_forward(w, b, x, mask, h0, c0, hT) -> dict:
+    """library_ms (cuDNN's inference forward on the packed input),
+    library_pack_ms, and cuDNN's hT against K1's on the same rows."""
+    m, pack, hx, rows = cudnn_lstm(w, b, x, mask, h0, c0)
+    with torch.no_grad():
+        packed = pack()
+        _, (h_n, _) = m(packed, hx)
+        want = hT if rows is None else hT[rows]
+        out = {"library_ms": time_ms(lambda: m(packed, hx)),
+               "library_pack_ms": None if rows is None else time_ms(pack),
+               "library_max_abs_err": float((h_n[0] - want).abs().max()),
+               "library": "torch.nn.LSTM (cuDNN)"}
+    check(out["library_max_abs_err"] <= TOL["float32"],
+          f"cuDNN's LSTM disagrees with K1: {out['library_max_abs_err']}")
+    return out
+
+
+def cudnn_backward(w, b, x, mask, h0, c0, cot, dw) -> dict:
+    """library_ms of cuDNN's backward (dx, dh0, dc0 and the weight
+    gradients: what LSTMLayerFn's whole backward computes) for the
+    cotangents `cot` (g_hs, g_hT, g_cT), packed as the input is; its weight
+    gradient is held to LSTMLayerFn's `dw`.  A pad step after a row's last
+    real step outputs the carried final state, so its g_hs is added to
+    g_hT (the pads before the first real step carry h0: no weight
+    gradient)."""
+    from torch.nn.utils.rnn import PackedSequence
+
+    m, pack, (h0r, c0r), rows = cudnn_lstm(w, b, x, mask, h0, c0, train=True)
+    g_hs, g_ht, g_ct = cot
+    steps = torch.arange(mask.shape[1], device=mask.device)
+    last = torch.where(mask != 0, steps, -1).max(dim=1).values
+    after = (steps[None] > last[:, None]).float()
+    g_ht = g_ht.float() + (g_hs.float() * after[..., None]).sum(dim=1)
+    with torch.no_grad():
+        packed = pack()
+        g = pack(g_hs.float())
+    if rows is None:
+        xin = packed.detach().clone().requires_grad_()
+        g_out = g_hs.float()
+    else:
+        data = packed.data.detach().clone().requires_grad_()
+        xin = PackedSequence(data, packed.batch_sizes, packed.sorted_indices,
+                             packed.unsorted_indices)
+        g_out = g.data
+        g_ht, g_ct = g_ht[rows], g_ct[rows]
+    hx = (h0r.clone().requires_grad_(), c0r.clone().requires_grad_())
+    out, (h_n, c_n) = m(xin, hx)
+    outs = (out if rows is None else out.data, h_n, c_n)
+    ins = [data if rows is not None else xin, *hx, *m.parameters()]
+    cots = (g_out, g_ht.float()[None], g_ct.float()[None])
+    grads = torch.autograd.grad(outs, ins, cots, retain_graph=True)
+    err = rel_err([torch.cat([grads[3], grads[4]], dim=1).T], [dw])
+    check(err <= GRAD_TOL["float32"],
+          f"cuDNN's LSTM weight gradient disagrees with LSTMLayerFn's: {err}")
+    ms = time_ms(lambda: torch.autograd.grad(outs, ins, cots,
+                                             retain_graph=True),
+                 reps=5, warmup=1)
+    return {"library_ms": ms, "library_grad_rel_err": err,
+            "library": "torch.nn.LSTM backward (cuDNN)"}
+
+
 def lstm_checks(dev, gen) -> list[dict]:
     from visdial_tpu_torch.ops.lstm import lstm_layer_plain
     from visdial_tpu_torch.ops.lstm_cuda import lstm_layer
@@ -448,6 +563,9 @@ def lstm_checks(dev, gen) -> list[dict]:
                 row["tf32_control_err"] = tf32_control(
                     lstm_layer_plain, args, want, abs_err, TOL[name],
                     "lstm_layer", (N, T, E, H))
+            if ((N, T, E, H) in (LSTM_HEAD, DIALOG_HEAD, HIST_HEAD)
+                    and dt == torch.float32):
+                row.update(cudnn_forward(*args, got[1]))
             emit(row)
             rows.append(row)
     return rows
@@ -561,6 +679,7 @@ def lstm_bwd_checks(dev, gen) -> list[dict]:
                   f"LSTMLayerFn grads non-finite at {(N, T, E, H)} {name}")
             check(err <= GRAD_TOL[name], f"lstm_layer_bwd {(N, T, E, H)} {name}: "
                   f"grad rel err {err} > {GRAD_TOL[name]}")
+            dw = grads[0][0]
             del grads
             # K2 alone on the forward's residuals
             hs, cs, _, _ = lstm_layer(w, b, x, mask, h0, c0, save_cell=True)
@@ -578,7 +697,12 @@ def lstm_bwd_checks(dev, gen) -> list[dict]:
                 extra["tf32_control_err"] = tf32_control(
                     lstm_layer_bwd_plain, args, k2_plain, rel_err,
                     GRAD_TOL[name], "lstm_layer_bwd", (N, T, E, H))
-            del k2, k2_plain
+            # the K2 rows of the kernel table: the option LSTM, the dialog
+            # LSTM and LF's history with its gradient at the bounds only
+            if ((sparse or (N, T, E, H) in (LSTM_HEAD, DIALOG_HEAD))
+                    and dt == torch.float32):
+                extra.update(cudnn_backward(w, b, x, mask, h0, c0, cot, dw))
+            del k2, k2_plain, dw
             row = {**extra, "phase": "lstm_layer_bwd", "shape": [N, T, E, H],
                    "dtype": name, "align": align, "sparse_g_hs": sparse,
                    "grad_max_rel_err": err,
@@ -840,22 +964,26 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-def compare_steps(cfg, state0, batch, seed: int) -> dict:
-    """One train_step and the gradients on the kernel path and the plain
-    path from the same params, batch and generator seed."""
+def compare_steps(cfg, state0, batch, seed: int, loss_fn=None) -> dict:
+    """One train_step and the gradients of loss_fn (default model_loss) on
+    the kernel path and the plain path from the same params, batch and
+    generator seed."""
     from visdial_tpu_torch.parallel.optim import clip_by_global_norm
     from visdial_tpu_torch.parallel.train_step import (TrainState,
                                                        loss_and_grads,
                                                        train_step)
+    from visdial_tpu_torch.models.model import model_loss
     from visdial_tpu_torch.utils.params import flatten
 
+    loss_fn = loss_fn or model_loss
     out = {}
     for impl in ("cuda", "plain"):
         st = TrainState(state0.params, state0.opt,
                         torch.Generator().manual_seed(seed))
-        new, m = train_step(st, batch, cfg, impl=impl)
+        new, m = train_step(st, batch, cfg, impl=impl, loss_fn=loss_fn)
         _, grads = loss_and_grads(state0.params, batch, cfg,
-                                  torch.Generator().manual_seed(seed), impl)
+                                  torch.Generator().manual_seed(seed), impl,
+                                  loss_fn)
         grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
         out[impl] = (flatten(new.params), m, flatten(grads))
     (pk, mk, gk), (pp, mp, gp) = out["cuda"], out["plain"]
@@ -1194,7 +1322,7 @@ def read_jsonl(text: str) -> list[dict]:
 def train_cli() -> dict:
     """Train 4 steps through the CLI (eval and checkpoints on the way), then
     resume to step 6."""
-    save = os.path.join(ROOT, "build", "visdial_tpu_torch", "smoke_train")
+    save = os.path.join(SMOKE_DIR, "smoke_train")
     shutil.rmtree(save, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
@@ -1254,7 +1382,7 @@ def evaluate_cli() -> dict:
     """The evaluate CLI on the checkpoint train_cli wrote (MN-QIH-disc,
     step 6) over a --synthetic split, with the v1.0 rankings dump: the JAX
     CLI's JSON keys, and every dumped ranking a permutation of 1..100."""
-    run = os.path.join(ROOT, "build", "visdial_tpu_torch", "smoke_train", "smoke")
+    run = os.path.join(SMOKE_DIR, "smoke_train", "smoke")
     ranks_path = os.path.join(run, "ranks.json")
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
@@ -1267,7 +1395,9 @@ def evaluate_cli() -> dict:
           f"{proc.stderr[-4000:]}")
     lines = read_jsonl(proc.stdout)
     keys = {"model", "split", "mrr", "r@1", "r@5", "r@10", "mean_rank",
-            "num_examples", "evals_per_sec", "eval_seconds"}
+            "num_examples", "evals_per_sec", "eval_seconds",
+            # the resident eval, the CLI's default
+            "resident_cache_seconds", "resident_cache_bytes", "cold_compile"}
     check(len(lines) == 1 and set(lines[0]) == keys
           and lines[0]["model"] == "mn-ques-im-hist-disc"
           and lines[0]["num_examples"] == 640 and math.isfinite(lines[0]["mrr"]),
@@ -1279,6 +1409,367 @@ def evaluate_cli() -> dict:
           and {e["round_id"] for e in sub} == set(range(1, 11)),
           f"evaluate CLI --save_ranks: {len(sub)} entries")
     row = {"phase": "evaluate_cli", **lines[0], "dumped_rounds": len(sub)}
+    emit(row)
+    return row
+
+
+def run_cli(main, argv: list) -> tuple:
+    """A CLI's main(argv) in this process, so that its kernel launches
+    count, with its standard output captured: (return value, JSON lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv)
+    return ret, read_jsonl(buf.getvalue())
+
+
+def eval_resident(dev) -> list[dict]:
+    """The resident and staged evals: flagship MN-QIH-disc and MN-QIH-gen
+    over gen_eval's 256-dialog split.  A cold resident run (the cache
+    built; its launches are the path's), then EVAL_REPS runs of each path
+    in turn: resident (warm), staged stream and the plain versions
+    (streaming).  Ranks: resident and staged equal, and equal to plain but
+    for near ties (as in `evaluate`); candidate rankings (collect_rankings)
+    equal between resident and staged; a 16-byte cap streams (no
+    resident_* keys)."""
+    import numpy as np
+
+    from visdial_tpu_torch.config import Config
+    from visdial_tpu_torch.data.synthetic import make_random_split
+    from visdial_tpu_torch.eval_harness import evaluate_split
+    from visdial_tpu_torch.models.model import model_init, model_option_table
+
+    rows = []
+    for decoder in ("disc", "gen"):
+        base = Config(encoder="mn-ques-im-hist", decoder=decoder, dropout=0.0)
+        split, vocab = make_random_split(base, num_dialogs=EVAL_DIALOGS, seed=1)
+        cfg = base.replace(vocab_size=vocab.size)
+        params = model_init(cfg, seed=0, device=dev)
+        if decoder == "disc":
+            params = scaled(params, EVAL_SCALE)
+        what = f"eval_resident {decoder}"
+
+        def run(impl, resident, collect=False, **kw):
+            return evaluate_split(params, split, vocab, cfg, dev, impl=impl,
+                                  return_ranks=True, collect_rankings=collect,
+                                  resident=resident, **kw)
+
+        reset_launches()
+        cold, cold_ranks = run("cuda", True)
+        launches = kernel_launches()
+        check_launches(launches, cfg, False, what)
+        check(cold.get("cold_compile") is True
+              and {"resident_cache_seconds", "resident_cache_bytes"} <= set(cold),
+              f"{what}: first resident run {cold}")
+        reset_launches()
+        run("cuda", False)                          # warms the staged path
+        staged_launches = kernel_launches()
+        check_launches(staged_launches, cfg, False, what + " staged")
+        run("plain", False)
+        paths = {"resident": ("cuda", True), "staged": ("cuda", False),
+                 "plain": ("plain", False)}
+        runs = {p: [] for p in paths}
+        for _ in range(EVAL_REPS):
+            for p, (impl, res) in paths.items():
+                runs[p].append(run(impl, res))
+        check(all("cold_compile" not in m and "resident_cache_bytes" in m
+                  for m, _ in runs["resident"]), f"{what}: warm resident keys")
+        rounds = EVAL_DIALOGS * cfg.num_rounds
+        ref = runs["resident"][0][1]
+        check(len(ref) == rounds and np.array_equal(ref, cold_ranks),
+              f"{what}: resident ranked {len(ref)} rounds")
+        for p, rs in runs.items():
+            check(all(np.array_equal(r, rs[0][1]) for _, r in rs),
+                  f"{what} ({p}): ranks differ between repeated runs")
+        check(np.array_equal(runs["staged"][0][1], ref),
+              f"{what}: staged ranks differ from the resident ones")
+        diff = np.abs(runs["plain"][0][1] - ref)
+        check(diff.max() <= 1 and (diff > 0).sum() <= rounds // 1000,
+              f"{what}: ranks of {int((diff > 0).sum())} of {rounds} rounds "
+              f"differ from the plain path's, by up to {diff.max()}")
+        _, _, cand = run("cuda", True, collect=True)
+        _, _, cand_staged = run("cuda", False, collect=True)
+        _, _, cand_plain = run("plain", False, collect=True)
+        check(cand.shape == (EVAL_DIALOGS, cfg.num_rounds, cfg.num_options)
+              and np.array_equal(cand, cand_staged)
+              and (np.sort(cand, -1) == np.arange(1, cfg.num_options + 1)).all(),
+              f"{what}: resident candidate rankings differ from the staged ones")
+        capped = run("cuda", True, resident_max_bytes=16)[0]
+        check(not any(k.startswith("resident_") or k == "cold_compile"
+                      for k in capped) and capped["mrr"] == runs["staged"][0][0]["mrr"],
+              f"{what}: the byte cap did not stream: {capped}")
+        rates = {p: [m["evals_per_sec"] for m, _ in rs] for p, rs in runs.items()}
+        extra = {}
+        if decoder == "disc":
+            # the resident rate includes the option table's build (the JAX
+            # harness's timing), the staged and plain ones exclude it
+            opt_list = torch.from_numpy(split.opt_list).long().to(dev)
+            with torch.inference_mode():
+                extra = {"option_rows": int(opt_list.shape[0]),
+                         "table_build_ms": time_ms(lambda: model_option_table(
+                             params, opt_list, cfg, impl="cuda"), reps=3)}
+        row = {"phase": "eval_resident", "model": f"mn-ques-im-hist-{decoder}",
+               "dialogs": EVAL_DIALOGS, "rounds": rounds, "reps": EVAL_REPS,
+               "launches": launches, "staged_launches": staged_launches,
+               "mrr": cold["mrr"],
+               "cold_compile": cold["cold_compile"],
+               "cold_evals_per_sec": cold["evals_per_sec"],
+               "resident_cache_seconds": cold["resident_cache_seconds"],
+               "resident_cache_bytes": cold["resident_cache_bytes"],
+               "evals_per_sec": statistics.median(rates["resident"]),
+               "staged_evals_per_sec": statistics.median(rates["staged"]),
+               "plain_evals_per_sec": statistics.median(rates["plain"]),
+               "evals_per_sec_runs": rates["resident"],
+               "staged_evals_per_sec_runs": rates["staged"],
+               "plain_evals_per_sec_runs": rates["plain"],
+               "rank_mismatches_vs_plain": int((diff > 0).sum()),
+               "cand_rounds_differing_from_plain":
+                   int((cand != cand_plain).any(-1).sum()),
+               "capped_keys": sorted(capped), **extra}
+        emit(row)
+        rows.append(row)
+        del params
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dense_entries(split, cfg) -> list[dict]:
+    """Dense targets built from the split as tests/test_finetune.py builds
+    them: relevance 1.0 on a fixed non-ground-truth slot of round 2."""
+    out = []
+    for i in range(split.num_dialogs):
+        rel = [0.0] * cfg.num_options
+        rel[(int(split.gt_ind[i, 1]) + 2) % cfg.num_options] = 1.0
+        out.append({"image_id": int(split.img_ids[i]), "round_id": 2,
+                    "gt_relevance": rel})
+    return out
+
+
+def finetune(dev) -> dict:
+    """Dense fine-tuning of the MN-QIH-disc checkpoint train_cli wrote
+    (flagship width, its --synthetic data): the first dense step on the
+    kernel path against the plain path at dropout 0 and 0.5
+    (compare_steps), FT_STEPS timed steps (the loss falls, NDCG on the
+    annotated rounds rises; their launches), then the finetune CLI in this
+    process for the same steps: its events, its NDCG and loss, and a
+    checkpoint that reloads."""
+    from visdial_tpu_torch.data.loader import DenseLoader
+    from visdial_tpu_torch.data.synthetic import make_synthetic_split
+    from visdial_tpu_torch.finetune import main as finetune_main
+    from visdial_tpu_torch.finetune import ndcg_on_entries
+    from visdial_tpu_torch.models.model import batch_to_device, model_dense_loss
+    from visdial_tpu_torch.parallel.optim import init_opt_state
+    from visdial_tpu_torch.parallel.train_step import TrainState, train_step
+    from visdial_tpu_torch.utils.checkpoint import load_checkpoint, load_train_state
+
+    load = os.path.join(SMOKE_DIR, "smoke_train", "smoke", "step_00000006")
+    params, cfg, _ = load_checkpoint(load, dev)
+    check(cfg.encoder == "mn-ques-im-hist" and cfg.decoder == "disc"
+          and cfg.rnn_hidden_size == 512 and cfg.num_options == 100,
+          f"finetune: the checkpoint is {cfg.encoder}-{cfg.decoder}")
+    split, vocab = make_synthetic_split(cfg, num_dialogs=FT_DIALOGS,
+                                        seed=cfg.seed + 1)
+    dense = dense_entries(split, cfg)
+    dense_path = os.path.join(SMOKE_DIR, "smoke_dense.json")
+    with open(dense_path, "w") as f:
+        json.dump(dense, f)
+    cfg = cfg.replace(learning_rate=FT_LR, lr_decay_rate=1.0)
+    loader = DenseLoader(split, vocab, cfg, dense)
+    check(len(loader) == FT_DIALOGS and loader.skipped == 0,
+          f"finetune: {len(loader)} usable entries, {loader.skipped} skipped")
+    batches, epoch = [], 0
+    while len(batches) < FT_STEPS:          # the CLI's order (--seed 0)
+        batches += [batch_to_device(b, dev) for b in loader.epoch(seed=epoch)]
+        epoch += 1
+    state0 = TrainState(params, init_opt_state(params, cfg),
+                        torch.Generator().manual_seed(0))
+    row = {"phase": "finetune", "model": "mn-ques-im-hist-disc",
+           "batch_dialogs": cfg.batch_size, "dense_rows": int(
+               batches[0]["dense_opt"].shape[0] * batches[0]["dense_opt"].shape[1]),
+           "lr": FT_LR, "dropout": cfg.dropout,
+           "dropout0": compare_steps(cfg.replace(dropout=0.0), state0,
+                                     batches[0], seed=1,
+                                     loss_fn=model_dense_loss),
+           "dropout05": compare_steps(cfg.replace(dropout=0.5), state0,
+                                      batches[0], seed=2,
+                                      loss_fn=model_dense_loss)}
+    before = ndcg_on_entries(params, split, vocab, cfg, dev, dense)
+    reset_launches()
+    state, losses, times = state0, [], []
+    for b in batches[:FT_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, b, cfg, loss_fn=model_dense_loss)
+        losses.append(float(m["loss"]))          # reads back: synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = kernel_launches()
+    check_launches(launches, cfg, True, "finetune")
+    after = ndcg_on_entries(state.params, split, vocab, cfg, dev, dense)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and after["ndcg"] > before["ndcg"],
+          f"finetune: loss {losses[0]} -> {losses[-1]}, NDCG {before} -> {after}")
+    reset_launches()
+    out, events = run_cli(finetune_main, [
+        "--load_path", load, "--dense_json", dense_path,
+        "--synthetic", str(FT_DIALOGS), "--steps", str(FT_STEPS),
+        "--learning_rate", str(FT_LR), "--eval_every", str(FT_STEPS // 2),
+        "--log_every", "5", "--save_path", SMOKE_DIR, "--run_name",
+        "smoke_ft"])
+    cli_launches = kernel_launches()
+    check(all(cli_launches[k] > 0 for k in ("lstm_layer", "lstm_layer_bwd",
+                                             "attention", "attention_fusion")),
+          f"finetune CLI launches {cli_launches}")
+    ndcg = [e for e in events if e["event"] == "ndcg"]
+    steps = [e["step"] for e in events if e["event"] == "finetune"]
+    check([e["step"] for e in ndcg] == [0, FT_STEPS // 2, FT_STEPS, FT_STEPS]
+          and steps == list(range(1, FT_STEPS + 1))
+          and events[-1]["event"] == "checkpoint"
+          and out["last_loss"] < out["first_loss"]
+          and out["ndcg_after"] > out["ndcg_before"],
+          f"finetune CLI: {out}, events {[e['event'] for e in events]}")
+    reloaded, rcfg, _ = load_train_state(out["checkpoint"], dev)
+    check(reloaded.opt.step == FT_STEPS and rcfg.learning_rate == FT_LR,
+          f"finetune CLI checkpoint: step {reloaded.opt.step}")
+    row.update({"steps": FT_STEPS, "launches": launches,
+                "cli_launches": cli_launches, "loss_first": losses[0],
+                "loss_last": losses[-1], "ndcg_before": before["ndcg"],
+                "ndcg_after": after["ndcg"], "ndcg_rounds": after["ndcg_rounds"],
+                "step_ms": statistics.median(times),
+                "cli": {k: out[k] for k in ("ndcg_before", "ndcg_after",
+                                            "first_loss", "last_loss")}})
+    emit(row)
+    return row
+
+
+def generate(dev) -> dict:
+    """The generate CLI in this process on the gen checkpoint train_cli
+    wrote (MN-QIH-gen, flagship width), against the plain versions on the
+    card (the same params in a checkpoint whose config has use_pallas
+    off): greedy strings equal and log-probs within SCORE_TOL; beam 5
+    equal where the best beams' scores do not tie (within SCORE_TOL); the
+    vis/ JSON contract; and on a test-style split (no round with a ground
+    truth) every round that has a question kept."""
+    import numpy as np
+
+    from visdial_tpu_torch.data.synthetic import make_synthetic_split
+    from visdial_tpu_torch.generate import main as generate_main
+    from visdial_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    ckpt = os.path.join(SMOKE_DIR, "smoke_train", "smoke_gen", "step_00000002")
+    params, cfg, _ = load_checkpoint(ckpt, dev)
+    check(cfg.decoder == "gen" and cfg.rnn_hidden_size == 512,
+          f"generate: the checkpoint is {cfg.encoder}-{cfg.decoder}")
+    plain_ckpt = save_checkpoint(os.path.join(SMOKE_DIR, "smoke_gen_plain"),
+                                 params, cfg.replace(use_pallas=False))
+
+    def cli(path, name, *extra):
+        out = os.path.join(SMOKE_DIR, f"generated_{name}.json")
+        run_cli(generate_main, ["--load_path", path, "--out_path", out,
+                                "--num_dialogs", "0", *extra])
+        with open(out) as f:
+            return json.load(f)
+
+    syn = ["--synthetic", str(GEN_DIALOGS)]
+    reset_launches()
+    got = cli(ckpt, "greedy", *syn)
+    launches = kernel_launches()
+    need = {"lstm_layer", "attention_fusion"}
+    check(all(launches[k] > 0 for k in need)
+          and all(n == 0 for k, n in launches.items() if k not in need),
+          f"generate launches {launches}: the encoder's K1 and K4 only")
+    want = cli(plain_ckpt, "greedy_plain", *syn)
+    beam = cli(ckpt, "beam5", *syn, "--beam_size", "5")
+    beam_plain = cli(plain_ckpt, "beam5_plain", *syn, "--beam_size", "5")
+    lp_err, beam_ties, n_rounds = 0.0, 0, 0
+    for data in (got, want, beam):
+        check(data["model"] == "mn-ques-im-hist-gen" and data["split"] == "val"
+              and len(data["dialogs"]) == GEN_DIALOGS
+              and all(set(d) == {"image_id", "caption", "rounds"}
+                      and len(d["rounds"]) == cfg.num_rounds
+                      and all(set(r) == {"question", "gt_answer", "generated",
+                                         "log_prob"}
+                              and isinstance(r["generated"], str)
+                              and math.isfinite(r["log_prob"])
+                              for r in d["rounds"])
+                      for d in data["dialogs"]), "generate: vis/ JSON contract")
+    for g, w in zip(got["dialogs"], want["dialogs"]):
+        for gr, wr in zip(g["rounds"], w["rounds"]):
+            n_rounds += 1
+            check(gr["generated"] == wr["generated"],
+                  f"generate: greedy {gr} differs from the plain run's {wr}")
+            lp_err = max(lp_err, abs(gr["log_prob"] - wr["log_prob"]))
+    for g, w in zip(beam["dialogs"], beam_plain["dialogs"]):
+        for gr, wr in zip(g["rounds"], w["rounds"]):
+            d = abs(gr["log_prob"] - wr["log_prob"])
+            lp_err = max(lp_err, d)
+            if gr["generated"] != wr["generated"]:
+                beam_ties += 1
+                check(d <= SCORE_TOL, f"generate: beam 5 {gr} differs from "
+                      f"the plain run's {wr} beyond a score tie")
+    check(lp_err <= SCORE_TOL, f"generate: log-prob err {lp_err}")
+    # a v1.0 test-style split: dialog i asks 1 + i % R questions, no round
+    # has a ground truth, the last asked round has its candidates
+    split, vocab = make_synthetic_split(cfg, num_dialogs=GEN_DIALOGS,
+                                        seed=cfg.seed + 1)
+    asked = 1 + np.arange(GEN_DIALOGS) % cfg.num_rounds
+    split.round_valid[:] = 0
+    split.round_scoreable[:] = 0
+    for i, k in enumerate(asked):
+        split.ques[i, k:] = 0
+        split.ques_len[i, k:] = 0
+        split.round_scoreable[i, k - 1] = 1
+    data_dir = os.path.join(SMOKE_DIR, "smoke_test_split")
+    os.makedirs(data_dir, exist_ok=True)
+    split.save(os.path.join(data_dir, "visdial_data_test.npz"))
+    vocab.save(os.path.join(data_dir, "visdial_params.json"))
+    test = cli(ckpt, "test", "--data_dir", data_dir, "--split", "test")
+    kept = [len(d["rounds"]) for d in test["dialogs"]]
+    check(test["split"] == "test" and kept == asked.tolist()
+          and all(r["question"] for d in test["dialogs"] for r in d["rounds"]),
+          f"generate: the test-style split kept {kept} rounds, asked {asked}")
+    row = {"phase": "generate", "model": "mn-ques-im-hist-gen",
+           "dialogs": GEN_DIALOGS, "rounds": n_rounds, "launches": launches,
+           "log_prob_max_abs_err": lp_err, "beam5_score_ties": beam_ties,
+           "greedy0": got["dialogs"][0]["rounds"][0],
+           "test_split_rounds_kept": int(sum(kept))}
+    emit(row)
+    return row
+
+
+def sweep(dev) -> dict:
+    """The sweep CLI in this process over MN-QIH x {disc, gen} at flagship
+    width, --max_steps 2 on a 64-dialog --synthetic split (the train CLI's
+    eval on its 16 val dialogs at step 2, resident): both pairs in the
+    results table with metrics in range; the runs launch all six kernels."""
+    from visdial_tpu_torch.sweep import main as sweep_main
+
+    out = os.path.join(SMOKE_DIR, "sweep_results.json")
+    reset_launches()
+    results, events = run_cli(sweep_main, [
+        "--encoders", "mn-ques-im-hist", "--decoders", "disc,gen",
+        "--synthetic", "64", "--max_steps", "2",
+        "--save_path", os.path.join(SMOKE_DIR, "smoke_sweep"), "--out", out])
+    launches = kernel_launches()
+    check(all(n > 0 for n in launches.values()),
+          f"sweep launches {launches}: every kernel")
+    with open(out) as f:
+        table = json.load(f)
+    names = ["mn-ques-im-hist-disc", "mn-ques-im-hist-gen"]
+    check(sorted(table) == names == sorted(results)
+          and all(0.0 <= v["mrr"] <= 1.0 and 1.0 <= v["mean_rank"] <= 100.0
+                  and all(0.0 <= v[k] <= 1.0 for k in ("r@1", "r@5", "r@10"))
+                  and v["num_examples"] == 16 * 10
+                  and "resident_cache_bytes" in v for v in table.values()),
+          f"sweep results table: {table}")
+    done = [e for e in events if e.get("event") == "sweep_done"]
+    check([e["model"] for e in done] == names
+          and events[-1] == {"event": "sweep_complete", "out": out, "models": 2},
+          f"sweep events: {events[-3:]}")
+    row = {"phase": "sweep", "models": names, "launches": launches,
+           **{n: {k: table[n][k] for k in ("mrr", "mean_rank", "train_seconds")}
+              for n in names}}
     emit(row)
     return row
 
@@ -1434,8 +1925,12 @@ def main() -> None:
     lf_served = timed("serve_lf", serve, dev, "lf-ques-im-hist", "serve_lf",
                       served["row"])
     fams = timed("families", families, dev)
+    resident = timed("eval_resident", eval_resident, dev)
     timed("train_cli", train_cli)
     timed("evaluate_cli", evaluate_cli)
+    tuned = timed("finetune", finetune, dev)
+    generated = timed("generate", generate, dev)
+    swept = timed("sweep", sweep, dev)
     emit({"phase": "wall_seconds", **walls, "total": sum(walls.values())})
 
     # launches: each kernel's count from the run of the main path it is
@@ -1451,6 +1946,14 @@ def main() -> None:
     for f in fams:
         by_path[f"{f['family']}:train"] = f["train_launches"]
         by_path[f"{f['family']}:eval"] = f["eval_launches"]
+    for r in resident:
+        decoder = r["model"].rsplit("-", 1)[1]
+        by_path[f"eval_resident:{decoder}"] = r["launches"]
+        by_path[f"eval_staged:{decoder}"] = r["staged_launches"]
+    by_path.update({"finetune": tuned["launches"],
+                    "finetune_cli": tuned["cli_launches"],
+                    "generate": generated["launches"],
+                    "sweep": swept["launches"]})
 
     def head_row(rows, shape, **match):
         return next(r for r in rows if r["shape"] == shape
@@ -1483,14 +1986,25 @@ def main() -> None:
                 source="visdial_tpu_torch/csrc/lstm_fwd.cu",
                 replaces="visdial_tpu/ops/lstm_pallas.py:99",
                 # LF's history layer (train_lf), left-aligned
-                history_head=side_head(k1, list(HIST_HEAD), ("align", "cs_ms"))),
+                history_head=side_head(k1, list(HIST_HEAD),
+                                       ("align", "cs_ms", "library_ms",
+                                        "library_pack_ms")),
+                library_pack_ms=head_row(k1, [32000, 8, 300, 512])["library_pack_ms"],
+                # HRE/HREA's dialog LSTM, every step real: cuDNN unpacked
+                dialog_head=side_head(k1, list(DIALOG_HEAD),
+                                      ("align", "library_ms"))),
         summary(k2, [32000, 8, 300, 512], "train", name="lstm_layer_bwd",
                 source="visdial_tpu_torch/csrc/lstm_bwd.cu",
                 replaces="visdial_tpu/ops/lstm_pallas.py:305",
                 # LF's top history layer: g_hs only at the bounds
                 history_head=side_head(k2, list(HIST_HEAD),
-                                       ("align", "sparse_g_hs", "bwd_ms"),
-                                       sparse_g_hs=True)),
+                                       ("align", "sparse_g_hs", "bwd_ms",
+                                        "library_ms"), sparse_g_hs=True),
+                # cuDNN's backward computes dx and dW too: beside it stands
+                # LSTMLayerFn's whole backward, K2 and the GEMMs
+                bwd_ms=head_row(k2, [32000, 8, 300, 512])["bwd_ms"],
+                dialog_head=side_head(k2, list(DIALOG_HEAD),
+                                      ("align", "bwd_ms", "library_ms"))),
         summary(k3, [32, 10, 10, 512], "train", name="attention",
                 source="visdial_tpu_torch/csrc/attention_fusion.cu",
                 replaces="visdial_tpu/ops/attention_pallas.py:24",

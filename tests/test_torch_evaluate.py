@@ -110,8 +110,9 @@ def _json_line(capsys) -> dict:
 
 @pytest.mark.parametrize("decoder", ["disc", "gen"])
 def test_evaluate_cli_matches_jax_cli(tmp_path, capsys, decoder):
-    """Both CLIs on one checkpoint and --synthetic split (the JAX one
-    streaming, as the port's does): equal JSON lines but for the timing
+    """Both CLIs on one checkpoint and --synthetic split, both streaming
+    (--no-resident; the resident CLI is held to the JAX one in
+    tests/test_torch_resident.py): equal JSON lines but for the timing
     keys, equal --save_ranks files, and with --dense_json (annotations
     written here: one round per image, an unknown image and a round_id out
     of range among them) the same NDCG keys."""
@@ -119,7 +120,7 @@ def test_evaluate_cli_matches_jax_cli(tmp_path, capsys, decoder):
     args = ["--load_path", path, "--synthetic", "6", "--batch_size", "4"]
     jax_evaluate_main(args + ["--no-resident"])
     want = _json_line(capsys)
-    main(args + ["--device", "cpu"])
+    main(args + ["--device", "cpu", "--no-resident"])
     got = _json_line(capsys)
     assert TIMING_KEYS <= set(got)
     assert {k: v for k, v in got.items() if k not in TIMING_KEYS} == \
@@ -139,7 +140,7 @@ def test_evaluate_cli_matches_jax_cli(tmp_path, capsys, decoder):
     dense_path.write_text(json.dumps(dense))
     files = {}
     for who, fn, extra in (("jax", jax_evaluate_main, ["--no-resident"]),
-                           ("port", main, ["--device", "cpu"])):
+                           ("port", main, ["--device", "cpu", "--no-resident"])):
         files[who] = tmp_path / f"ranks_{who}.json"
         fn(args + extra + ["--save_ranks", str(files[who]),
                            "--dense_json", str(dense_path)])

@@ -2,10 +2,9 @@
 of visdial_tpu/data/loader.py; batches are byte-identical to the JAX
 package's under a float32 config, tests/test_torch_data.py).
 
-Divergences from the JAX package's loader: batches are always assembled in
+Divergence from the JAX package's loader: batches are always assembled in
 float32 (its bfloat16 branch casts image features through ml_dtypes; the
-port casts on the device instead), and DenseLoader (dense-annotation
-fine-tuning, ROADMAP.md M9) is not copied yet.
+port casts on the device instead).
 
 The JAX package's loader replaces the reference's online Lua loader (reference: dataloader.lua
 getTrainBatch/getTestBatch + utils.rightAlign).  Responsibilities:
@@ -461,3 +460,70 @@ class EvalLoader:
                 with_option_tokens=self.option_tokens, pad_to=self.bs,
             )
 
+
+
+class DenseLoader:
+    """Shuffled batches for v1.0 dense-annotation fine-tuning
+    (loader.py::DenseLoader).
+
+    Iterates only the dialogs a dense-annotation file covers; each batch
+    carries the full encoder inputs (history context up to the annotated
+    round lives inside the encoder) plus the annotated round's candidate
+    tokens and raw relevance:
+
+      dense_opt   (B, K, La)   candidate tokens (gathered from opt_list)
+      dense_round (B,)         0-indexed annotated round
+      dense_rel   (B, K)       gt_relevance as released (raw, unnormalized)
+      dense_valid (B,)         0 for rows padding the final batch
+
+    Entries whose image is not in the split, whose round_id is out of
+    range, whose relevance row is all-zero, or whose annotated round has
+    no full candidate list are skipped (counted in .skipped).
+    """
+
+    def __init__(self, data: VisDialSplit, vocab: Vocabulary, config: Config,
+                 dense_entries: list, batch_size: int | None = None):
+        self.assembler = BatchAssembler(data, vocab, config)
+        self.data, self.cfg = data, config
+        self.bs = batch_size or config.batch_size
+        by_img = {int(e["image_id"]): e for e in dense_entries}
+        self.items: list[tuple[int, int, np.ndarray]] = []
+        self.skipped = 0
+        for i, img in enumerate(np.asarray(data.img_ids)):
+            e = by_img.pop(int(img), None)
+            if e is None:
+                continue
+            r = int(e["round_id"]) - 1
+            rel = np.asarray(e["gt_relevance"], np.float32)
+            if (not 0 <= r < config.num_rounds
+                    or rel.shape != (config.num_options,)
+                    or rel.sum() <= 0
+                    or not data.round_scoreable[i, r]):
+                self.skipped += 1
+                continue
+            self.items.append((i, r, rel))
+        self.skipped += len(by_img)        # images not in this split
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def epoch(self, seed: int) -> Iterator[dict]:
+        d = self.data
+        order = np.random.default_rng(seed).permutation(len(self.items))
+        for s in range(0, len(order), self.bs):
+            take = order[s : s + self.bs]
+            valid = np.ones(len(take), np.int32)
+            if len(take) < self.bs:                      # pad final batch
+                pad = self.bs - len(take)
+                take = np.concatenate([take, np.repeat(take[-1:], pad)])
+                valid = np.concatenate([valid, np.zeros(pad, np.int32)])
+            idx = np.array([self.items[t][0] for t in take])
+            rounds = np.array([self.items[t][1] for t in take], np.int32)
+            rel = np.stack([self.items[t][2] for t in take])
+            out = self.assembler.assemble(idx, with_options=False).as_dict()
+            rows = d.opt_inds[idx, rounds]               # (B, K)
+            out["dense_opt"] = d.opt_list[rows].astype(np.int32)
+            out["dense_round"] = rounds
+            out["dense_rel"] = rel
+            out["dense_valid"] = valid
+            yield out

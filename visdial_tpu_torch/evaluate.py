@@ -19,15 +19,17 @@ Usage:
         [--device cuda | --device cpu]
 
 --device cuda (the default) runs the kernels; --device cpu the plain
-versions.  The resident eval is not ported (ROADMAP.md, M8): --resident is
-accepted, and the eval streams batches either way.
+versions.  --resident (the default) keeps the split's batches on the device
+and scores them with one readback (eval_harness._ResidentDiscEval /
+_ResidentGenEval; the JSON line gains resident_cache_seconds,
+resident_cache_bytes and cold_compile); --no-resident streams them through
+the staging thread.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import sys
 
 import numpy as np
 import torch
@@ -99,8 +101,8 @@ def main(argv=None) -> dict:
                    help="rank convention for score ties")
     p.add_argument("--resident", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="accepted for the JAX CLI's surface; the resident "
-                        "eval is not ported (ROADMAP.md, M8): eval streams")
+                   help="keep the split's batches on the device and score "
+                        "them with one readback (--no-resident streams)")
     p.add_argument("--save_ranks", type=str, default="",
                    help="write every candidate's rank here in the v1.0 "
                         "challenge submission JSON format")
@@ -113,11 +115,6 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device (pass --device cpu to "
                          "evaluate with the plain versions on the CPU)")
-    if args.resident:
-        print(json.dumps({"event": "notice",
-                          "msg": "resident: the resident eval is not ported "
-                                 "(ROADMAP.md, M8); the eval streams batches"}),
-              file=sys.stderr, flush=True)
     params, cfg, _ = load_checkpoint(args.load_path, device)
     if args.data_dir:
         cfg = cfg.replace(data_dir=args.data_dir)
@@ -135,7 +132,8 @@ def main(argv=None) -> dict:
     want_rankings = bool(args.save_ranks or args.dense_json)
     out = evaluate_split(params, data, vocab, cfg, device,
                          batch_size=args.batch_size or None, ties=args.ties,
-                         collect_rankings=want_rankings)
+                         collect_rankings=want_rankings,
+                         resident=args.resident)
     if want_rankings:
         metrics, cand_ranks = out
         if args.save_ranks:

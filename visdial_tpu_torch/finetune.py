@@ -1,0 +1,155 @@
+"""Dense-annotation fine-tuning CLI on one GPU (port of
+visdial_tpu/finetune.py), the VisDial v1.0 NDCG phase.
+
+Loads a trained disc checkpoint of either package and fine-tunes it so its
+candidate-score softmax matches the dense human gt_relevance annotations
+(the `visdial_1.0_val_dense_annotations.json` schema) with
+models/model.py::model_dense_loss.  The learning rate is --learning_rate
+without decay; the optimizer state is fresh and the dropout generator is
+seeded from --seed.  Progress is JSONL: `ndcg` on the annotated rounds at
+step 0, every --eval_every steps and at the end (the resident eval's
+candidate rankings), `finetune` per step (read back every --log_every
+steps), then `checkpoint`.
+
+Usage:
+    python -m visdial_tpu_torch.finetune --load_path checkpoints/run/step_N \
+        --dense_json dense_annotations.json [--data_dir data | --synthetic N] \
+        --steps 200 --learning_rate 1e-4 --save_path checkpoints/ft \
+        [--device cuda | --device cpu]
+
+--device cuda (the default) runs the kernels; --device cpu the plain
+versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from .data.dataset import load_split
+from .data.loader import DenseLoader
+from .data.synthetic import make_synthetic_split
+from .eval_harness import evaluate_split
+from .evaluate import ndcg_from_dense
+from .models.model import batch_to_device, model_dense_loss
+from .parallel.optim import init_opt_state
+from .parallel.train_step import TrainState, train_step
+from .utils.checkpoint import load_checkpoint, save_checkpoint
+
+
+def ndcg_on_entries(params, data, vocab, cfg, device, dense_entries) -> dict:
+    """NDCG over the annotated rounds (the resident eval's rankings)."""
+    _, cand = evaluate_split(params, data, vocab, cfg, device,
+                             collect_rankings=True, resident=True)
+    return ndcg_from_dense(cand, data.img_ids, dense_entries)
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--load_path", required=True)
+    p.add_argument("--dense_json", required=True)
+    p.add_argument("--data_dir", type=str, default="")
+    p.add_argument("--split", type=str, default="val",
+                   help="split the dense annotations cover (v1.0: val)")
+    p.add_argument("--synthetic", type=int, default=0)
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--batch_size", type=int, default=0)
+    p.add_argument("--eval_every", type=int, default=0,
+                   help="NDCG on the annotated rounds every N steps "
+                        "(0 = only before/after)")
+    p.add_argument("--log_every", type=int, default=10,
+                   help="steps between buffered loss readbacks/records")
+    p.add_argument("--save_path", type=str, default="checkpoints/finetune")
+    p.add_argument("--run_name", type=str, default="dense")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda")
+    args = p.parse_args(argv)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device (pass --device cpu to "
+                         "fine-tune with the plain versions on the CPU)")
+    params, cfg, _ = load_checkpoint(args.load_path, device)
+    if cfg.decoder != "disc":
+        raise SystemExit(f"checkpoint is {cfg.decoder!r}; dense fine-tuning "
+                         "targets disc models")
+    cfg = cfg.replace(learning_rate=args.learning_rate, lr_decay_rate=1.0)
+    if args.data_dir:
+        cfg = cfg.replace(data_dir=args.data_dir)
+    if args.batch_size:
+        cfg = cfg.replace(batch_size=args.batch_size)
+    if args.synthetic:
+        data, vocab = make_synthetic_split(cfg, num_dialogs=args.synthetic,
+                                           seed=cfg.seed + 1)
+    else:
+        data, vocab = load_split(cfg.data_dir, args.split)
+    if vocab.size != cfg.vocab_size:
+        raise SystemExit(f"checkpoint/vocab mismatch: the checkpoint has "
+                         f"vocab_size {cfg.vocab_size}, the data {vocab.size}")
+    with open(args.dense_json) as f:
+        dense = json.load(f)
+
+    loader = DenseLoader(data, vocab, cfg, dense)
+    if len(loader) == 0:
+        raise SystemExit("no usable dense annotations for this split")
+    # fresh optimizer over the new objective; keep the trained params
+    state = TrainState(params, init_opt_state(params, cfg),
+                       torch.Generator().manual_seed(args.seed))
+
+    def emit(event: str, **kw) -> None:
+        print(json.dumps({"event": event, **kw}), flush=True)
+
+    before = ndcg_on_entries(state.params, data, vocab, cfg, device, dense)
+    emit("ndcg", step=0, **before)
+
+    step, epoch, t0 = 0, 0, time.time()
+    losses: list[float] = []
+    buf: list = []      # device scalars; read back only at flush points
+
+    def flush():
+        # one stacked readback per flush, not one per step
+        if not buf:
+            return
+        vals = torch.stack([torch.stack([m["loss"].float(),
+                                         m["grad_norm"].float()])
+                            for m in buf]).cpu()                 # (n, 2)
+        for m, (loss, gnorm) in zip(buf, vals.tolist()):
+            losses.append(loss)
+            emit("finetune", step=m["step"], loss=loss, lr=float(m["lr"]),
+                 grad_norm=gnorm)
+        buf.clear()
+
+    while step < args.steps:
+        for batch in loader.epoch(seed=args.seed + epoch):
+            state, m = train_step(state, batch_to_device(batch, device), cfg,
+                                  loss_fn=model_dense_loss)
+            step += 1
+            buf.append({**m, "step": step})
+            if step % args.log_every == 0 or step >= args.steps:
+                flush()
+            if args.eval_every and step % args.eval_every == 0:
+                flush()
+                emit("ndcg", step=step, **ndcg_on_entries(
+                    state.params, data, vocab, cfg, device, dense))
+            if step >= args.steps:
+                break
+        epoch += 1
+    flush()
+
+    after = ndcg_on_entries(state.params, data, vocab, cfg, device, dense)
+    emit("ndcg", step=step, **after)
+    path = save_checkpoint(f"{args.save_path}/{args.run_name}", state, cfg)
+    emit("checkpoint", step=step, path=path, seconds=time.time() - t0)
+    return {"ndcg_before": before["ndcg"], "ndcg_after": after["ndcg"],
+            "first_loss": losses[0] if losses else None,
+            "last_loss": losses[-1] if losses else None,
+            "steps": step, "checkpoint": path}
+
+
+if __name__ == "__main__":
+    main()

@@ -74,6 +74,17 @@ def model_loss(params, batch, cfg: Config, *, train: bool = True,
     masks again: checkpoint's preserve_rng_state restores only the default
     generators, never an explicit one, so it is not relied on (and off)."""
     impl = impl or _impl(cfg, batch["ques"].device)
+    joint, dec_gen = _train_encode(params, batch, cfg, train, gen, impl)
+    loss_fn = gen_loss if cfg.decoder == "gen" else disc_loss
+    return loss_fn(params["decoder"], params["embed"], joint, batch, cfg,
+                   train=train, gen=dec_gen, impl=impl)
+
+
+def _train_encode(params, batch, cfg: Config, train: bool,
+                  gen: torch.Generator | None, impl: str):
+    """The encoder of a training loss: (joint (N, H), the decoder's dropout
+    generator or None).  Two seeds come from `gen` in train mode; with
+    cfg.remat the encoder is checkpointed and recomputed from its seed."""
     device = batch["ques"].device
     enc_seed = dec_seed = None
     if train and gen is not None:
@@ -88,9 +99,39 @@ def model_loss(params, batch, cfg: Config, *, train: bool = True,
                            use_reentrant=False, preserve_rng_state=False)
     else:
         joint = encode(params["encoder"], params["embed"])
-    loss_fn = gen_loss if cfg.decoder == "gen" else disc_loss
-    return loss_fn(params["decoder"], params["embed"], joint, batch, cfg,
-                     train=train, gen=seeded(dec_seed, device), impl=impl)
+    return joint, seeded(dec_seed, device)
+
+
+def model_dense_loss(params, batch, cfg: Config, *, train: bool = True,
+                     gen: torch.Generator | None = None,
+                     impl: str | None = None) -> torch.Tensor:
+    """v1.0 dense-annotation fine-tuning loss of the disc decoder
+    (model.py::model_dense_loss): cross-entropy between the softmax of the
+    annotated round's 100 candidate scores (disc_scores over the B x K
+    dense_opt rows) and the normalized gt_relevance, over the rows with
+    dense_valid set and any relevance.  Dropout seeds and remat as in
+    model_loss.
+
+    Batch fields beyond the encoder inputs (data/loader.py::DenseLoader):
+    dense_opt (B, K, La), dense_round (B,), dense_rel (B, K) raw relevance,
+    dense_valid (B,)."""
+    if cfg.decoder != "disc":
+        raise ValueError("dense fine-tuning targets disc scores")
+    impl = impl or _impl(cfg, batch["ques"].device)
+    joint, dec_gen = _train_encode(params, batch, cfg, train, gen, impl)
+    B = batch["dense_rel"].shape[0]
+    joint = joint.reshape(B, cfg.num_rounds, -1)
+    joint_sel = joint[torch.arange(B, device=joint.device),
+                      batch["dense_round"].long()]                 # (B, H)
+    scores = disc_scores(params["decoder"], params["embed"], joint_sel,
+                         batch["dense_opt"], cfg, train=train, gen=dec_gen,
+                         impl=impl)                                # (B, K)
+    rel = batch["dense_rel"].float()
+    total = rel.sum(dim=-1, keepdim=True)
+    target = rel / total.clamp(min=1e-9)
+    ce = -(target * torch.log_softmax(scores, dim=-1)).sum(dim=-1)
+    v = batch["dense_valid"].float() * (total[:, 0] > 0).float()
+    return (ce * v).sum() / v.sum().clamp(min=1.0)
 
 
 def model_scores(params, batch, cfg: Config, *, impl: str | None = None):

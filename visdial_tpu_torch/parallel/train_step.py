@@ -38,20 +38,24 @@ def init_train_state(cfg: Config, device="cpu", seed: int | None = None) -> Trai
 
 
 def loss_and_grads(params: dict, batch: dict, cfg: Config,
-                   gen: torch.Generator | None, impl: str | None = None):
-    """(loss, grads) of model_loss in train mode; grads mirror params."""
+                   gen: torch.Generator | None, impl: str | None = None,
+                   loss_fn=model_loss):
+    """(loss, grads) of loss_fn (model_loss, or models/model.py::
+    model_dense_loss for dense fine-tuning) in train mode; grads mirror
+    params."""
     flat = {k: v.detach().requires_grad_() for k, v in flatten(params).items()}
-    loss = model_loss(unflatten(flat), batch, cfg, train=True, gen=gen,
-                      impl=impl)
+    loss = loss_fn(unflatten(flat), batch, cfg, train=True, gen=gen,
+                   impl=impl)
     grads = torch.autograd.grad(loss, list(flat.values()))
     return loss.detach(), unflatten(dict(zip(flat, grads)))
 
 
 def train_step(state: TrainState, batch: dict, cfg: Config,
-               impl: str | None = None):
-    """One optimizer step.  Returns (new_state, metrics): loss, lr,
-    grad_norm (device tensors or floats) and step."""
-    loss, grads = loss_and_grads(state.params, batch, cfg, state.gen, impl)
+               impl: str | None = None, loss_fn=model_loss):
+    """One optimizer step of loss_fn.  Returns (new_state, metrics): loss,
+    lr, grad_norm (device tensors or floats) and step."""
+    loss, grads = loss_and_grads(state.params, batch, cfg, state.gen, impl,
+                                 loss_fn)
     lr = lr_at_step(state.opt.step, cfg)
     params, opt, gnorm = apply_updates(state.params, grads, state.opt, lr, cfg)
     metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm, "step": opt.step}
@@ -59,7 +63,7 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
 
 
 def multi_train_step(state: TrainState, batches: dict, cfg: Config,
-                     impl: str | None = None):
+                     impl: str | None = None, loss_fn=model_loss):
     """G optimizer steps in one call over a stack of G batches (leading
     axis of every array), the counterpart of the JAX lax.scan.  Returns
     (state, metrics) with every metric stacked to (G,)."""
@@ -67,7 +71,7 @@ def multi_train_step(state: TrainState, batches: dict, cfg: Config,
     rows = []
     for g in range(G):
         state, m = train_step(state, {k: v[g] for k, v in batches.items()},
-                              cfg, impl)
+                              cfg, impl, loss_fn)
         rows.append(m)
     metrics = {
         "loss": torch.stack([m["loss"] for m in rows]),

@@ -70,8 +70,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "metrics/eval/checkpoint cadences quantize to group "
                         "boundaries)")
     p.add_argument("--eval_resident", type=_flag_bool, default=True,
-                   help="accepted for the JAX CLI's surface; the resident "
-                        "eval is not ported (ROADMAP.md, M8): eval streams")
+                   help="run the periodic eval with the split's batches "
+                        "resident on the device (up to 2 GiB of stacks, "
+                        "else it streams)")
     p.add_argument("--debug_nans", action="store_true",
                    help="torch.autograd.set_detect_anomaly: raise with a "
                         "traceback at the op that makes a NaN in the backward")
@@ -124,10 +125,6 @@ def main(argv=None) -> dict:
         log.log({"event": "notice",
                  "msg": "mesh_data/mesh_model: multi-device training is not "
                         "ported (ROADMAP.md, M10); training on one device"})
-    if args.eval_resident:
-        log.log({"event": "notice",
-                 "msg": "eval_resident: the resident eval is not ported "
-                        "(ROADMAP.md, M8); periodic eval streams batches"})
     if args.resume and (path := latest_checkpoint(ckpt_dir)):
         state, cfg_saved, _ = load_train_state(path, device)
         if diffs := resume_config_mismatches(cfg_saved, cfg):
@@ -258,7 +255,8 @@ def main(argv=None) -> dict:
             if crossed(eval_every, prev) or step >= max_steps:
                 flush_losses()
                 metrics = evaluate_split(state.params, val_data, vocab, cfg,
-                                         device)
+                                         device, resident=args.eval_resident,
+                                         resident_max_bytes=2 << 30)
                 last_eval = metrics
                 log.log({"event": "eval", "step": step, **metrics})
             if crossed(save_every, prev) or step >= max_steps:
