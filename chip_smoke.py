@@ -26,9 +26,14 @@ dialogs; the train CLI for both decoders with a resume; the evaluate CLI on
 the train CLI's checkpoint with the v1.0 rankings dump; dense fine-tuning of
 that checkpoint (kernel step against plain, 20 steps, the finetune CLI);
 the generate CLI on the gen checkpoint (greedy, beam 5, a test-style
-split); and the sweep CLI over MN-QIH x {disc, gen}.  Each path must have
-gone through its kernels and agree with a run of the plain versions on the
-same card.
+split); the sweep CLI over MN-QIH x {disc, gen}; the mesh step
+(parallel/mesh.py) in a world-1 NCCL group, MN-QIH-disc and -gen bit for
+bit equal to train_step, then the train CLI under that group (and, with
+two cards, two NCCL ranks against one device); K5 and K6 on 2 and 4 vocab
+shards combined as the model axis combines them; the verify gate at
+flagship shapes; and VGG-16 (card against CPU, images/s in f32 and bf16,
+the prepro_img CLI).  Each path must have gone through its kernels and
+agree with a run of the plain versions on the same card.
 
 Each phase prints one JSON line.  Then come the raw nvidia-smi line (card
 name, power limit), the kernel summary line (each kernel's launches on its
@@ -122,6 +127,16 @@ EVAL_DIALOGS, EVAL_REPS = 256, 3
 FT_DIALOGS, FT_STEPS, FT_LR = 64, 20, 0.02
 # generate: the dialogs of --synthetic the CLI decodes (two batches)
 GEN_DIALOGS = 64
+# ddp: mesh steps a decoder, held bit for bit to train_step's
+DDP_STEPS = 5
+# vocab_shards: d-logits and dx of the combined shards against the whole
+# vocab's, relative to the largest |value| (the shards' logsumexp differs
+# from the whole vocab's by f32 rounding only)
+SHARD_RTOL = 1e-5
+# vgg16: the prepro_img CLI's images (a full batch of 64 and a padded one),
+# and fc7 / pool5 on the card (cuDNN, TF32 off) against the CPU, relative
+# to the largest |value| (f32 sums in another order over 15 layers)
+VGG_IMAGES, VGG_RTOL = 96, 1e-4
 # where the CLI phases write their checkpoints and outputs (git-ignored)
 SMOKE_DIR = os.path.join(ROOT, "build", "visdial_tpu_torch")
 # the other encoder families (label, encoder, flagship_setup options), each
@@ -964,6 +979,23 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
+def first_step_errs(pk, gk, pp, gp, lr, cfg) -> tuple[float, float, float]:
+    """Two first optimizer steps from the same state, as {path: tensor} of
+    their new params (pk, pp) and clipped gradients (gk, gp): (the largest
+    gradient rel err of a leaf, the largest param abs err, how far the
+    param err exceeds its bound).  Adam's first update lr*g/(|g| + eps)
+    moves by at most lr/eps times a change of g, so the params are held to
+    that bound, element-wise."""
+    grad_err = max(rel_err([gk[k]], [gp[k]]) for k in gp)
+    param_err, param_excess = 0.0, 0.0
+    for k in pp:
+        d = (pk[k] - pp[k]).abs()
+        bound = lr / cfg.adam_eps * (gk[k] - gp[k]).abs() + 1e-6
+        param_err = max(param_err, float(d.max()))
+        param_excess = max(param_excess, float((d - bound).max()))
+    return grad_err, param_err, param_excess
+
+
 def compare_steps(cfg, state0, batch, seed: int, loss_fn=None) -> dict:
     """One train_step and the gradients of loss_fn (default model_loss) on
     the kernel path and the plain path from the same params, batch and
@@ -989,16 +1021,8 @@ def compare_steps(cfg, state0, batch, seed: int, loss_fn=None) -> dict:
     (pk, mk, gk), (pp, mp, gp) = out["cuda"], out["plain"]
     loss_err = abs(float(mk["loss"]) - float(mp["loss"]))
     gnorm_err = abs(float(mk["grad_norm"]) / float(mp["grad_norm"]) - 1)
-    grad_err = max(rel_err([gk[k]], [gp[k]]) for k in gp)
-    # Adam's first update lr*g/(|g| + eps) moves by at most lr/eps times a
-    # change of g, so the params are held to that bound, element-wise
-    lr = mk["lr"]
-    param_err, param_excess = 0.0, 0.0
-    for k in pp:
-        d = (pk[k] - pp[k]).abs()
-        bound = lr / cfg.adam_eps * (gk[k] - gp[k]).abs() + 1e-6
-        param_err = max(param_err, float(d.max()))
-        param_excess = max(param_excess, float((d - bound).max()))
+    grad_err, param_err, param_excess = first_step_errs(pk, gk, pp, gp,
+                                                        mk["lr"], cfg)
     check(bool(torch.isfinite(mk["loss"])), "train_step loss non-finite")
     check(loss_err <= LOSS_TOL and gnorm_err <= GNORM_RTOL
           and grad_err <= TRAIN_GRAD_TOL and param_excess <= 0.0,
@@ -1875,6 +1899,384 @@ def serve_cli(params, cfg) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# the mesh, the vocab shards, the verify gate and VGG-16
+# ---------------------------------------------------------------------------
+
+def _first_step(state, batch, cfg, mesh=None):
+    """(flat clipped gradients, flat params after one train_step) of one
+    step from `state` (copied, not advanced), at generator seed 1."""
+    from visdial_tpu_torch.parallel.optim import clip_by_global_norm
+    from visdial_tpu_torch.parallel.train_step import (TrainState,
+                                                       loss_and_grads,
+                                                       train_step)
+    from visdial_tpu_torch.utils.params import flatten
+
+    _, grads = loss_and_grads(state.params, batch, cfg,
+                              torch.Generator().manual_seed(1), mesh=mesh)
+    grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+    st = TrainState(state.params, state.opt, torch.Generator().manual_seed(1))
+    new, m = train_step(st, batch, cfg, mesh=mesh)
+    return flatten(grads), flatten(new.params), m["lr"]
+
+
+def _ddp_rank(rank: int, steps: int) -> dict:
+    """One rank of a 2-card NCCL world (run_ranks): `steps` mesh steps of
+    MN-QIH-disc on its shard of the flagship batches, and rank 0 holding
+    them against one device on the global batches: per step the loss and
+    grad norm; the first step's gradients and params to compare_steps'
+    limits (first_step_errs); the final params' largest difference."""
+    from visdial_tpu_torch.parallel.mesh import make_mesh
+    from visdial_tpu_torch.parallel.train_step import (shard_train_state,
+                                                       train_step)
+    from visdial_tpu_torch.profile_train import flagship_setup
+    from visdial_tpu_torch.utils.params import flatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(2, 1, "cuda")
+    cfg, batches, state = flagship_setup(mesh.device, steps,
+                                         shard=mesh.data_shard)
+    state = shard_train_state(state, cfg, mesh)
+    g2, p2, lr = _first_step(state, batches[0], cfg, mesh)
+    out = []
+    for b in batches:
+        state, m = train_step(state, b, cfg, mesh=mesh)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    if not mesh.is_main:
+        return {}
+    cfg, batches, one = flagship_setup(mesh.device, steps)
+    g1, p1, _ = _first_step(one, batches[0], cfg)
+    grad_err, param_err, param_excess = first_step_errs(p2, g2, p1, g1, lr,
+                                                        cfg)
+    want = []
+    for b in batches:
+        one, m = train_step(one, b, cfg)
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    pm, p1 = flatten(state.params), flatten(one.params)
+    return {"steps": out, "want": want, "grad_max_rel_err": grad_err,
+            "first_param_max_abs_err": param_err,
+            "first_param_excess": param_excess,
+            "param_max_abs_err": max(float((pm[k] - p1[k]).abs().max())
+                                     for k in p1)}
+
+
+def ddp(dev) -> dict:
+    """The mesh step (parallel/train_step.py) in a world-1 NCCL group made
+    in this process: DDP_STEPS MN-QIH-disc and -gen steps bit for bit
+    equal to the one-device train_step on the same batches at dropout 0
+    (every collective of a world of one is the identity), then the train
+    CLI with --mesh_data 1 under that group; with two cards, 2 NCCL ranks
+    against one device on the same global batches, to compare_steps' f32
+    limits."""
+    import torch.distributed as dist
+
+    from visdial_tpu_torch import train as train_cli_mod
+    from visdial_tpu_torch.parallel.launch import free_port, run_ranks
+    from visdial_tpu_torch.parallel.mesh import make_mesh
+    from visdial_tpu_torch.parallel.train_step import (TrainState,
+                                                       shard_train_state,
+                                                       train_step)
+    from visdial_tpu_torch.profile_train import flagship_setup
+    from visdial_tpu_torch.utils.params import flatten
+
+    os.environ.update({"MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(free_port())})
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    row = {"phase": "ddp", "steps": DDP_STEPS}
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        setups = {d: flagship_setup(dev, DDP_STEPS, decoder=d)
+                  for d in ("disc", "gen")}
+
+        def run(decoder, mesh_or_none):
+            cfg, batches, state0 = setups[decoder]
+            state = TrainState(state0.params, state0.opt,
+                               torch.Generator().manual_seed(1))
+            if mesh_or_none is not None:
+                state = shard_train_state(state, cfg, mesh_or_none)
+            metrics, times = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = train_step(state, b, cfg, mesh=mesh_or_none)
+                metrics.append((m["loss"].clone(), m["grad_norm"].clone()))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return state, metrics, statistics.median(times)
+
+        single = {d: run(d, None) for d in setups}
+        reset_launches()
+        meshed = {d: run(d, mesh) for d in setups}
+        launches = kernel_launches()
+        for d in setups:
+            (s1, m1, ms1), (sm, mm, msm) = single[d], meshed[d]
+            p1, pm = flatten(s1.params), flatten(sm.params)
+            same = (all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                        for a, b in zip(m1, mm))
+                    and all(torch.equal(p1[k], pm[k]) for k in p1))
+            check(same, f"ddp {d}: the world-1 mesh step differs from "
+                  f"train_step: losses {[float(a[0]) for a in m1]} vs "
+                  f"{[float(a[0]) for a in mm]}")
+            row[d] = {"bitwise_equal": same,
+                      "losses": [float(a[0]) for a in mm],
+                      "step_ms": msm, "train_step_ms": ms1,
+                      "overhead": msm / ms1 - 1}
+        cfg = setups["disc"][0]
+        check_launches(launches, cfg.replace(decoder="gen"), True, "ddp")
+        row["launches"] = launches
+        # the train CLI on the mesh, in this process and group
+        save = os.path.join(SMOKE_DIR, "smoke_ddp")
+        shutil.rmtree(save, ignore_errors=True)
+        _, events = run_cli(train_cli_mod.main, [
+            "--synthetic", "64", "--encoder", "mn-ques-im-hist",
+            "--mesh_data", "1", "--max_steps", "2", "--eval_every", "2",
+            "--save_every", "2", "--log_every", "1", "--save_path", save,
+            "--run_name", "ddp"])
+        kinds = [e["event"] for e in events]
+        config = next(e for e in events if e["event"] == "config")
+        trains = [e for e in events if e["event"] == "train"]
+        check(config["devices"] == 1 and config["mesh_data"] == 1
+              and {"train", "eval", "checkpoint", "done"} <= set(kinds)
+              and all(e["rounds_per_sec_per_chip"] == e["rounds_per_sec"]
+                      for e in trains),
+              f"ddp train CLI events: {kinds}")
+        row["cli_losses"] = [e["loss"] for e in trains]
+        row["cli_mrr"] = next(e for e in events if e["event"] == "eval")["mrr"]
+    finally:
+        dist.destroy_process_group()
+    ranks = 1
+    if torch.cuda.device_count() >= 2:
+        ranks = 2
+        got = run_ranks(_ddp_rank, 2, DDP_STEPS, timeout=600)[0]
+        for (l2, n2), (l1, n1) in zip(got["steps"], got["want"]):
+            check(abs(l2 - l1) <= LOSS_TOL and abs(n2 / n1 - 1) <= GNORM_RTOL,
+                  f"ddp 2 ranks: loss {l2} vs {l1}, grad_norm {n2} vs {n1}")
+        check(got["grad_max_rel_err"] <= TRAIN_GRAD_TOL
+              and got["first_param_excess"] <= 0.0,
+              f"ddp 2 ranks, first step against one device: grad rel err "
+              f"{got['grad_max_rel_err']} (tol {TRAIN_GRAD_TOL}), param err "
+              f"{got['first_param_max_abs_err']} exceeding its bound by "
+              f"{got['first_param_excess']}")
+        row.update({"two_rank_losses": [l for l, _ in got["steps"]],
+                    "two_rank_grad_max_rel_err": got["grad_max_rel_err"],
+                    "two_rank_first_param_max_abs_err":
+                        got["first_param_max_abs_err"],
+                    "two_rank_param_max_abs_err": got["param_max_abs_err"]})
+    row["ddp_ranks"] = ranks
+    emit(row)
+    return row
+
+
+def vocab_shards(dev, gen) -> dict:
+    """K5 and K6 on M column shards of the flagship LM head (2,880 rows, H
+    512): M = 2 and 4 of V 8,804 and M = 2 of V 8,806 (shards of an odd
+    4,403 columns), targets re-based to each shard and -1 outside it,
+    combined in this process as the model axis combines them
+    (ops/lm_loss.py), against the whole-vocab kernels and the plain
+    versions: logp, lse, d-logits and dx = sum of the shards'."""
+    from visdial_tpu_torch.ops.lm_loss import combine_shards, target_logit
+    from visdial_tpu_torch.ops.lm_score import (lm_dlogits_plain,
+                                                lm_token_logprobs_lse_plain)
+    from visdial_tpu_torch.ops.lm_score_cuda import (lm_dlogits,
+                                                     lm_token_logprobs_lse)
+    from visdial_tpu_torch.parallel.mesh import VocabShard
+
+    NT, H, _ = LM_HEAD
+    rows, errs = [], {}
+    whole = {}
+    for V in (8804, 8806):
+        x = torch.tanh(torch.randn(NT, H, generator=gen)).to(dev)
+        w = (torch.randn(H, V, generator=gen) * 0.1).to(dev)
+        b = (torch.randn(V, generator=gen) * 0.1).to(dev)
+        tgt = torch.randint(0, V, (NT,), generator=gen)
+        tgt[::4] = 0
+        g = torch.randn(NT, generator=gen)
+        g[tgt == 0] = 0.0
+        tgt, g = tgt.to(dev), g.to(dev)
+        # the references, outside the counted run
+        wl, wse = lm_token_logprobs_lse(x, w, b, tgt)
+        wd = lm_dlogits(x, w, b, tgt, wse, g).float()
+        pl, pse = lm_token_logprobs_lse_plain(x, w, b, tgt)
+        pd = lm_dlogits_plain(x, w, b, tgt, pse, g).float()
+        whole[V] = (x, w, b, tgt, g, (wl, wse, wd, wd @ w.T),
+                    (pl, pse, pd, pd @ w.T))
+    reset_launches()
+    outs = {}
+    for V, M in ((8804, 2), (8804, 4), (8806, 2)):
+        x, w, b, tgt, g, _, _ = whole[V]
+        parts = []
+        for m in range(M):
+            shard = VocabShard(m, M, V // M, None)
+            cols = slice(shard.lo, shard.lo + shard.size)
+            local = shard.local_ids(tgt)
+            ws, bs = w[:, cols].contiguous(), b[cols].contiguous()
+            logp, lse = lm_token_logprobs_lse(x, ws, bs, local)
+            parts.append((ws, bs, local, lse, target_logit(logp, lse, local)))
+        logp, lse = combine_shards(torch.stack([p[3] for p in parts]),
+                                   torch.stack([p[4] for p in parts]))
+        dlog = [lm_dlogits(x, ws, bs, local, lse, g).float()
+                for ws, bs, local, _, _ in parts]
+        dx = sum(d @ p[0].T for d, p in zip(dlog, parts))
+        outs[(V, M)] = (logp, lse, torch.cat(dlog, dim=1), dx)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    check(launches["lm_score"] == 8 and launches["lm_dlogits"] == 8,
+          f"vocab_shards launches {launches}")
+    for (V, M), got in outs.items():
+        *_, kern, plain = whole[V]
+        tol = LM_TOL * max(1.0, float(kern[0].abs().max()))
+        row = {"V": V, "shards": M, "shard_cols": V // M}
+        for ref_name, ref in (("kernel", kern), ("plain", plain)):
+            e_lp = abs_err(got[:2], ref[:2])
+            e_d = rel_err([got[2]], [ref[2]])
+            e_dx = rel_err([got[3]], [ref[3]])
+            row[f"vs_{ref_name}"] = {"logp_lse_max_abs_err": e_lp,
+                                     "dlogits_max_rel_err": e_d,
+                                     "dx_max_rel_err": e_dx}
+            check(e_lp <= tol and e_d <= SHARD_RTOL and e_dx <= SHARD_RTOL,
+                  f"vocab_shards V {V} M {M} vs {ref_name}: logp/lse err "
+                  f"{e_lp} (tol {tol}), d-logits {e_d}, dx {e_dx} (tol "
+                  f"{SHARD_RTOL})")
+        rows.append(row)
+    # the shard route's time: K5 and K6 on one of two shards at the head
+    x, w, b, tgt, g, _, _ = whole[8804]
+    shard = VocabShard(0, 2, 4402, None)
+    ws, bs = w[:, :4402].contiguous(), b[:4402].contiguous()
+    local = shard.local_ids(tgt)
+    lse = lm_token_logprobs_lse(x, ws, bs, local)[1]
+    timing = {"shape": [NT, H, 4402],
+              "lm_score_ms": time_ms(lambda: lm_token_logprobs_lse(x, ws, bs, local)),
+              "lm_dlogits_ms": time_ms(lambda: lm_dlogits(x, ws, bs, local, lse, g)),
+              "lm_score_plain_ms": time_ms(
+                  lambda: lm_token_logprobs_lse_plain(x, ws, bs, local)),
+              "lm_dlogits_plain_ms": time_ms(
+                  lambda: lm_dlogits_plain(x, ws, bs, local, lse, g)),
+              "lm_score_bound": lm_bound(NT, H, 4402, "float32"),
+              "lm_dlogits_bound": lm_bound(NT, H, 4402, "float32", dlogits=True)}
+    row = {"phase": "vocab_shards", "cases": rows, "launches": launches,
+           "half_shard": timing, "tol_rel": SHARD_RTOL}
+    emit(row)
+    return row
+
+
+def verify_phase() -> dict:
+    """visdial_tpu_torch.verify.main(["--scale", "flagship"]) in this
+    process: every check ok; each check's max_rel_err beside its rel_tol."""
+    from visdial_tpu_torch import verify
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, lines = run_cli(verify.main, ["--scale", "flagship"])
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    res = lines[-1]
+    check(rc == 0 and res["ok"] and len(res["checks"]) == 22,
+          "verify: failing checks "
+          + str([c for c in res["checks"] if not c["ok"]]))
+    check(all(n > 0 for n in launches.values()),
+          f"verify launches {launches}")
+    row = {"phase": "verify", "ok": res["ok"], "scale": res["scale"],
+           "device_name": res["device_name"], "seconds": seconds,
+           "launches": launches,
+           "checks": {c["name"]: [c["max_rel_err"], c["rel_tol"]]
+                      for c in res["checks"]}}
+    emit(row)
+    return row
+
+
+def vgg16_phase(dev) -> dict:
+    """VGG-16 (models/vgg16.py) with He-scaled random weights from a seed,
+    written in the JAX layout: apply on the card (f32, TF32 off) against
+    the same function on the CPU for 4 images; images/s at batch 64 in f32
+    and bf16 beside the FLOP bound; the prepro_img CLI over 96 seeded
+    images (batch 64: the tail batch pads), its rows equal to apply's."""
+    import numpy as np
+
+    from visdial_tpu_torch.data import prepro_img
+    from visdial_tpu_torch.models import vgg16
+
+    root = os.path.join(SMOKE_DIR, "smoke_vgg16")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    weights = os.path.join(root, "vgg16.npz")
+    vgg16.save_params(vgg16.init_params(torch.Generator().manual_seed(0),
+                                        he=True), weights)
+    images = np.random.default_rng(0).integers(0, 256, (VGG_IMAGES, 224, 224, 3),
+                                               dtype=np.uint8)
+    x = torch.from_numpy(vgg16.preprocess(images, origin="torchvision"))
+    p_dev = vgg16.load_params(weights, torch.float32, dev)
+    got = vgg16.apply(p_dev, x[:4].to(dev))
+    want = vgg16.apply(vgg16.load_params(weights), x[:4])
+    errs = {k: rel_err([got[k].cpu()], [want[k]]) for k in ("fc7", "pool5")}
+    live = float((want["fc7"] > 0).float().mean())
+    check(max(errs.values()) <= VGG_RTOL and live > 0.2,
+          f"vgg16 card vs CPU: rel errs {errs} (tol {VGG_RTOL}), fc7 "
+          f"non-zero share {live}")
+    flop, n_params = vgg_counts()
+    rates = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        params = p_dev if dt == torch.float32 else vgg16.load_params(
+            weights, dt, dev)
+        xb = x[:64].to(dev)
+        ms = time_ms(lambda: vgg16.apply(params, xb), reps=5)
+        # bytes: the images in, the weights, fc7 and pool5 out
+        nbytes = 64 * 224 * 224 * 3 * 4 + n_params * SIZE[name] + 64 * (
+            4096 * 4 + 7 * 7 * 512 * SIZE[name])
+        rates[name] = {"batch": 64, "ms": ms, "images_per_s": 64 / ms * 1e3,
+                       **bound(64 * flop, nbytes, name)}
+        del params
+    split = os.path.join(root, "visdial_data_val.npz")
+    np.savez(split, img_ids=np.arange(VGG_IMAGES))
+    npz = os.path.join(root, "images.npz")
+    np.savez(npz, images=images)
+    out = os.path.join(root, "feats.npz")
+    t0 = time.perf_counter()
+    run_cli(prepro_img.main, ["--split_npz", split, "--weights", weights,
+                              "--images_npz", npz, "--out", out,
+                              "--save_pool5", "--batch_size", "64"])
+    cli_s = time.perf_counter() - t0
+    with np.load(out) as z:
+        keys, fc7, pool5 = sorted(z.files), z["images_val"], z["pool5_val"]
+    same = True
+    for s in range(0, VGG_IMAGES, 64):
+        xb = x[s:s + 64]
+        n = len(xb)
+        xb = torch.nn.functional.pad(xb, (0, 0, 0, 0, 0, 0, 0, 64 - n))
+        ref = vgg16.apply(p_dev, xb.to(dev))
+        same &= bool(np.array_equal(fc7[s:s + n], ref["fc7"][:n].cpu().numpy())
+                     and np.array_equal(pool5[s:s + n],
+                                        ref["pool5"][:n].cpu().numpy()))
+    check(keys == ["images_val", "pool5_val"]
+          and fc7.shape == (VGG_IMAGES, 4096)
+          and pool5.shape == (VGG_IMAGES, 7, 7, 512) and same,
+          f"prepro_img CLI: keys {keys}, fc7 {fc7.shape}, pool5 "
+          f"{pool5.shape}, rows equal to apply's: {same}")
+    row = {"phase": "vgg16", "card_vs_cpu_rel_err": errs,
+           "fc7_nonzero_share": live, "tol": VGG_RTOL, "flop_per_image": flop,
+           "rates": rates, "cli_images": VGG_IMAGES, "cli_seconds": cli_s,
+           "cli_rows_equal_apply": same}
+    emit(row)
+    return row
+
+
+def vgg_counts() -> tuple[float, int]:
+    """(operations of one 224 x 224 image through VGG-16, 2 per
+    multiply-add of the 13 convolutions and two fc layers; its weights)."""
+    from visdial_tpu_torch.models.vgg16 import _CFG
+
+    ops, side, ch, n = 0.0, 224, 3, 0
+    for item in _CFG:
+        if item == "M":
+            side //= 2
+        else:
+            ops += 2.0 * side * side * 9 * ch * item[1]
+            n += 9 * ch * item[1] + item[1]
+            ch = item[1]
+    fc = 7 * 7 * 512 * 4096 + 4096 * 4096
+    return ops + 2.0 * fc, n + fc + 2 * 4096
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False — this "
@@ -1931,6 +2333,10 @@ def main() -> None:
     tuned = timed("finetune", finetune, dev)
     generated = timed("generate", generate, dev)
     swept = timed("sweep", sweep, dev)
+    meshed = timed("ddp", ddp, dev)
+    sharded = timed("vocab_shards", vocab_shards, dev, gen)
+    verified = timed("verify", verify_phase)
+    timed("vgg16", vgg16_phase, dev)
     emit({"phase": "wall_seconds", **walls, "total": sum(walls.values())})
 
     # launches: each kernel's count from the run of the main path it is
@@ -1953,7 +2359,10 @@ def main() -> None:
     by_path.update({"finetune": tuned["launches"],
                     "finetune_cli": tuned["cli_launches"],
                     "generate": generated["launches"],
-                    "sweep": swept["launches"]})
+                    "sweep": swept["launches"],
+                    "ddp": meshed["launches"],
+                    "vocab_shards": sharded["launches"],
+                    "verify": verified["launches"]})
 
     def head_row(rows, shape, **match):
         return next(r for r in rows if r["shape"] == shape

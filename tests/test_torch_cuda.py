@@ -340,6 +340,36 @@ def test_lm_score_kernels_match_plain(dev, NT, H, V, dtype):
     assert not dl[cot.to(dev) == 0].any()            # g = 0 rows: no NaN
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("NT,H,V", [(257, 520, 4402), (130, 48, 1031)])
+def test_lm_kernels_take_out_of_shard_targets(dev, NT, H, V, dtype):
+    """A target outside [0, V) -- -1, or V and up to the last padded vocab
+    tile and beyond, as a vocab shard of the model axis gives the targets
+    of the other shards -- has no target logit in K5 (logp = -lse) and no
+    one-hot term in K6, as in the plain versions; the in-range rows are
+    unchanged."""
+    x, w, b, tgt, cot = _lm_case(NT, H, V, dtype)
+    tgt[1::3] = -1
+    tgt[2::7] = V
+    tgt[3::11] = V + 5          # inside the last 128-column tile's padding
+    tgt[4::13] = 10 * V
+    args = [t.to(dev) for t in (x, w, b, tgt)]
+    lp, lse = lm_token_logprobs_lse(*args)
+    want_lp, want_lse = lm_token_logprobs_lse_plain(*args)
+    out = (tgt < 0) | (tgt >= V)
+    scale = max(1.0, float(want_lp.abs().max()))
+    assert float((lp - want_lp).abs().max()) <= 1e-5 * scale
+    assert float((lse - want_lse).abs().max()) <= 1e-5 * scale
+    assert torch.equal(lp[out.to(dev)], -lse[out.to(dev)])
+    dl = lm_dlogits(*args, want_lse, cot.to(dev)).float()
+    want = lm_dlogits_plain(*args, want_lse, cot.to(dev)).float()
+    tol = TOL[dtype] * max(1e-3, float(want.abs().max()))
+    assert float((dl - want).abs().max()) <= tol
+    # no one-hot term: every entry of an out-of-shard row has the sign of -g
+    rows = out.to(dev) & (cot.to(dev) != 0)
+    assert bool((dl[rows] * cot.to(dev)[rows, None] <= 0).all())
+
+
 def _dlogits_ref(x, w, b, tgt, lse, g):
     """What K6 is held to (a copy of chip_smoke.py::dlogits_ref): its plain
     version in bf16, and in f32 the same formula evaluated in float64 and

@@ -212,7 +212,11 @@ def test_port_imports_no_jax_anywhere():
         "bad = sorted(m for m in sys.modules if m == 'visdial_tpu' "
         "or m.startswith('visdial_tpu.'))\n"
         "assert not bad, bad\n"
-        "assert 'visdial_tpu_torch.train' in mods and len(mods) > 15, mods\n")
+        "assert 'visdial_tpu_torch.train' in mods and len(mods) > 15, mods\n"
+        "new = {'visdial_tpu_torch.parallel.mesh', 'visdial_tpu_torch.verify',"
+        " 'visdial_tpu_torch.parallel.launch', 'visdial_tpu_torch.models.vgg16',"
+        " 'visdial_tpu_torch.data.prepro_img'}\n"
+        "assert new <= set(mods), new - set(mods)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

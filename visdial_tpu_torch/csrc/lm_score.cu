@@ -148,7 +148,11 @@ lm_score_partial_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = m0 + p.r + 8 * h;
-    tg[h] = row < NT ? tgt[row] : -1;
+    // a target outside [0, V) lies in another rank's vocab shard (the model
+    // axis re-bases targets to the shard and gives the rest -1): no target
+    // logit here, so tl stays 0 and logp = -lse
+    const int t = row < NT ? tgt[row] : -1;
+    tg[h] = t >= 0 && t < V ? t : -1;
     m[h] = kNeg;
     s[h] = 0.f;
     tl[h] = 0.f;
@@ -258,6 +262,8 @@ lm_dlogits_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int row = m0 + p.r + 8 * h;
     if (row >= NT) continue;
     const float l = lse[row], gi = g[row];
+    // a target outside [0, V) (another shard's) matches no stored column, so
+    // its row gets no one-hot term
     const int tg = tgt[row];
     T* out = dlog + (size_t)row * V;
 #pragma unroll
@@ -324,7 +330,8 @@ int launch_dlogits(const void* x, const void* w, const float* b, const int* tgt,
 // packed as ops/lm_score_cuda.py::pack_lm_weight packs it (Hp a whole number
 // of 128-byte k-tiles, zeros past H in both); b f32, padded with -1e30 to
 // whole 128-column vocab tiles; tgt (NT,) int32; part (splits, NT, 3) f32
-// scratch; logp and lse (NT,) f32.  The vocab's ceil(V / 128) tiles are cut
+// scratch; logp and lse (NT,) f32; a target outside [0, V) gives logp =
+// -lse (no target logit).  The vocab's ceil(V / 128) tiles are cut
 // into `splits` ranges of tiles_per_split tiles, none of them empty.
 // Returns a cudaError_t value.
 extern "C" int vd_lm_score(int dtype, const void* x, const void* w, const float* b,

@@ -383,6 +383,19 @@ class BatchAssembler:
 # iterators
 # ---------------------------------------------------------------------------
 
+def _shard_bounds(batch_size: int, shard: tuple[int, int] | None):
+    """[lo, hi) of data rank d's dialogs in a batch, shard = (d, data);
+    the whole batch for None.  The data axis must divide the batch."""
+    if shard is None:
+        return 0, batch_size
+    d, data = shard
+    if batch_size % data:
+        raise ValueError(f"batch_size {batch_size} is not divisible by the "
+                         f"data axis ({data})")
+    n = batch_size // data
+    return d * n, (d + 1) * n
+
+
 class TrainLoader:
     """Shuffled epoch iterator with background assembly (one step ahead).
 
@@ -404,10 +417,15 @@ class TrainLoader:
             else -(-self.n // config.batch_size)
         )
 
-    def epoch(self, seed: int) -> Iterator[Batch]:
+    def epoch(self, seed: int, shard: tuple[int, int] | None = None) -> Iterator[Batch]:
+        """The epoch's batches in the order seed draws.  shard=(d, data):
+        data rank d's contiguous batch_size / data dialogs of each global
+        batch, assembled on their own (so a deduplicated candidate layout
+        is the shard's), from the same permutation on every rank."""
         rng = np.random.default_rng(seed)
         order = rng.permutation(self.n)
         bs = self.cfg.batch_size
+        lo, hi = _shard_bounds(bs, shard)
         need_gen_opts = False  # training never scores options for gen
         need_opts = self.cfg.decoder == "disc"
         dedup = need_opts and self.cfg.disc_dedup_options
@@ -416,12 +434,16 @@ class TrainLoader:
             try:
                 for s in range(self.steps_per_epoch):
                     idx = order[s * bs : (s + 1) * bs]
-                    q.put(self.assembler.assemble(
-                        idx, with_options=need_opts,
-                        with_gen_options=need_gen_opts,
-                        dedup_options=dedup,
-                        pad_to=bs if not self.drop_remainder else None,
-                    ))
+                    # pad the global batch (a no-op under drop_remainder),
+                    # then take this rank's dialogs of it
+                    valid = np.arange(bs) < len(idx)
+                    idx = np.concatenate(
+                        [idx, np.repeat(idx[-1:], bs - len(idx))])
+                    batch = self.assembler.assemble(
+                        idx[lo:hi], with_options=need_opts,
+                        with_gen_options=need_gen_opts, dedup_options=dedup)
+                    batch.dialog_valid = valid[lo:hi].astype(np.int32)
+                    q.put(batch)
             finally:
                 q.put(None)
 
@@ -507,9 +529,12 @@ class DenseLoader:
     def __len__(self) -> int:
         return len(self.items)
 
-    def epoch(self, seed: int) -> Iterator[dict]:
+    def epoch(self, seed: int, shard: tuple[int, int] | None = None) -> Iterator[dict]:
+        """shard=(d, data): data rank d's contiguous dialogs of each padded
+        global batch, as TrainLoader.epoch."""
         d = self.data
         order = np.random.default_rng(seed).permutation(len(self.items))
+        lo, hi = _shard_bounds(self.bs, shard)
         for s in range(0, len(order), self.bs):
             take = order[s : s + self.bs]
             valid = np.ones(len(take), np.int32)
@@ -517,6 +542,7 @@ class DenseLoader:
                 pad = self.bs - len(take)
                 take = np.concatenate([take, np.repeat(take[-1:], pad)])
                 valid = np.concatenate([valid, np.zeros(pad, np.int32)])
+            take, valid = take[lo:hi], valid[lo:hi]
             idx = np.array([self.items[t][0] for t in take])
             rounds = np.array([self.items[t][1] for t in take], np.int32)
             rel = np.stack([self.items[t][2] for t in take])

@@ -1,6 +1,7 @@
 """Synthetic datasets for tests and benchmarks (the port's own copy of
-visdial_tpu/data/synthetic.py: make_synthetic_split, make_random_split and
-synthetic_vocab; the same arrays for the same seed, tests/test_torch_data.py).
+visdial_tpu/data/synthetic.py: make_synthetic_split, random_batch,
+make_random_split and synthetic_vocab; the same arrays for the same seed,
+tests/test_torch_data.py and tests/test_torch_verify.py).
 
 The reference has no test fixtures (SURVEY.md §4); this generator plays the
 role of the golden fixture: a deterministic, structured dataset small enough
@@ -114,6 +115,77 @@ def make_synthetic_split(
         img_ids=np.arange(N, dtype=np.int64),
     ).validate()
     return split, vocab
+
+
+def random_batch(cfg: Config, seed: int = 0, batch_size: int | None = None,
+                 full_lengths: bool = True) -> dict:
+    """Random model-ready batch arrays at the configured shapes.
+
+    For compile checks and throughput benchmarks only (no learnable
+    structure).  With full_lengths=True every sequence uses its maximum
+    length — the compute worst case, which is what a throughput number
+    should measure.  Includes every field any encoder/decoder pair reads;
+    unused fields are ignored by the model.
+    """
+    rng = np.random.default_rng(seed)
+    B = batch_size or cfg.batch_size
+    R, K = cfg.num_rounds, cfg.num_options
+    Lq, La = cfg.max_ques_len, cfg.max_ans_len
+    V = max(cfg.vocab_size, 5)
+
+    def toks(*shape):
+        return rng.integers(1, V - 3, size=shape).astype(np.int32)
+
+    ans = toks(B, R, La)
+    opt = toks(B, R, K, La)
+    start, end = V - 2, V - 1
+    ans_in = np.concatenate([np.full((B, R, 1), start, np.int32), ans], axis=-1)
+    ans_out = np.concatenate([ans, np.full((B, R, 1), end, np.int32)], axis=-1)
+    opt_in = np.concatenate([np.full((B, R, K, 1), start, np.int32), opt], axis=-1)
+    opt_out = np.concatenate([opt, np.full((B, R, K, 1), end, np.int32)], axis=-1)
+    Lh = cfg.max_hist_concat_len
+    # evenly spaced prefix boundaries for the incremental LF history path
+    bounds = np.minimum(
+        cfg.max_cap_len + np.arange(R) * (Lq + La), Lh).astype(np.int32)
+    batch = {
+        "ques": toks(B, R, Lq),
+        "hist_concat": toks(B, R, cfg.max_hist_concat_len),
+        "hist_flat": toks(B, Lh),
+        "hist_bounds": np.broadcast_to(bounds, (B, R)).copy(),
+        "facts": toks(B, R, cfg.max_fact_len),
+        "fact_len": np.full((B, R), cfg.max_fact_len, np.int32),
+        "img": rng.standard_normal((B, cfg.img_feat_size)).astype(np.float32),
+        "ans_in": ans_in, "ans_out": ans_out,
+        "opt": opt, "opt_len": np.full((B, R, K), La, np.int32),
+        "opt_inds": rng.integers(0, 1024, size=(B, R, K)).astype(np.int32),
+        "opt_in": opt_in, "opt_out": opt_out,
+        "gt_ind": rng.integers(0, K, size=(B, R)).astype(np.int32),
+        "dialog_valid": np.ones(B, np.int32),
+        "round_valid": np.ones((B, R), np.int32),
+    }
+    if not full_lengths:
+        for k in ("ques", "facts"):
+            keep = rng.integers(1, batch[k].shape[-1] + 1, size=batch[k].shape[:-1])
+            mask = np.arange(batch[k].shape[-1]) < keep[..., None]
+            batch[k] = np.where(mask, batch[k], 0)
+
+        # Candidate/answer rows at varying lengths too (uniform [1, La] —
+        # the same convention as make_random_split's "realistic" splits),
+        # with the loader-exact <START>/<END> construction for short rows.
+        def shorten(tok):
+            lens = rng.integers(1, La + 1, size=tok.shape[:-1])
+            t = np.where(np.arange(La) < lens[..., None], tok, 0)
+            tin = np.concatenate(
+                [np.full(tok.shape[:-1] + (1,), start, np.int32), t], -1)
+            base = np.concatenate(
+                [t, np.zeros(tok.shape[:-1] + (1,), np.int32)], -1)
+            tout = np.where(np.arange(La + 1) == lens[..., None], end, base)
+            return t, tin.astype(np.int32), tout.astype(np.int32), lens
+
+        _, batch["ans_in"], batch["ans_out"], _ = shorten(ans)
+        batch["opt"], batch["opt_in"], batch["opt_out"], olens = shorten(opt)
+        batch["opt_len"] = olens.astype(np.int32)
+    return batch
 
 
 def make_random_split(cfg: Config, num_dialogs: int,

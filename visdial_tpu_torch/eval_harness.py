@@ -28,6 +28,16 @@ with dialog_valid and round_valid set give MRR / R@1 / R@5 / R@10 / mean
 rank.  With collect_rankings every candidate is ranked on the device too
 (the v1.0 submission rankings) and kept for the rounds with dialog_valid
 and round_scoreable set.
+
+Over a mesh (parallel/mesh.py) each data rank scores its contiguous
+dialogs of every batch (the resident eval uploads only those slices of its
+stacks), and the ranks and candidate rankings are all-gathered over the
+data group in split order once, after the last batch; every rank computes
+the metrics from them and returns rank 0's dict.  A batch the data axis
+does not divide is replicated instead: every rank scores all of it and no
+gather runs (JAX's mesh.py::shard_batch policy).  The disc option table is
+built whole on every rank; the vocab-dimensioned leaves are read as the
+rank's shard (parallel/mesh.py::vocab_parallel).
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from .data.loader import EvalLoader
 from .models.encoders import encoder_apply
 from .models.model import (_impl, batch_to_device, model_option_table,
                            model_scores, model_scores_with_table)
+from .parallel.mesh import Mesh, slice_dialogs, vocab_parallel
 from .parallel.train_step import gen_rows_score
 from .utils.metrics import (candidate_rankings, ranks_from_scores,
                             retrieval_metrics)
@@ -259,14 +270,40 @@ def _gen_scorer(params, opt_list, opt_len, widths: list, vocab: Vocabulary,
 
 
 def _batch_arrays(batch, keys: tuple, plan: _GenBucketPlan | None,
-                  K: int) -> dict:
-    """What the device needs of one loader batch: its `keys`, plus the gen
-    bucket index arrays under a plan."""
+                  K: int, sl: tuple[int, int] | None = None) -> dict:
+    """What the device needs of one loader batch (of its dialogs [lo, hi)
+    with sl): its `keys`, plus the gen bucket index arrays under a plan."""
     d = batch.as_dict()
     out = {k: d[k] for k in keys if k in d}
+    if sl is not None:
+        out = slice_dialogs(out, *sl)
     if plan is not None:
-        out.update(plan.arrays(batch.opt_inds, batch.opt_len, K))
+        opts = {"opt_inds": batch.opt_inds, "opt_len": batch.opt_len}
+        if sl is not None:
+            opts = slice_dialogs(opts, *sl)
+        out.update(plan.arrays(opts["opt_inds"], opts["opt_len"], K))
     return out
+
+
+def _data_slice(mesh: Mesh | None, batch_size: int):
+    """This data rank's dialogs of a batch (Mesh.dialog_slice), or None."""
+    return None if mesh is None else mesh.dialog_slice(batch_size)
+
+
+def _gather_stacked(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """(nb, bs / data, ...) per data rank -> (nb, bs, ...), the ranks'
+    dialogs in split order."""
+    g = mesh.gather_data(t.to(mesh.device)).movedim(0, 1)  # (nb, data, n, ...)
+    return g.reshape(g.shape[0], -1, *g.shape[3:])
+
+
+def _rank0_metrics(metrics: dict, mesh: Mesh | None) -> dict:
+    """Rank 0's metrics on every rank (the timings differ by rank)."""
+    if mesh is None or mesh.world == 1 or not torch.distributed.is_initialized():
+        return metrics
+    box = [metrics]
+    torch.distributed.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def _option_tables(data: VisDialSplit, cfg: Config) -> dict:
@@ -297,26 +334,30 @@ class _ResidentEvalBase:
     extra_keys: tuple = ()
 
     @classmethod
-    def cached(cls, data, vocab, cfg, batch_size, ties, max_bytes, device):
+    def cached(cls, data, vocab, cfg, batch_size, ties, max_bytes, device,
+               mesh: Mesh | None = None):
         cache = data.__dict__.setdefault("_torch_resident_eval", {})
-        key = (cls.__name__, batch_size, cfg, ties, max_bytes, str(device))
+        key = (cls.__name__, batch_size, cfg, ties, max_bytes, str(device),
+               mesh)
         if key not in cache:
             cache[key] = cls(data, vocab, cfg, batch_size, ties, max_bytes,
-                             device)
+                             device, mesh)
         return cache[key]
 
     def __init__(self, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
-                 batch_size: int, ties: str, max_bytes: int, device):
+                 batch_size: int, ties: str, max_bytes: int, device,
+                 mesh: Mesh | None = None):
         t0 = time.time()
         self.vocab, self.cfg, self.ties = vocab, cfg, ties
         self.device = torch.device(device)
+        self.mesh, self.sl = mesh, _data_slice(mesh, batch_size)
         self.plan = self._plan(data, batch_size)
         loader = EvalLoader(data, vocab, _float32(cfg), batch_size=batch_size,
                             option_tokens=False)
         host, keep, dump = [], [], []
         for b in loader:
             host.append(_batch_arrays(b, _ENCODER_KEYS + self.extra_keys,
-                                      self.plan, cfg.num_options))
+                                      self.plan, cfg.num_options, self.sl))
             dv = b.dialog_valid.astype(bool)[:, None]
             keep.append(dv & b.round_valid.astype(bool))
             dump.append(dv & b.round_scoreable.astype(bool))
@@ -347,7 +388,8 @@ class _ResidentEvalBase:
 
     def run(self, params, impl: str, collect_rankings: bool):
         """(ranks (nb, bs, R), candidate rankings (nb, bs, R, K) or None) as
-        numpy arrays."""
+        numpy arrays; over a data axis each rank scores its slices, then one
+        gather and one readback."""
         score = self._scorer(params, impl)
         nb = len(self.keep)
         ranks = cand = None
@@ -363,6 +405,9 @@ class _ResidentEvalBase:
                 if cand is None:
                     cand = c.new_empty((nb, *c.shape))
                 cand[i] = c
+        if self.sl is not None:
+            ranks = _gather_stacked(ranks, self.mesh)
+            cand = _gather_stacked(cand, self.mesh) if collect_rankings else None
         return (ranks.cpu().numpy(),
                 cand.cpu().numpy() if collect_rankings else None)
 
@@ -427,15 +472,16 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
                    device, *, batch_size: int | None = None,
                    ties: str = "optimistic", impl: str | None = None,
                    return_ranks: bool = False, collect_rankings: bool = False,
-                   resident: bool = False, resident_max_bytes: int = 4 << 30):
+                   resident: bool = False, resident_max_bytes: int = 4 << 30,
+                   mesh: Mesh | None = None):
     """Score every candidate of every round of `data` and return the
     retrieval metrics plus 'evals_per_sec' (rounds ranked per second) and
     'eval_seconds'.  gen takes the bucketed path when
     cfg.gen_eval_bucketed, else the direct one (the same scores).
 
     resident=True keeps the split's batches on the device (cached on the
-    split per class, batch size, cfg, ties, byte cap and device) and adds
-    'resident_cache_seconds', 'resident_cache_bytes' and, on the first run
+    split per class, batch size, cfg, ties, byte cap, device and mesh) and
+    adds 'resident_cache_seconds', 'resident_cache_bytes' and, on the first run
     of each (impl, collect_rankings) variant, 'cold_compile'; its
     evals_per_sec includes the disc option table's build, the streaming
     one excludes it, as in the JAX harness.  It streams when the stacks
@@ -448,7 +494,24 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
     (num_dialogs, R, K) int32 holds candidate_rankings of every round that
     is scoreable (a full candidate list, with or without a ground truth:
     the v1.0 test split's rounds have none), zeros elsewhere.  With both,
-    (metrics, ranks, cand_ranks)."""
+    (metrics, ranks, cand_ranks).
+
+    With a mesh every rank must call, with the params it holds (the vocab
+    leaves its shard); each returns the same metrics (rank 0's) and the
+    whole split's ranks and rankings."""
+    shard = None if mesh is None else mesh.vocab_shard(cfg.vocab_size)
+    with vocab_parallel(shard):
+        out = _evaluate(params, data, vocab, cfg, device, batch_size, ties,
+                        impl, return_ranks, collect_rankings, resident,
+                        resident_max_bytes, mesh)
+    if isinstance(out, tuple):
+        return (_rank0_metrics(out[0], mesh), *out[1:])
+    return _rank0_metrics(out, mesh)
+
+
+def _evaluate(params, data, vocab, cfg, device, batch_size, ties, impl,
+              return_ranks, collect_rankings, resident, resident_max_bytes,
+              mesh):
     device = torch.device(device)
     impl = impl or _impl(cfg, device)
     direct = cfg.decoder == "gen" and not cfg.gen_eval_bucketed
@@ -456,7 +519,7 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
     if resident and not direct:
         cls = _ResidentDiscEval if cfg.decoder == "disc" else _ResidentGenEval
         res = cls.cached(data, vocab, cfg, bs, ties, resident_max_bytes,
-                         device)
+                         device, mesh)
         if res.ok:
             return _resident_eval(res, params, data, cfg, impl, return_ranks,
                                   collect_rankings)
@@ -481,25 +544,37 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
                                     tables["opt_len"], plan.active, vocab,
                                     cfg, impl)
     xfer = _Transfer(device)
-    all_ranks = []
+    sl = _data_slice(mesh, bs)
+    all_ranks, held = [], []
     cand_out = (np.zeros((data.num_dialogs, cfg.num_rounds, K), np.int32)
                 if collect_rankings else None)
 
-    def consume(pending) -> int:
-        fetched, start, batch = pending
-        got = xfer.arrays(fetched)
-        dv = batch.dialog_valid.astype(bool)[:, None]
-        keep = dv & batch.round_valid.astype(bool)
+    def consume(got, masks, start) -> int:
+        dv, round_valid, round_scoreable = masks
+        keep = dv & round_valid
         all_ranks.append(got[0][keep])
         if collect_rankings:
-            dump = dv & batch.round_scoreable.astype(bool)
+            dump = dv & round_scoreable
             n = min(start + len(got[1]), data.num_dialogs) - start
             cand_out[start:start + n] = np.where(dump[:n, :, None],
                                                  got[1][:n], 0)
         return int(keep.sum())
 
+    def read(pending) -> int:
+        """One batch's readback, consumed now, or over a data axis held
+        (its rank slices and masks only) until the gather."""
+        fetched, masks, start = pending
+        got = xfer.arrays(fetched)
+        if sl is None:
+            return consume(got, masks, start)
+        held.append((got, masks, start))
+        return 0
+
     def stage(batch):
-        return xfer.upload(_batch_arrays(batch, keys, plan, K)), batch
+        masks = (batch.dialog_valid.astype(bool)[:, None],
+                 batch.round_valid.astype(bool),
+                 batch.round_scoreable.astype(bool))
+        return xfer.upload(_batch_arrays(batch, keys, plan, K, sl)), masks
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -510,7 +585,7 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
     # while the device scores batch i, and batch i-1's ranks are read back
     # while batch i computes
     with torch.inference_mode():
-        for bi, ((dev, copied), batch) in enumerate(_staged(loader, stage)):
+        for bi, ((dev, copied), masks) in enumerate(_staged(loader, stage)):
             xfer.wait(copied)
             scores = score(dev)
             outs = [ranks_from_scores(scores, dev["gt_ind"], ties)]
@@ -518,10 +593,16 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
                 outs.append(candidate_rankings(scores))
             fetched = xfer.readback(outs)
             if pending is not None:
-                n_rounds += consume(pending)
-            pending = (fetched, bi * bs, batch)
+                n_rounds += read(pending)
+            pending = (fetched, masks, bi * bs)
         if pending is not None:
-            n_rounds += consume(pending)
+            n_rounds += read(pending)
+        if held:                # one gather of every batch's slices
+            gathered = zip(*(
+                _gather_stacked(torch.from_numpy(np.stack(f)), mesh).cpu().numpy()
+                for f in zip(*(got for got, _, _ in held))))
+            for got, (_, masks, start) in zip(gathered, held):
+                n_rounds += consume(got, masks, start)
     elapsed = time.time() - t0
     ranks = np.concatenate(all_ranks)
     metrics = retrieval_metrics(ranks)

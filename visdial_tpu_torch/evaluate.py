@@ -1,4 +1,5 @@
-"""Evaluation CLI on one GPU (port of visdial_tpu/evaluate.py).
+"""Evaluation CLI on one GPU or a mesh of them (port of
+visdial_tpu/evaluate.py).
 
 Loads a checkpoint of either package (it embeds its Config), ranks the 100
 candidates of every round of a split and prints one JSON line: model,
@@ -23,7 +24,10 @@ versions.  --resident (the default) keeps the split's batches on the device
 and scores them with one readback (eval_harness._ResidentDiscEval /
 _ResidentGenEval; the JSON line gains resident_cache_seconds,
 resident_cache_bytes and cold_compile); --no-resident streams them through
-the staging thread.
+the staging thread.  Under torchrun, --mesh_data / --mesh_model lay the
+processes out as the train CLI does (parallel/mesh.py): each data rank
+scores its dialogs of every batch, every rank returns the same metrics, and
+rank 0 alone prints and writes the rankings.
 """
 
 from __future__ import annotations
@@ -32,11 +36,11 @@ import argparse
 import json
 
 import numpy as np
-import torch
 
 from .data.dataset import load_split
 from .data.synthetic import make_synthetic_split
 from .eval_harness import evaluate_split
+from .parallel.mesh import add_mesh_args, broadcast_tree, make_mesh, shard_tree
 from .utils.checkpoint import load_checkpoint
 from .utils.metrics import ndcg_scores
 
@@ -109,13 +113,13 @@ def main(argv=None) -> dict:
     p.add_argument("--dense_json", type=str, default="",
                    help="v1.0 dense annotations JSON; adds NDCG")
     p.add_argument("--device", type=str, default="cuda")
+    add_mesh_args(p)
     args = p.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device (pass --device cpu to "
-                         "evaluate with the plain versions on the CPU)")
+    mesh = make_mesh(args.mesh_data, args.mesh_model, args.device)
+    device = mesh.device
     params, cfg, _ = load_checkpoint(args.load_path, device)
+    params = shard_tree(broadcast_tree(params, mesh), cfg, mesh)
     if args.data_dir:
         cfg = cfg.replace(data_dir=args.data_dir)
     if args.length_norm:
@@ -133,10 +137,10 @@ def main(argv=None) -> dict:
     out = evaluate_split(params, data, vocab, cfg, device,
                          batch_size=args.batch_size or None, ties=args.ties,
                          collect_rankings=want_rankings,
-                         resident=args.resident)
+                         resident=args.resident, mesh=mesh)
     if want_rankings:
         metrics, cand_ranks = out
-        if args.save_ranks:
+        if args.save_ranks and mesh.is_main:
             with open(args.save_ranks, "w") as f:
                 json.dump(ranks_to_submission(cand_ranks, data.img_ids,
                                               cand_ranks.any(axis=-1)), f)
@@ -146,8 +150,9 @@ def main(argv=None) -> dict:
                                                json.load(f)))
     else:
         metrics = out
-    print(json.dumps({"model": f"{cfg.encoder}-{cfg.decoder}",
-                      "split": args.split, **metrics}), flush=True)
+    if mesh.is_main:
+        print(json.dumps({"model": f"{cfg.encoder}-{cfg.decoder}",
+                          "split": args.split, **metrics}), flush=True)
     return metrics
 
 

@@ -1,4 +1,4 @@
-"""Dense-annotation fine-tuning CLI on one GPU (port of
+"""Dense-annotation fine-tuning CLI on one GPU or a mesh of them (port of
 visdial_tpu/finetune.py), the VisDial v1.0 NDCG phase.
 
 Loads a trained disc checkpoint of either package and fine-tunes it so its
@@ -18,7 +18,10 @@ Usage:
         [--device cuda | --device cpu]
 
 --device cuda (the default) runs the kernels; --device cpu the plain
-versions.
+versions.  Under torchrun, --mesh_data / --mesh_model lay the processes out
+as the train CLI does (parallel/mesh.py): each data rank fine-tunes on its
+dialogs of every batch, every rank takes part in the NDCG evals, and rank
+0 alone prints and writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -35,15 +38,18 @@ from .data.synthetic import make_synthetic_split
 from .eval_harness import evaluate_split
 from .evaluate import ndcg_from_dense
 from .models.model import batch_to_device, model_dense_loss
+from .parallel.mesh import add_mesh_args, make_mesh
 from .parallel.optim import init_opt_state
-from .parallel.train_step import TrainState, train_step
+from .parallel.train_step import (TrainState, gather_train_state,
+                                  shard_train_state, train_step)
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 
 
-def ndcg_on_entries(params, data, vocab, cfg, device, dense_entries) -> dict:
+def ndcg_on_entries(params, data, vocab, cfg, device, dense_entries,
+                    mesh=None) -> dict:
     """NDCG over the annotated rounds (the resident eval's rankings)."""
     _, cand = evaluate_split(params, data, vocab, cfg, device,
-                             collect_rankings=True, resident=True)
+                             collect_rankings=True, resident=True, mesh=mesh)
     return ndcg_from_dense(cand, data.img_ids, dense_entries)
 
 
@@ -68,12 +74,11 @@ def main(argv=None) -> dict:
     p.add_argument("--run_name", type=str, default="dense")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda")
+    add_mesh_args(p)
     args = p.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device (pass --device cpu to "
-                         "fine-tune with the plain versions on the CPU)")
+    mesh = make_mesh(args.mesh_data, args.mesh_model, args.device)
+    device = mesh.device
     params, cfg, _ = load_checkpoint(args.load_path, device)
     if cfg.decoder != "disc":
         raise SystemExit(f"checkpoint is {cfg.decoder!r}; dense fine-tuning "
@@ -83,6 +88,9 @@ def main(argv=None) -> dict:
         cfg = cfg.replace(data_dir=args.data_dir)
     if args.batch_size:
         cfg = cfg.replace(batch_size=args.batch_size)
+    if cfg.batch_size % mesh.data:
+        raise SystemExit(f"--batch_size {cfg.batch_size} is not divisible by "
+                         f"the mesh data axis ({mesh.data})")
     if args.synthetic:
         data, vocab = make_synthetic_split(cfg, num_dialogs=args.synthetic,
                                            seed=cfg.seed + 1)
@@ -98,13 +106,19 @@ def main(argv=None) -> dict:
     if len(loader) == 0:
         raise SystemExit("no usable dense annotations for this split")
     # fresh optimizer over the new objective; keep the trained params
-    state = TrainState(params, init_opt_state(params, cfg),
-                       torch.Generator().manual_seed(args.seed))
+    state = shard_train_state(
+        TrainState(params, init_opt_state(params, cfg),
+                   torch.Generator().manual_seed(args.seed)), cfg, mesh)
 
     def emit(event: str, **kw) -> None:
-        print(json.dumps({"event": event, **kw}), flush=True)
+        if mesh.is_main:
+            print(json.dumps({"event": event, **kw}), flush=True)
 
-    before = ndcg_on_entries(state.params, data, vocab, cfg, device, dense)
+    def ndcg():
+        return ndcg_on_entries(state.params, data, vocab, cfg, device, dense,
+                               mesh)
+
+    before = ndcg()
     emit("ndcg", step=0, **before)
 
     step, epoch, t0 = 0, 0, time.time()
@@ -125,25 +139,29 @@ def main(argv=None) -> dict:
         buf.clear()
 
     while step < args.steps:
-        for batch in loader.epoch(seed=args.seed + epoch):
+        for batch in loader.epoch(seed=args.seed + epoch,
+                                  shard=mesh.data_shard):
             state, m = train_step(state, batch_to_device(batch, device), cfg,
-                                  loss_fn=model_dense_loss)
+                                  loss_fn=model_dense_loss, mesh=mesh)
             step += 1
             buf.append({**m, "step": step})
             if step % args.log_every == 0 or step >= args.steps:
                 flush()
             if args.eval_every and step % args.eval_every == 0:
                 flush()
-                emit("ndcg", step=step, **ndcg_on_entries(
-                    state.params, data, vocab, cfg, device, dense))
+                emit("ndcg", step=step, **ndcg())
             if step >= args.steps:
                 break
         epoch += 1
     flush()
 
-    after = ndcg_on_entries(state.params, data, vocab, cfg, device, dense)
+    after = ndcg()
     emit("ndcg", step=step, **after)
-    path = save_checkpoint(f"{args.save_path}/{args.run_name}", state, cfg)
+    whole = gather_train_state(state, cfg, mesh)
+    mesh.barrier()
+    path = (save_checkpoint(f"{args.save_path}/{args.run_name}", whole, cfg)
+            if mesh.is_main else None)
+    mesh.barrier()
     emit("checkpoint", step=step, path=path, seconds=time.time() - t0)
     return {"ndcg_before": before["ndcg"], "ndcg_after": after["ndcg"],
             "first_loss": losses[0] if losses else None,

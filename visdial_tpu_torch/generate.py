@@ -1,4 +1,5 @@
-"""Generation CLI on one GPU (port of visdial_tpu/generate.py).
+"""Generation CLI on one GPU or a data axis of them (port of
+visdial_tpu/generate.py).
 
 Loads a gen-decoder checkpoint of either package, decodes an answer for
 every round of the first --num_dialogs dialogs of a split through
@@ -18,6 +19,13 @@ Usage:
         [--data_dir data | --synthetic 64] [--num_dialogs 20] \
         [--sample --temperature 0.8 | --beam_size 5] \
         [--out_path generated.json] [--device cuda | --device cpu]
+
+Under torchrun, --mesh_data lays the processes out as a data axis
+(parallel/mesh.py): each rank decodes its dialogs of every batch (all of a
+batch the axis does not divide), the answers are gathered in split order,
+and rank 0 alone writes them; a sampling rank's generator is seeded with
+--seed plus its data coordinate.  Decoding on a model axis > 1 is not
+ported and exits.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from .data.dataset import load_split
 from .data.loader import EvalLoader
 from .data.synthetic import make_synthetic_split
 from .models.model import batch_to_device, model_generate
+from .parallel.mesh import (add_mesh_args, broadcast_tree, make_mesh,
+                            slice_dialogs)
 from .utils.checkpoint import load_checkpoint
 
 
@@ -52,13 +62,17 @@ def main(argv=None) -> list:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out_path", type=str, default="generated.json")
     p.add_argument("--device", type=str, default="cuda")
+    add_mesh_args(p)
     args = p.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device (pass --device cpu to "
-                         "generate with the plain versions on the CPU)")
+    mesh = make_mesh(args.mesh_data, args.mesh_model, args.device)
+    if mesh.model > 1:
+        raise SystemExit("generate: greedy, sampled and beam decoding on a "
+                         "model axis > 1 are not ported (ROADMAP.md); pass "
+                         "--mesh_model 1")
+    device = mesh.device
     params, cfg, _ = load_checkpoint(args.load_path, device)
+    params = broadcast_tree(params, mesh)
     if cfg.decoder != "gen":
         raise SystemExit(f"checkpoint is {cfg.decoder!r}; generation needs a "
                          "gen decoder")
@@ -75,17 +89,23 @@ def main(argv=None) -> list:
 
     bs = args.batch_size or cfg.batch_size
     n = args.num_dialogs or data.num_dialogs
-    gen = (torch.Generator(device=device).manual_seed(args.seed)
+    gen = (torch.Generator(device=device).manual_seed(args.seed + mesh.d)
            if args.sample else None)
+    sl = mesh.dialog_slice(bs)
     loader = EvalLoader(data, vocab, cfg, batch_size=bs, option_tokens=False)
     records = []
     for batch_idx, batch in enumerate(loader):
+        arrays = batch.as_dict()
+        if sl is not None:
+            arrays = slice_dialogs(arrays, *sl)
         with torch.inference_mode():
             toks, logp = model_generate(
-                params, batch_to_device(batch.as_dict(), device), cfg,
+                params, batch_to_device(arrays, device), cfg,
                 start_token=vocab.start, end_token=vocab.end,
                 greedy=not args.sample, gen=gen, temperature=args.temperature,
                 beam_size=args.beam_size)
+        if sl is not None:      # the ranks' dialogs back in batch order
+            toks, logp = (mesh.gather_data(t).flatten(0, 1) for t in (toks, logp))
         toks, logp = toks.cpu().numpy(), logp.cpu().numpy()
         for b in range(toks.shape[0]):
             i = batch_idx * bs + b            # global dialog index
@@ -111,11 +131,12 @@ def main(argv=None) -> list:
         if len(records) >= n:
             break
 
-    with open(args.out_path, "w") as f:
-        json.dump({"model": f"{cfg.encoder}-{cfg.decoder}",
-                   "split": args.split, "dialogs": records}, f, indent=1)
-    print(json.dumps({"event": "generated", "dialogs": len(records),
-                      "out_path": args.out_path}), flush=True)
+    if mesh.is_main:
+        with open(args.out_path, "w") as f:
+            json.dump({"model": f"{cfg.encoder}-{cfg.decoder}",
+                       "split": args.split, "dialogs": records}, f, indent=1)
+        print(json.dumps({"event": "generated", "dialogs": len(records),
+                          "out_path": args.out_path}), flush=True)
     return records
 
 

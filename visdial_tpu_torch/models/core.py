@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.lstm import keep_mask, uniform
+from ..parallel.mesh import reduce_from_model, vocab_shard
 
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -44,9 +45,20 @@ def embedding_init(gen: torch.Generator, vocab_size: int, embed_size: int,
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """Zero-masked lookup (core.py::embed): pad token 0 embeds to zero."""
-    vecs = F.embedding(tokens, params["table"])
-    return vecs * (tokens != 0)[..., None].to(vecs.dtype)
+    """Zero-masked lookup (core.py::embed): pad token 0 embeds to zero.
+
+    Under a vocab shard (parallel/mesh.py::vocab_parallel) the table holds
+    this rank's rows only: ids in another shard look up zero rows, and the
+    rows are summed over the model group, whose backward keeps each rank's
+    own rows' gradient."""
+    shard = vocab_shard()
+    if shard is None:
+        vecs = F.embedding(tokens, params["table"])
+        return vecs * (tokens != 0)[..., None].to(vecs.dtype)
+    local = shard.local_ids(tokens)
+    vecs = F.embedding(local.clamp(min=0), params["table"])
+    vecs = vecs * ((local >= 0) & (tokens != 0))[..., None].to(vecs.dtype)
+    return reduce_from_model(vecs, shard)
 
 
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,

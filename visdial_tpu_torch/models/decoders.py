@@ -20,10 +20,9 @@ import torch
 
 from ..config import Config
 
-from ..ops.lm_loss import masked_nll_fused, masked_nll_ref
-from ..ops.lm_score import lm_token_logprobs_lse_plain
-from ..ops.lm_score_cuda import lm_token_logprobs_lse
+from ..ops.lm_loss import masked_nll_fused, masked_nll_ref, token_logprobs
 from ..ops.lstm import lstm_init, lstm_keep_masks, lstm_step, masked_lstm
+from ..parallel.mesh import vocab_shard
 from .core import embed, linear, linear_init
 
 # rows per step of the plain path's candidate scoring (unchunked, the
@@ -91,13 +90,16 @@ def _lm_hidden(params, embed_params, joint, tokens_in, cfg: Config, *,
 
 def gen_loss(params, embed_params, joint, batch, cfg: Config, *,
              train: bool = False, gen: torch.Generator | None = None,
-             impl="plain") -> torch.Tensor:
+             impl="plain", denominator=None) -> torch.Tensor:
     """Teacher-forced masked NLL of the ground-truth answers.  The mask is
     "the round has an answer" (decoders.py:94-101), not round_valid: an
     answerless round has ans_in = [<START>, 0, ...] and its lone <END>
     target is zeroed.  The kernel path goes through masked_nll_fused (K5
     forward, K6 backward), the plain path through its materialized-logits
-    twin masked_nll_ref (decoders.py::gen_logits + masked_nll)."""
+    twin masked_nll_ref (decoders.py::gen_logits + masked_nll); on a vocab
+    shard both go through masked_nll_fused's sharded head (K5/K6 or their
+    plain versions).  The mean divides by denominator(the non-pad target
+    count) where given (models/model.py::model_loss)."""
     N = joint.shape[0]
     tokens_in = batch["ans_in"].reshape(N, -1)
     tokens_out = batch["ans_out"].reshape(N, -1)
@@ -105,9 +107,13 @@ def gen_loss(params, embed_params, joint, batch, cfg: Config, *,
     tokens_out = tokens_out * has_answer[:, None]
     outs = _lm_hidden(params, embed_params, joint, tokens_in, cfg,
                       train=train, gen=gen, impl=impl)
+    w, b = params["out_proj"]["w"], params["out_proj"]["b"]
+    shard = vocab_shard()
+    if shard is not None:
+        return masked_nll_fused(outs, w, b, tokens_out, denominator, shard,
+                                plain=impl != "cuda")
     nll = masked_nll_fused if impl == "cuda" else masked_nll_ref
-    return nll(outs, params["out_proj"]["w"], params["out_proj"]["b"],
-               tokens_out)
+    return nll(outs, w, b, tokens_out, denominator)
 
 
 def _maybe_length_norm(scores, targets, cfg: Config):
@@ -128,7 +134,9 @@ def gen_score_rows(params, embed_params, joint_rows, tokens_in, tgt,
     The kernel path length-sorts at >= LENGTH_SORT_MIN_ROWS rows (unless
     sort=False: rows that are already length-bucketed), runs K1 and K5 and
     puts the scores back in the rows' order.  The plain path scores
-    SCORE_CHUNK_ROWS rows at a time through K5's plain version."""
+    SCORE_CHUNK_ROWS rows at a time through K5's plain version.  On a vocab
+    shard K5 (or its plain version) scores the shard's columns and the
+    shards combine (ops/lm_loss.py::token_logprobs)."""
     rows, T = tokens_in.shape
     rank = None
     if sort and impl == "cuda" and rows >= LENGTH_SORT_MIN_ROWS:
@@ -139,11 +147,11 @@ def gen_score_rows(params, embed_params, joint_rows, tokens_in, tgt,
     h0, c0 = _joint_to_state(joint_rows.to(vecs.dtype), cfg.num_layers)
     outs, _ = masked_lstm(params["lm_lstm"], vecs, mask, h0, c0, impl=impl)
     w, b = params["out_proj"]["w"], params["out_proj"]["b"]
-    score, chunk = ((lm_token_logprobs_lse, rows) if impl == "cuda"
-                    else (lm_token_logprobs_lse_plain, SCORE_CHUNK_ROWS))
+    shard, plain = vocab_shard(), impl != "cuda"
+    chunk = SCORE_CHUNK_ROWS if plain else rows
     tok_lp = torch.cat([
-        score(outs[lo:lo + chunk].reshape(-1, outs.shape[-1]), w, b,
-              tgt[lo:lo + chunk].reshape(-1))[0]
+        token_logprobs(outs[lo:lo + chunk].reshape(-1, outs.shape[-1]), w, b,
+                       tgt[lo:lo + chunk].reshape(-1), shard, plain)[0]
         for lo in range(0, rows, chunk)]).reshape(rows, T)
     s = _maybe_length_norm((tok_lp * (tgt != 0)).sum(dim=-1), tgt, cfg)
     return s[rank] if rank is not None else s
@@ -318,12 +326,13 @@ def disc_scores(params, embed_params, joint, opt_tokens, cfg: Config, *,
 
 def disc_loss(params, embed_params, joint, batch, cfg: Config, *,
               train: bool = False, gen: torch.Generator | None = None,
-              impl="plain") -> torch.Tensor:
+              impl="plain", denominator=None) -> torch.Tensor:
     """Mean 100-way NLL of the ground-truth candidate (decoders.py::
     disc_loss) over the rounds with round_valid set.  Takes the batch's
     unique candidate rows (opt_uniq) plus the gather map opt_row when the
     loader deduplicated them (Config.disc_dedup_options), else the expanded
-    opt tokens."""
+    opt tokens.  The mean divides by denominator(this batch's count) where
+    given (models/model.py::model_loss)."""
     N, K = joint.shape[0], cfg.num_options
     if "opt_uniq" in batch:
         emb = disc_option_embeddings(params, embed_params,
@@ -338,6 +347,9 @@ def disc_loss(params, embed_params, joint, batch, cfg: Config, *,
     logp = torch.log_softmax(scores, dim=-1)
     nll = -logp.gather(1, batch["gt_ind"].reshape(N, 1))[:, 0]
     if "round_valid" not in batch:
-        return nll.mean()
+        if denominator is None:
+            return nll.mean()
+        return nll.sum() / denominator(torch.tensor(float(N), device=nll.device))
     v = batch["round_valid"].reshape(N).to(nll.dtype)
-    return (nll * v).sum() / v.sum().clamp(min=1.0)
+    count = v.sum() if denominator is None else denominator(v.sum())
+    return (nll * v).sum() / count.clamp(min=1.0)

@@ -15,6 +15,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 
+from ..parallel.mesh import vocab_parallel, vocab_shard
 from ..utils.params import flatten, unflatten
 from .core import embedding_init, seeded, split_seeds
 from .decoders import (decoder_init, disc_loss, disc_option_table, disc_scores,
@@ -61,7 +62,8 @@ def batch_to_device(batch: dict, device) -> dict:
 
 def model_loss(params, batch, cfg: Config, *, train: bool = True,
                gen: torch.Generator | None = None,
-               impl: str | None = None) -> torch.Tensor:
+               impl: str | None = None, denominator=None,
+               seed_offset: int = 0) -> torch.Tensor:
     """The training loss of either decoder (model.py::model_loss).  `gen` is a CPU
     torch.Generator (the train state's); in train mode two seeds are drawn
     from it, one for the encoder's dropout and one for the decoder's (the
@@ -72,27 +74,41 @@ def model_loss(params, batch, cfg: Config, *, train: bool = True,
     and recomputes it in the backward.  The recomputation makes its
     generator anew from the same seed, so it draws the forward's dropout
     masks again: checkpoint's preserve_rng_state restores only the default
-    generators, never an explicit one, so it is not relied on (and off)."""
+    generators, never an explicit one, so it is not relied on (and off).
+
+    On a data axis (parallel/train_step.py) the batch is this rank's shard
+    of the global batch: the mean divides by `denominator`(the shard's
+    count), the global batch's count, so the ranks' losses sum to the
+    global batch's loss; and both seeds are offset by `seed_offset` (the
+    rank's data coordinate), so each data rank draws its own masks."""
     impl = impl or _impl(cfg, batch["ques"].device)
-    joint, dec_gen = _train_encode(params, batch, cfg, train, gen, impl)
+    joint, dec_gen = _train_encode(params, batch, cfg, train, gen, impl,
+                                   seed_offset)
     loss_fn = gen_loss if cfg.decoder == "gen" else disc_loss
     return loss_fn(params["decoder"], params["embed"], joint, batch, cfg,
-                   train=train, gen=dec_gen, impl=impl)
+                   train=train, gen=dec_gen, impl=impl,
+                   denominator=denominator)
 
 
 def _train_encode(params, batch, cfg: Config, train: bool,
-                  gen: torch.Generator | None, impl: str):
+                  gen: torch.Generator | None, impl: str,
+                  seed_offset: int = 0):
     """The encoder of a training loss: (joint (N, H), the decoder's dropout
-    generator or None).  Two seeds come from `gen` in train mode; with
-    cfg.remat the encoder is checkpointed and recomputed from its seed."""
+    generator or None).  Two seeds come from `gen` in train mode, each
+    offset by seed_offset; with cfg.remat the encoder is checkpointed and
+    recomputed from its seed, under the vocab shard of the forward (the
+    recomputation may run on the autograd engine's thread)."""
     device = batch["ques"].device
     enc_seed = dec_seed = None
     if train and gen is not None:
-        enc_seed, dec_seed = split_seeds(gen)
+        enc_seed, dec_seed = (s + seed_offset for s in split_seeds(gen))
+    shard = vocab_shard()
 
     def encode(enc_params, embed_params):
-        return encoder_apply(enc_params, embed_params, batch, cfg, train=train,
-                             gen=seeded(enc_seed, device), impl=impl)
+        with vocab_parallel(shard):
+            return encoder_apply(enc_params, embed_params, batch, cfg,
+                                 train=train, gen=seeded(enc_seed, device),
+                                 impl=impl)
 
     if cfg.remat and train:
         joint = checkpoint(encode, params["encoder"], params["embed"],
@@ -104,7 +120,8 @@ def _train_encode(params, batch, cfg: Config, train: bool,
 
 def model_dense_loss(params, batch, cfg: Config, *, train: bool = True,
                      gen: torch.Generator | None = None,
-                     impl: str | None = None) -> torch.Tensor:
+                     impl: str | None = None, denominator=None,
+                     seed_offset: int = 0) -> torch.Tensor:
     """v1.0 dense-annotation fine-tuning loss of the disc decoder
     (model.py::model_dense_loss): cross-entropy between the softmax of the
     annotated round's 100 candidate scores (disc_scores over the B x K
@@ -114,11 +131,13 @@ def model_dense_loss(params, batch, cfg: Config, *, train: bool = True,
 
     Batch fields beyond the encoder inputs (data/loader.py::DenseLoader):
     dense_opt (B, K, La), dense_round (B,), dense_rel (B, K) raw relevance,
-    dense_valid (B,)."""
+    dense_valid (B,).  denominator and seed_offset as in model_loss (the
+    count is of the valid rows)."""
     if cfg.decoder != "disc":
         raise ValueError("dense fine-tuning targets disc scores")
     impl = impl or _impl(cfg, batch["ques"].device)
-    joint, dec_gen = _train_encode(params, batch, cfg, train, gen, impl)
+    joint, dec_gen = _train_encode(params, batch, cfg, train, gen, impl,
+                                   seed_offset)
     B = batch["dense_rel"].shape[0]
     joint = joint.reshape(B, cfg.num_rounds, -1)
     joint_sel = joint[torch.arange(B, device=joint.device),
@@ -131,7 +150,8 @@ def model_dense_loss(params, batch, cfg: Config, *, train: bool = True,
     target = rel / total.clamp(min=1e-9)
     ce = -(target * torch.log_softmax(scores, dim=-1)).sum(dim=-1)
     v = batch["dense_valid"].float() * (total[:, 0] > 0).float()
-    return (ce * v).sum() / v.sum().clamp(min=1.0)
+    count = v.sum() if denominator is None else denominator(v.sum())
+    return (ce * v).sum() / count.clamp(min=1.0)
 
 
 def model_scores(params, batch, cfg: Config, *, impl: str | None = None):
@@ -186,6 +206,9 @@ def model_generate(params, batch, cfg: Config, *, start_token: int,
     decode is plain PyTorch on either path, as in the JAX package."""
     if cfg.decoder != "gen":
         raise ValueError("generation needs the gen decoder")
+    if vocab_shard() is not None:
+        raise NotImplementedError("decoding on a model axis > 1 is not "
+                                  "ported (ROADMAP.md)")
     impl = impl or _impl(cfg, batch["ques"].device)
     joint = encoder_apply(params["encoder"], params["embed"], batch, cfg,
                           impl=impl)

@@ -112,8 +112,9 @@ def lm_token_logprobs_lse(x, w, b, tgt):
     """Per-row log p(tgt | x) and row logsumexp (K5).  x (NT, H) float32 or
     bfloat16 LM hidden states, w (H, V) (cast to x.dtype, as the TPU wrapper
     does), b (V,), tgt (NT,) target ids.  Returns (logp, lse), each (NT,)
-    float32.  `lm_token_logprobs_lse.launches` counts the calls that went
-    to the kernel."""
+    float32; a target outside [0, V) (another vocab shard's) has no target
+    logit, so its logp is -lse.  `lm_token_logprobs_lse.launches` counts the
+    calls that went to the kernel."""
     if x.device.type == "cpu":
         return lm_token_logprobs_lse_plain(x, w, b, tgt)
     NT, H, V = _check("lm_token_logprobs_lse", x, w, b, tgt)
@@ -142,7 +143,8 @@ def lm_dlogits(x, w, b, tgt, lse, g):
     """d logits (NT, V) in x.dtype of the per-row target log-probability
     (K6): g_i (onehot(tgt_i) - exp(logits_i - lse_i)), the logits recomputed
     from x and w.  lse (NT,) the forward's row logsumexp, g (NT,) the
-    cotangent of logp; other operands as lm_token_logprobs_lse.
+    cotangent of logp; other operands as lm_token_logprobs_lse (a target
+    outside [0, V) has no one-hot term).
     `lm_dlogits.launches` counts the calls that went to the kernel."""
     if x.device.type == "cpu":
         return lm_dlogits_plain(x, w, b, tgt, lse, g)

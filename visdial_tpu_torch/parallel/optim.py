@@ -43,20 +43,26 @@ def _f32(v) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32)
 
 
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float, sq_sums=None):
     """Scale every leaf (the embedding table's dense gradient included) so
     the global L2 norm is at most max_norm.  Returns (grads, norm), the norm
-    a 0-dim float32 tensor on the grads' device."""
+    a 0-dim float32 tensor on the grads' device.  sq_sums, where given, maps
+    {path: the leaf's squared norm} to the whole model's (a sharded leaf's
+    summed over its shards: parallel/mesh.py::sum_sharded_squares)."""
     flat = flatten(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(flat[k])) for k in sorted(flat)))
+    sq = {k: torch.sum(torch.square(flat[k])) for k in sorted(flat)}
+    if sq_sums is not None:
+        sq = sq_sums(sq)
+    gnorm = torch.sqrt(sum(sq[k] for k in sorted(sq)))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     return tree_map(lambda g: g * scale, grads), gnorm
 
 
 def apply_updates(params: dict, grads: dict, state: OptState, lr: float,
-                  cfg: Config):
-    """One optimizer step.  Returns (new_params, new_state, grad_norm)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+                  cfg: Config, sq_sums=None):
+    """One optimizer step.  Returns (new_params, new_state, grad_norm);
+    sq_sums as in clip_by_global_norm."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, sq_sums)
     step = state.step + 1
 
     if cfg.optimizer == "adam":

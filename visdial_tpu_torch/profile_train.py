@@ -35,10 +35,12 @@ from .parallel.train_step import init_train_state, train_step
 
 def flagship_setup(device, steps: int, dropout: float = 0.0,
                    decoder: str = "disc", encoder: str = "mn-ques-im-hist",
-                   img_spatial: bool = False, **overrides):
+                   img_spatial: bool = False, shard=None, **overrides):
     """(cfg, `steps` device batches cycling the epochs, fresh TrainState)
     for `encoder` at the flagship widths; img_spatial takes the 49 x 512
-    pool5 map in place of fc7; `overrides` are further Config fields."""
+    pool5 map in place of fc7; shard=(d, data) gives data rank d's shard of
+    each batch (data/loader.py::TrainLoader.epoch); `overrides` are further
+    Config fields."""
     spatial = {"img_spatial": True, "img_feat_size": 49 * 512} if img_spatial else {}
     base = Config(encoder=encoder, decoder=decoder, dropout=dropout,
                   **spatial, **overrides)
@@ -50,7 +52,7 @@ def flagship_setup(device, steps: int, dropout: float = 0.0,
     epoch = 0
     while len(batches) < steps:
         batches += [batch_to_device(b.as_dict(), device)
-                    for b in loader.epoch(seed=epoch)]
+                    for b in loader.epoch(seed=epoch, shard=shard)]
         epoch += 1
     return cfg, batches[:steps], init_train_state(cfg, device=device, seed=0)
 

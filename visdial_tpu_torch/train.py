@@ -1,10 +1,21 @@
-"""Training CLI on one GPU (port of visdial_tpu/train.py).
+"""Training CLI on one GPU or a mesh of them (port of visdial_tpu/train.py).
 
 Usage:
     python -m visdial_tpu_torch.train --encoder mn-ques-im-hist --decoder disc \
         --data_dir data --num_epochs 15
     python -m visdial_tpu_torch.train --synthetic 64 --max_steps 20  # no data
     python -m visdial_tpu_torch.train --synthetic 64 --max_steps 20 --decoder gen
+    torchrun --nproc_per_node 4 -m visdial_tpu_torch.train --synthetic 64 \
+        --max_steps 20 --mesh_data 4          # data-parallel over 4 cards
+    torchrun --nproc_per_node 2 -m visdial_tpu_torch.train --device cpu \
+        --synthetic 64 --mesh_data 1 --mesh_model 2 --decoder gen  # gloo
+
+--mesh_data / --mesh_model lay the torchrun processes out as the (data,
+model) grid of parallel/mesh.py (-1 data fills the world; a grid that is
+not the whole world exits).  Each data rank trains on its batch_size / data
+dialogs of every global batch, so the data axis must divide batch_size;
+rank 0 alone logs and writes checkpoints (whole arrays, gathered from the
+model axis), and every rank takes part in the periodic eval.
 
 The flags are the JAX CLI's (built from the Config fields) plus --device
 (default cuda; there is no silent move to the CPU).  Every run writes JSONL
@@ -33,7 +44,10 @@ from .data.synthetic import make_synthetic_split
 
 from .eval_harness import evaluate_split
 from .models.model import batch_to_device
-from .parallel.train_step import init_train_state, multi_train_step, train_step
+from .parallel.mesh import make_mesh
+from .parallel.train_step import (gather_train_state, init_train_state,
+                                  multi_train_step, shard_train_state,
+                                  train_step)
 from .utils.checkpoint import latest_checkpoint, load_train_state, save_checkpoint
 from .utils.logging import MetricsLogger
 
@@ -90,10 +104,13 @@ def main(argv=None) -> dict:
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     cfg = config_from_args(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device (pass --device cpu to "
-                         "train with the plain versions on the CPU)")
+    mesh = make_mesh(cfg.mesh_data, cfg.mesh_model, args.device)
+    device = mesh.device
+    if cfg.batch_size % mesh.data:
+        raise SystemExit(
+            f"--batch_size {cfg.batch_size} is not divisible by the mesh data "
+            f"axis ({mesh.data}); pick a multiple, or shrink the mesh with "
+            f"--mesh_data")
 
     if args.synthetic:
         train_data, vocab = make_synthetic_split(cfg, num_dialogs=args.synthetic,
@@ -107,9 +124,10 @@ def main(argv=None) -> dict:
 
     run_name = args.run_name or f"{cfg.encoder}-{cfg.decoder}-{int(time.time())}"
     ckpt_dir = os.path.join(cfg.save_path, run_name)
-    log = MetricsLogger(os.path.join(ckpt_dir, "metrics.jsonl"))
+    log = MetricsLogger(os.path.join(ckpt_dir, "metrics.jsonl")
+                        if mesh.is_main else None, mirror=mesh.is_main)
     log.log({"event": "config", **dataclasses.asdict(cfg),
-             "device": str(device),
+             "devices": mesh.world, "device": str(device),
              "device_name": (torch.cuda.get_device_name(device)
                              if device.type == "cuda" else "cpu")})
     if (encoder_family(cfg.encoder) == "lf" and encoder_uses_history(cfg.encoder)
@@ -121,10 +139,6 @@ def main(argv=None) -> dict:
                         "masks are shared across a dialog's rounds (~10x "
                         "fewer token-steps); pass --lf_hist_incremental "
                         "false for reference-exact per-round noise"})
-    if cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1:
-        log.log({"event": "notice",
-                 "msg": "mesh_data/mesh_model: multi-device training is not "
-                        "ported (ROADMAP.md, M10); training on one device"})
     if args.resume and (path := latest_checkpoint(ckpt_dir)):
         state, cfg_saved, _ = load_train_state(path, device)
         if diffs := resume_config_mismatches(cfg_saved, cfg):
@@ -139,6 +153,7 @@ def main(argv=None) -> dict:
         log.log({"event": "resumed", "from": path})
     else:
         state = init_train_state(cfg, device=device)
+    state = shard_train_state(state, cfg, mesh)
 
     # assembled in float32; the encoder casts on the device
     loader = TrainLoader(train_data, vocab, cfg.replace(compute_dtype="float32"))
@@ -191,8 +206,9 @@ def main(argv=None) -> dict:
         return prev // every != step // every
 
     while step < max_steps:
-        batch_iter = (b for i, b in enumerate(loader.epoch(seed=cfg.seed + epoch))
-                      if i >= skip)
+        batch_iter = (b for i, b in enumerate(
+            loader.epoch(seed=cfg.seed + epoch, shard=mesh.data_shard))
+            if i >= skip)
         while step < max_steps:
             pending = []
             for b in batch_iter:
@@ -216,12 +232,13 @@ def main(argv=None) -> dict:
                 stacked = batch_to_device(
                     {k: np.stack([bd[k] for bd in pending]) for k in pending[0]},
                     device)
-                state, m = multi_train_step(state, stacked, cfg)
+                state, m = multi_train_step(state, stacked, cfg, mesh=mesh)
                 step += len(pending)
                 loss_buf.append(m["loss"])
             else:  # group == 1, epoch tail, or max_steps trim
                 for bd in pending:
-                    state, m = train_step(state, batch_to_device(bd, device), cfg)
+                    state, m = train_step(state, batch_to_device(bd, device),
+                                          cfg, mesh=mesh)
                     step += 1
                     loss_buf.append(m["loss"])
             if timing:
@@ -248,21 +265,23 @@ def main(argv=None) -> dict:
                          "lr": float(np.asarray(m["lr"]).reshape(-1)[-1]),
                          "grad_norm": float(m["grad_norm"].reshape(-1)[-1]),
                          "rounds_per_sec": rps,
-                         # one device; multi-GPU training (ROADMAP.md M10)
-                         # divides by the world size
-                         "rounds_per_sec_per_chip": rps / 1})
+                         "rounds_per_sec_per_chip": rps / mesh.world})
                 t_last, s_last = time.time(), step
             if crossed(eval_every, prev) or step >= max_steps:
                 flush_losses()
                 metrics = evaluate_split(state.params, val_data, vocab, cfg,
                                          device, resident=args.eval_resident,
-                                         resident_max_bytes=2 << 30)
+                                         resident_max_bytes=2 << 30, mesh=mesh)
                 last_eval = metrics
                 log.log({"event": "eval", "step": step, **metrics})
             if crossed(save_every, prev) or step >= max_steps:
                 flush_losses()   # never checkpoint past an undetected NaN
-                path = save_checkpoint(ckpt_dir, state, cfg)
-                log.log({"event": "checkpoint", "step": step, "path": path})
+                whole = gather_train_state(state, cfg, mesh)
+                mesh.barrier()
+                if mesh.is_main:
+                    path = save_checkpoint(ckpt_dir, whole, cfg)
+                    log.log({"event": "checkpoint", "step": step, "path": path})
+                mesh.barrier()
         epoch += 1
         skip = 0
     log.log({"event": "done", "step": step, **{f"final_{k}": v
