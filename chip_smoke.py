@@ -31,9 +31,14 @@ split); the sweep CLI over MN-QIH x {disc, gen}; the mesh step
 bit equal to train_step, then the train CLI under that group (and, with
 two cards, two NCCL ranks against one device); K5 and K6 on 2 and 4 vocab
 shards combined as the model axis combines them; the verify gate at
-flagship shapes; and VGG-16 (card against CPU, images/s in f32 and bf16,
-the prepro_img CLI).  Each path must have gone through its kernels and
-agree with a run of the plain versions on the same card.
+flagship shapes; VGG-16 (card against CPU, images/s in f32 and bf16, the
+prepro_img CLI); and the real-data recipe on generated VisDial JSON
+(prepro, prepro_img on the card, prepro again, then the parity runbook
+training and re-evaluating LF-QIH-disc and MN-QIH-gen).  On a machine with
+two cards also the generate CLI on two NCCL ranks at --mesh_model 2
+against one card, and every kernel launched on the second card in this
+process.  Each path must have gone through its kernels and agree with a
+run of the plain versions on the same card.
 
 Each phase prints one JSON line.  Then come the raw nvidia-smi line (card
 name, power limit), the kernel summary line (each kernel's launches on its
@@ -137,6 +142,13 @@ SHARD_RTOL = 1e-5
 # and fc7 / pool5 on the card (cuDNN, TF32 off) against the CPU, relative
 # to the largest |value| (f32 sums in another order over 15 layers)
 VGG_IMAGES, VGG_RTOL = 96, 1e-4
+# pipeline: the generated VisDial JSON's dialogs a split and its word pool
+# (every word appears well over prepro's min count of 5 in train, so the
+# vocab is the pool, "?" and four specials: 604, which a model axis of 2
+# divides), and the runbook's steps a model at batch 32 (one epoch)
+PIPE_DIALOGS = {"train": 256, "val": 64, "test": 32}
+PIPE_WORDS, PIPE_STEPS = 599, 8
+PIPE_CONFIG = {"batch_size": 32}
 # where the CLI phases write their checkpoints and outputs (git-ignored)
 SMOKE_DIR = os.path.join(ROOT, "build", "visdial_tpu_torch")
 # the other encoder families (label, encoder, flagship_setup options), each
@@ -2277,6 +2289,468 @@ def vgg_counts() -> tuple[float, int]:
     fc = 7 * 7 * 512 * 4096 + 4096 * 4096
     return ops + 2.0 * fc, n + fc + 2 * 4096
 
+# ---------------------------------------------------------------------------
+# the real-data recipe on generated inputs, decoding on a model axis, and
+# every kernel on a second card
+
+
+def visdial_json(path: str, n: int, seed: int, test: bool = False) -> None:
+    """VisDial-format JSON of n dialogs over a PIPE_WORDS-word pool: v0.9
+    style (10 answered rounds, 100 candidates with gt_index), or with test
+    a v1.0 test-style split (dialog i asks 1 + i % 10 questions, no answer
+    and no gt_index, the last asked round with its 100 candidates)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i:03d}" for i in range(PIPE_WORDS)])
+
+    def sents(count, lo, hi, end=""):
+        return [" ".join(rng.choice(words, size=int(rng.integers(lo, hi))))
+                + end for _ in range(count)]
+
+    nq, na, R, K = max(8 * n, 200), max(12 * n, 300), 10, 100
+    questions, answers = sents(nq, 3, 9, " ?"), sents(na, 1, 7)
+    dialogs = []
+    for i in range(n):
+        rounds = []
+        for r in range(1 + i % R if test else R):
+            ai = int(rng.integers(na))
+            others = rng.choice(na - 1, K - 1, replace=False)
+            opts = [int(o + (o >= ai)) for o in others]
+            slot = int(rng.integers(K))
+            opts.insert(slot, ai)
+            turn = {"question": int(rng.integers(nq))}
+            if not test:
+                turn.update(answer=ai, answer_options=opts, gt_index=slot)
+            elif r == i % R:
+                turn["answer_options"] = opts
+            rounds.append(turn)
+        dialogs.append({"image_id": 100_000 * seed + i,
+                        "caption": sents(1, 8, 16)[0], "dialog": rounds})
+    with open(path, "w") as f:
+        json.dump({"version": "1.0" if test else "0.9",
+                   "data": {"questions": questions, "answers": answers,
+                            "dialogs": dialogs}}, f)
+
+
+def vgg_weights() -> str:
+    """He-scaled VGG-16 weights from seed 0 in the JAX npz layout: the
+    vgg16 phase's file, written here when that phase has not run."""
+    from visdial_tpu_torch.models import vgg16
+
+    path = os.path.join(SMOKE_DIR, "smoke_vgg16", "vgg16.npz")
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        vgg16.save_params(vgg16.init_params(torch.Generator().manual_seed(0),
+                                            he=True), path)
+    return path
+
+
+def h5_route(split, vocab, root: str) -> dict:
+    """load_split's reference-artifact route: where h5py is missing, the
+    clear error (it names h5py and the npz route); where it is installed,
+    `split` written in the reference's schema (Lua 1-based option rows and
+    ground-truth positions, <START>/<END> left out of the params) read back
+    equal."""
+    from visdial_tpu_torch.data.dataset import load_split
+
+    d = os.path.join(root, "reference_h5")
+    os.makedirs(d, exist_ok=True)
+    try:
+        import h5py
+    except ImportError:
+        for name in ("visdial_data.h5", "data_img.h5", "visdial_params.json"):
+            open(os.path.join(d, name), "w").close()
+        try:
+            load_split(d, "val")
+        except ImportError as e:
+            check("needs h5py" in str(e) and "npz" in str(e),
+                  f"pipeline: the h5 route's error: {e}")
+            return {"h5py": False, "error": str(e)}
+        raise AssertionError("pipeline: the h5 route ran without h5py")
+    with h5py.File(os.path.join(d, "visdial_data.h5"), "w") as h:
+        for k, v in (("ques", split.ques), ("ques_length", split.ques_len),
+                     ("ans", split.ans), ("ans_length", split.ans_len),
+                     ("cap", split.cap), ("cap_length", split.cap_len),
+                     ("opt_list", split.opt_list),
+                     ("opt_length", split.opt_list_len),
+                     ("opt", split.opt_inds + 1),
+                     ("ans_index", split.gt_ind + 1)):
+            h[f"{k}_val"] = v
+    with h5py.File(os.path.join(d, "data_img.h5"), "w") as h:
+        h["images_val"] = split.img_feat
+    with open(os.path.join(d, "visdial_params.json"), "w") as f:
+        json.dump({"word2ind": {w: i for w, i in vocab.word2ind.items()
+                                if w not in ("<START>", "<END>")}}, f)
+    got, got_vocab = load_split(d, "val")
+    import numpy as np
+
+    same = got_vocab.word2ind == vocab.word2ind and all(
+        np.array_equal(getattr(got, k), getattr(split, k))
+        for k in ("ques", "ans", "cap", "opt_list", "opt_inds", "gt_ind",
+                  "img_feat"))
+    check(same, "pipeline: the reference h5 artifacts read back differently")
+    return {"h5py": True, "round_trip_equal": same}
+
+
+def pipeline(dev) -> dict:
+    """The README's real-data recipe end to end on generated inputs at the
+    flagship widths (f32): VisDial JSON (train, val and a v1.0 test-style
+    split) -> the prepro CLI without features -> prepro_img on the card
+    over train and val (seeded images, He-scaled seeded weights) -> the
+    prepro CLI with those fc7 features -> the parity runbook (--no-check, PIPE_STEPS steps at
+    batch 32) for LF-QIH-disc and MN-QIH-gen: both feature checks ok, both
+    models trained, checkpointed and re-evaluated through the evaluate CLI
+    with a finite MRR equal to the train CLI's in-training eval at the
+    same step, and each stage's kernels launched (check_launches); then
+    the h5 route (h5_route).  Prints each stage's wall time."""
+    import numpy as np
+
+    import visdial_tpu_torch.evaluate as evaluate_mod
+    import visdial_tpu_torch.train as train_mod
+    from visdial_tpu_torch import parity_run
+    from visdial_tpu_torch.config import Config
+    from visdial_tpu_torch.data import prepro_img
+    from visdial_tpu_torch.data.dataset import load_split
+
+    root = os.path.join(SMOKE_DIR, "smoke_pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stages = {}
+
+    def stage(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        stages[name] = time.perf_counter() - t
+        return out
+
+    splits = ("train", "val", "test")
+    js = {s: os.path.join(root, f"{s}.json") for s in splits}
+
+    def write_json():
+        for i, s in enumerate(splits):
+            visdial_json(js[s], PIPE_DIALOGS[s], seed=i + 1, test=s == "test")
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+
+    def prepro_cli(out_dir, feats=None):
+        argv = [sys.executable, "-m", "visdial_tpu_torch.data.prepro",
+                "--train_json", js["train"], "--val_json", js["val"],
+                "--test_json", js["test"], "--out_dir", out_dir]
+        for s in splits:
+            argv += [f"--img_feats_{s}", feats[s] if feats else ""]
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=300, cwd=ROOT, env=env)
+        check(proc.returncode == 0, f"prepro CLI exited {proc.returncode}:\n"
+              f"{proc.stderr[-4000:]}")
+
+    text_dir, data_dir = os.path.join(root, "text"), os.path.join(root, "data")
+    stage("json", write_json)
+    stage("prepro_text", prepro_cli, text_dir)
+    weights = stage("vgg16_weights", vgg_weights)
+    # prepro_img names its array images_val for a val split and images_train
+    # for any other (as the JAX CLI does), so the test split keeps prepro's
+    # zero features
+    feats = {s: os.path.join(root, f"feats_{s}.npz") for s in splits[:2]}
+    feats["test"] = ""
+
+    def features():
+        for i, s in enumerate(splits[:2]):
+            data, _ = load_split(text_dir, s)
+            images = os.path.join(root, f"images_{s}.npz")
+            np.savez(images, images=np.random.default_rng(10 + i).integers(
+                0, 256, (data.num_dialogs, 224, 224, 3), dtype=np.uint8))
+            run_cli(prepro_img.main, [
+                "--split_npz", os.path.join(text_dir, f"visdial_data_{s}.npz"),
+                "--weights", weights, "--images_npz", images, "--out",
+                feats[s], "--batch_size", "64", "--device", dev.type])
+
+    stage("prepro_img", features)
+    stage("prepro_feats", prepro_cli, data_dir, feats)
+    val, vocab = load_split(data_dir, "val")
+    test, _ = load_split(data_dir, "test")
+    check(val.img_feat.shape == (PIPE_DIALOGS["val"], 4096)
+          and vocab.size % 2 == 0 and not test.round_valid.any()
+          and int(test.round_scoreable.sum()) == PIPE_DIALOGS["test"],
+          f"pipeline: the prepro'd splits (fc7 {val.img_feat.shape}, vocab "
+          f"{vocab.size}, test rankable {int(test.round_valid.sum())})")
+
+    dims = os.path.join(root, "dims.json")
+    with open(dims, "w") as f:
+        json.dump({**PIPE_CONFIG, "eval_every": PIPE_STEPS,
+                   "save_every": PIPE_STEPS, "log_every": PIPE_STEPS}, f)
+    models = {}
+    orig = {"train": train_mod.main, "evaluate": evaluate_mod.main}
+    for key in ("lf-disc", "mn-gen"):
+        launches = {}
+
+        def counted(name):
+            def run(argv):
+                reset_launches()
+                t = time.perf_counter()
+                out = orig[name](argv)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                stages[f"{key}:{name}"] = time.perf_counter() - t
+                launches[name] = kernel_launches()
+                return out
+            return run
+
+        train_mod.main, evaluate_mod.main = counted("train"), counted("evaluate")
+        try:
+            summary, lines = run_cli(parity_run.main, [
+                "--data_dir", data_dir, "--work_dir", os.path.join(root, "runs"),
+                "--models", key, "--max_steps", str(PIPE_STEPS),
+                "--config_json", dims, "--no-check", "--device", dev.type])
+        finally:
+            train_mod.main, evaluate_mod.main = orig["train"], orig["evaluate"]
+        checks = [e for e in lines if e.get("event") == "img_feature_check"]
+        result = next(e for e in lines if e.get("event") == "parity_result")
+        evals = [e for e in lines if e.get("event") == "eval"]
+        saved = [e["step"] for e in lines if e.get("event") == "checkpoint"]
+        encoder, decoder = parity_run.MODELS[key]
+        cfg = Config(encoder=encoder, decoder=decoder)
+        train_need = path_kernels(cfg, True)[0] | path_kernels(cfg, False)[0]
+        check([c["split"] for c in checks] == ["train", "val"]
+              and all(c["ok"] for c in checks),
+              f"pipeline {key}: feature checks {checks}")
+        check(lines[-1].get("event") == "parity_summary"
+              and math.isfinite(result["mrr"]) and saved == [PIPE_STEPS]
+              and result["checkpoint"].endswith(f"step_{PIPE_STEPS:08d}")
+              and len(evals) == 1 and evals[0]["step"] == PIPE_STEPS,
+              f"pipeline {key}: result {result}, checkpoints {saved}, evals "
+              f"{[(e['step'], e['mrr']) for e in evals]}")
+        check(result["mrr"] == evals[0]["mrr"],
+              f"pipeline {key}: the evaluate CLI's MRR {result['mrr']} on the "
+              f"step-{PIPE_STEPS} checkpoint against the train CLI's "
+              f"{evals[0]['mrr']} at that step")
+        check(all(launches["train"][k] > 0 for k in train_need)
+              and all(n == 0 for k, n in launches["train"].items()
+                      if k not in train_need),
+              f"pipeline {key} train CLI: launches {launches['train']}, "
+              f"expected > 0 for {sorted(train_need)} only")
+        check_launches(launches["evaluate"], cfg, False,
+                       f"pipeline {key} evaluate CLI")
+        models[key] = {"mrr": result["mrr"], "train_eval_mrr": evals[0]["mrr"],
+                       "checkpoint": result["checkpoint"],
+                       "train_losses": [e["loss"] for e in lines
+                                        if e.get("event") == "train"],
+                       "launches": launches,
+                       "feature_zero_frac": [c["zero_frac"] for c in checks]}
+    h5 = stage("h5_route", h5_route, val, vocab, root)
+    row = {"phase": "pipeline", "dialogs": PIPE_DIALOGS, "steps": PIPE_STEPS,
+           **PIPE_CONFIG, "vocab": vocab.size, "models": models, "h5": h5,
+           "stage_seconds": stages, "data_dir": data_dir}
+    emit(row)
+    return row
+
+
+def timed_generate(argv: list) -> tuple[float, list]:
+    """The generate CLI in this process: (its seconds, each batch's decode
+    ms, model_generate between synchronisations)."""
+    from visdial_tpu_torch import generate
+
+    decode = generate.model_generate
+    batch_ms = []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode(*a, **kw)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    generate.model_generate = timed
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_cli(generate.main, argv)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, batch_ms
+    finally:
+        generate.model_generate = decode
+
+
+def _gen_axis_rank(rank: int, argvs: list) -> list:
+    """One rank of a 2-card NCCL world at --mesh_model 2: the generate CLI
+    once for each argv (rank 0 writes the JSON); timed_generate's numbers
+    for each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return [timed_generate(argv) for argv in argvs]
+
+
+def generate_model_axis(dev, pipe: dict) -> dict:
+    """The generate CLI on two NCCL ranks at --mesh_model 2 (each card
+    decodes on the whole params, as the CLI holds them) on the pipeline's
+    MN-QIH-gen checkpoint, against the same CLI on one card: greedy, beam 5
+    and sampled (same seed) strings equal, log-probs within SCORE_TOL; each
+    call's seconds and each batch's model_generate time (encoder and
+    decode) beside one card's.  Runs only where the machine has two
+    cards."""
+    from visdial_tpu_torch.parallel.launch import run_ranks
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        row = {"phase": "generate_model_axis", "ran": False,
+               "reason": f"{cards} CUDA device: two NCCL ranks at "
+                         "--mesh_model 2 need two cards"}
+        emit(row)
+        return row
+    root = os.path.join(SMOKE_DIR, "smoke_pipeline")
+    base = ["--load_path", pipe["models"]["mn-gen"]["checkpoint"],
+            "--data_dir", pipe["data_dir"], "--num_dialogs", "0"]
+    modes = {"greedy": [], "beam5": ["--beam_size", "5"],
+             "sample": ["--sample", "--temperature", "1.0", "--seed", "3"]}
+    one, one_t = {}, {}
+    for mode, extra in modes.items():
+        out = os.path.join(root, f"gen1_{mode}.json")
+        one_t[mode] = timed_generate(base + ["--out_path", out, *extra])
+        with open(out) as f:
+            one[mode] = json.load(f)
+    outs = {mode: os.path.join(root, f"gen2_{mode}.json") for mode in modes}
+    two_t = run_ranks(_gen_axis_rank, 2, [
+        base + ["--mesh_data", "1", "--mesh_model", "2", "--out_path",
+                outs[mode], *extra] for mode, extra in modes.items()],
+        timeout=600)[0]
+    row = {"phase": "generate_model_axis", "ran": True, "ranks": 2,
+           "vocab": pipe["vocab"], "dialogs": PIPE_DIALOGS["val"]}
+    for (mode, extra), (s2, ms2) in zip(modes.items(), two_t):
+        with open(outs[mode]) as f:
+            got = json.load(f)
+        want = one[mode]
+        rounds, lp_err = 0, 0.0
+        check(len(got["dialogs"]) == len(want["dialogs"])
+              == PIPE_DIALOGS["val"], f"generate_model_axis {mode}: dialogs")
+        for g, w in zip(got["dialogs"], want["dialogs"]):
+            check(len(g["rounds"]) == len(w["rounds"]),
+                  f"generate_model_axis {mode}: rounds")
+            for gr, wr in zip(g["rounds"], w["rounds"]):
+                rounds += 1
+                check(gr["generated"] == wr["generated"],
+                      f"generate_model_axis {mode}: {gr} on two cards, {wr} "
+                      "on one")
+                lp_err = max(lp_err, abs(gr["log_prob"] - wr["log_prob"]))
+        check(lp_err <= SCORE_TOL, f"generate_model_axis {mode}: log-prob "
+              f"err {lp_err} (tol {SCORE_TOL})")
+        s1, ms1 = one_t[mode]
+        row[mode] = {"rounds": rounds, "log_prob_max_abs_err": lp_err,
+                     "cli_seconds_two_cards": s2, "cli_seconds_one_card": s1,
+                     "batch_ms_two_cards": ms2, "batch_ms_one_card": ms1}
+    emit(row)
+    return row
+
+
+def kernels_on(dev, dtype) -> dict:
+    """Every kernel's wrapper once on `dev` in `dtype` against its plain
+    version there: K1 at 320 rows (64 x 64 tiles) and 600 rows (the wide
+    tiles), K2 at both, K3, K4 on both routes, K5 and K6 at the gen
+    training tile.  {kernel: max abs err (K2 relative to the largest
+    reference value, K5 to the largest |logp|; K6 its error over its
+    limit)}, each within the smoke's limit; each launches once a call."""
+    from visdial_tpu_torch.ops import attention_cuda
+    from visdial_tpu_torch.ops.attention import (attention_fusion_ref,
+                                                 attention_plain)
+    from visdial_tpu_torch.ops.lm_score import (lm_dlogits_plain,
+                                                lm_token_logprobs_lse_plain)
+    from visdial_tpu_torch.ops.lstm import (INIT_SCALE, lstm_layer_bwd_plain,
+                                            lstm_layer_plain)
+
+    w = _wrappers()
+    g = torch.Generator().manual_seed(dev.index or 0)
+    errs = {}
+
+    def err(a, r, rel=False):
+        scale = float(r.float().abs().max()) if rel else 1.0
+        return float((a.float() - r.float()).abs().max()) / max(scale, 1e-30)
+
+    before = kernel_launches()
+    for N, T, E, H in ((320, 16, 300, 512), (600, 5, 300, 512)):
+        wt = torch.empty(E + H, 4 * H).uniform_(-INIT_SCALE, INIT_SCALE,
+                                                generator=g)
+        b = torch.empty(4 * H).uniform_(-0.5, 0.5, generator=g)
+        x = torch.randn(N, T, E, generator=g).to(dtype)
+        mask = (torch.rand(N, T, generator=g) < 0.6).float()
+        h0, c0 = torch.randn(2, N, H, generator=g)
+        args = [t.to(dev) for t in (wt, b, x, mask, h0, c0)]
+        errs[f"lstm_layer_{N}"] = max(
+            err(a, r) for a, r in zip(w["lstm_layer"](*args),
+                                      lstm_layer_plain(*args)))
+        hp, cp, ghs = (torch.randn(N, T, H, generator=g).to(dtype).to(dev)
+                       for _ in range(3))
+        bargs = args[:4] + [hp, cp, ghs] + args[4:]
+        errs[f"lstm_layer_bwd_{N}"] = max(
+            err(a, r, True) for a, r in zip(w["lstm_layer_bwd"](*bargs),
+                                            lstm_layer_bwd_plain(*bargs)))
+    for B in (1, 32):
+        R = S = 10
+        H = 512
+        q = (torch.randn(B, R, H, generator=g) * 0.5).to(dev, dtype)
+        s = (torch.randn(B, S, H, generator=g) * 0.5).to(dev, dtype)
+        valid = (torch.arange(S)[None, :] <= torch.arange(R)[:, None]).float()
+        valid = valid.to(dev)[None].expand(B, R, S)
+        fw = torch.empty(2 * H, H).uniform_(-0.08, 0.08, generator=g).to(dev)
+        fb = torch.empty(H).uniform_(-0.08, 0.08, generator=g).to(dev)
+        route = attention_cuda.fusion_route(B, R, S, H, dtype)
+        errs[f"attention_fusion_{route}"] = err(
+            w["attention_fusion"](q, s, valid, fw, fb),
+            attention_fusion_ref(q, s, valid, fw, fb))
+        if B == 32:
+            errs["attention"] = err(w["attention"](q, s, valid),
+                                    attention_plain(q, s, valid))
+    NT, H, V = 2880, 512, 8804
+    x = torch.tanh(torch.randn(NT, H, generator=g)).to(dtype).to(dev)
+    wl = (torch.randn(H, V, generator=g) * 0.1).to(dev)
+    b = (torch.randn(V, generator=g) * 0.1).to(dev)
+    tgt = torch.randint(0, V, (NT,), generator=g).to(dev)
+    cot = torch.randn(NT, generator=g).to(dev)
+    lp, lse = w["lm_score"](x, wl, b, tgt)
+    want_lp, want_lse = lm_token_logprobs_lse_plain(x, wl, b, tgt)
+    errs["lm_score"] = max(err(lp, want_lp), err(lse, want_lse)) / max(
+        1.0, float(want_lp.abs().max()))
+    # K6: its per-element error over its limit (dlogits_over_limit, <= 1)
+    errs["lm_dlogits"] = dlogits_over_limit(
+        w["lm_dlogits"](x, wl, b, tgt, want_lse, cot),
+        dlogits_ref(x, wl, b, tgt, want_lse, cot), cot, dtype)
+    torch.cuda.synchronize(dev)
+    after = kernel_launches()
+    launched = {k: after[k] - before[k] for k in after}
+    check(launched == {"lstm_layer": 2, "lstm_layer_bwd": 2, "attention": 1,
+                       "attention_fusion": 2, "lm_score": 1, "lm_dlogits": 1},
+          f"two_cards {dev} {dtype}: launches {launched}")
+    name = str(dtype).split(".")[1]
+    limits = {k: (LM_TOL if k == "lm_score" else 1.0 if k == "lm_dlogits"
+                  else GRAD_TOL[name] if k.startswith("lstm_layer_bwd")
+                  else TOL[name]) for k in errs}
+    bad = {k: (e, limits[k]) for k, e in errs.items() if not e <= limits[k]}
+    check(not bad, f"two_cards {dev} {dtype}: kernel vs plain {bad}")
+    return errs
+
+
+def two_cards(dev) -> dict:
+    """Every kernel (K1-K6, f32 and bf16) launched in this process on
+    cuda:0 and then on cuda:1, each against its plain version on that card:
+    a kernel's shared-memory limit is a device's attribute, which the
+    launchers must set on each card (a card without it refuses the launch
+    with "invalid argument").  Runs only where the machine has two
+    cards."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        row = {"phase": "two_cards", "ran": False,
+               "reason": f"{cards} CUDA device: the second card's launches "
+                         "need a second card"}
+        emit(row)
+        return row
+    row = {"phase": "two_cards", "ran": True, "errs": {}}
+    for i in (0, 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            row["errs"][f"cuda:{i}:{str(dtype).split('.')[1]}"] = kernels_on(
+                torch.device("cuda", i), dtype)
+    emit(row)
+    return row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2337,6 +2811,9 @@ def main() -> None:
     sharded = timed("vocab_shards", vocab_shards, dev, gen)
     verified = timed("verify", verify_phase)
     timed("vgg16", vgg16_phase, dev)
+    pipe = timed("pipeline", pipeline, dev)
+    timed("generate_model_axis", generate_model_axis, dev, pipe)
+    timed("two_cards", two_cards, dev)
     emit({"phase": "wall_seconds", **walls, "total": sum(walls.values())})
 
     # launches: each kernel's count from the run of the main path it is
@@ -2363,6 +2840,9 @@ def main() -> None:
                     "ddp": meshed["launches"],
                     "vocab_shards": sharded["launches"],
                     "verify": verified["launches"]})
+    for key, m in pipe["models"].items():
+        for stage, n in m["launches"].items():
+            by_path[f"pipeline:{key}:{stage}"] = n
 
     def head_row(rows, shape, **match):
         return next(r for r in rows if r["shape"] == shape

@@ -580,3 +580,59 @@ def test_attention_only_kernel_spatial_mask(dev, B, dtype):
     for a, r in zip(*grads):
         scale = float(r.float().abs().max())
         assert float((a.float() - r.float()).abs().max()) <= TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_kernel_launches_on_a_second_card(dtype):
+    """One process launches K1-K6 on cuda:0 and then on cuda:1, each held
+    against its plain version on that card.  A kernel's dynamic
+    shared-memory limit is an attribute of a device, so the launchers must
+    raise it on each card they launch on (csrc/common.cuh::allow_smem);
+    a card without it refuses the launch with "invalid argument"."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for i in (0, 1):
+        dev = torch.device("cuda", i)
+        for N, T, E, H in ((320, 16, 300, 512), (600, 5, 20, 36)):
+            w, b, x, mask, h0, c0, g = _lstm_case(N, T, E, H, dtype, N + i)
+            args = [t.to(dev) for t in (w, b, x, mask, h0, c0)]
+            for a, r in zip(lstm_layer(*args), lstm_layer_plain(*args)):
+                assert a.device == dev
+                assert float((a.float() - r.float()).abs().max()) <= TOL[dtype]
+            hp, cp, ghs = (torch.randn(N, T, H, generator=g).to(dtype).to(dev)
+                           for _ in range(3))
+            bargs = args[:4] + [hp, cp, ghs] + args[4:]
+            for a, r in zip(lstm_layer_bwd(*bargs), lstm_layer_bwd_plain(*bargs)):
+                scale = float(r.float().abs().max())
+                assert float((a.float() - r.float()).abs().max()) <= (
+                    TOL[dtype] * scale)
+        g = torch.Generator().manual_seed(i)
+        for B in (1, 32):            # K4 on its few-rows route, then tiles
+            q = (torch.randn(B, 10, 512, generator=g) * 0.5).to(dev, dtype)
+            s = (torch.randn(B, 10, 512, generator=g) * 0.5).to(dev, dtype)
+            fw = torch.empty(1024, 512).uniform_(-0.08, 0.08, generator=g).to(dev)
+            fb = torch.empty(512).uniform_(-0.08, 0.08, generator=g).to(dev)
+            valid = _causal(B, 10, 10, dev, False)
+            got = attention_fusion(q, s, valid, fw, fb)
+            want = attention_fusion_ref(q, s, valid, fw, fb)
+            assert float((got.float() - want.float()).abs().max()) <= TOL[dtype]
+        got = masked_slot_attention(q, s, valid)
+        want = attention_plain(q, s, valid)
+        assert float((got.float() - want.float()).abs().max()) <= TOL[dtype]
+        x, w, b, tgt, cot = (t.to(dev) for t in _lm_case(257, 520, 8804, dtype))
+        lp, lse = lm_token_logprobs_lse(x, w, b, tgt)
+        want_lp, want_lse = lm_token_logprobs_lse_plain(x, w, b, tgt)
+        scale = max(1.0, float(want_lp.abs().max()))
+        assert float((lp - want_lp).abs().max()) <= 1e-5 * scale
+        dl = lm_dlogits(x, w, b, tgt, want_lse, cot)
+        want_dl = _dlogits_ref(x, w, b, tgt, want_lse, cot)
+        r = want_dl.float().abs()
+        if dtype == torch.bfloat16:
+            lim = torch.where(r > 0, torch.exp2((torch.frexp(r).exponent - 8)
+                                                .float()), 0.0)
+            lim = lim + 2.0 ** -8 * cot.abs()[:, None] / r.shape[1]
+        else:
+            lim = 1e-5 * (r + cot.abs()[:, None] / r.shape[1])
+        assert bool(((dl.float() - want_dl.float()).abs() <= lim).all())
+        torch.cuda.synchronize(dev)

@@ -196,3 +196,33 @@ def test_plain_lm_versions_on_vocab_shards():
                                      shard.local_ids(tgt), lse, cot))
     torch.testing.assert_close(torch.cat(dlog, dim=1),
                                lm_dlogits_plain(x, w, b, tgt, lse, cot))
+
+
+def test_remat_recompute_on_another_thread_reads_the_vocab_shard():
+    """The remat recompute of the encoder runs in the backward, on whatever
+    thread the autograd engine uses, where a shard held in thread-local
+    state would be lost (the whole-vocab lookup on a sharded table: a wrong
+    answer, no error).  The checkpointed closure holds the shard, so on a
+    gloo (1, 2) mesh (vocab 54, the embedding and LM head split in two) the
+    gen step's gradients with the backward on a fresh threading.Thread
+    equal the main thread's bit for bit, on both ranks."""
+    cfg = PortConfig(**{k: getattr(small_config(), k)
+                        for k in PortConfig.__dataclass_fields__})
+    data, vocab = make_synthetic_split(cfg, num_dialogs=4, seed=1)
+    cfg = cfg.replace(encoder="mn-ques-im-hist", decoder="gen",
+                      vocab_size=vocab.size, batch_size=4, remat=True,
+                      dropout=0.3)
+    assert cfg.vocab_size % 2 == 0
+    from visdial_tpu_torch.models.model import model_init
+    from visdial_tpu_torch.utils.params import params_to_numpy
+
+    params_np = params_to_numpy(model_init(cfg, seed=2))
+    batch = BatchAssembler(data, vocab, cfg).assemble(np.arange(4)).as_dict()
+    results = run_ranks(workers.remat_grads, 2, cfg, params_np, batch, (1, 2),
+                        timeout=120)
+    for main, thread in results:
+        assert main.keys() == thread.keys()
+        for k in main:
+            np.testing.assert_array_equal(thread[k], main[k], err_msg=k)
+    # each rank's table gradient is its own half of the vocab's rows
+    assert results[0][0]["embed/table"].shape[0] == cfg.vocab_size // 2

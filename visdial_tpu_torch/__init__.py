@@ -5,10 +5,14 @@ counterpart there.  This package imports torch and never JAX, and nothing
 of the JAX package: it keeps its own copies of the configuration
 (config.py) and of the data modules it needs (data/).
 
-Ported so far: the MN-family encoders with the disc and gen decoders,
-trained (train.py), evaluated (eval_harness.py) and served (infer.py), with
-every TPU kernel of those paths as a hand-written CUDA kernel (csrc/).
-ROADMAP.md lists what is still to be ported.
+It does what the JAX package does but its bench script: all nine encoders
+with either decoder, trained (train.py), evaluated (eval_harness.py,
+evaluate.py), fine-tuned, swept, decoded (generate.py) and served
+(infer.py), on one card or a (data, model) grid of them
+(parallel/mesh.py); the data CLIs (data/prepro.py, data/ingest_h5.py,
+data/prepro_img.py), the verify gate and the parity runbook
+(parity_run.py).  Every TPU kernel is a hand-written CUDA kernel
+(csrc/).
 """
 
 from .config import Config

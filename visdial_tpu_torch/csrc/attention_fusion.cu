@@ -537,10 +537,6 @@ fusion_tiles_kernel(const T* __restrict__ q, const T* __restrict__ mem,
 // ---------------------------------------------------------------------------
 // Launches
 
-template <typename K> cudaError_t allow_smem(K kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-}
-
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // A launch in clusters of `cluster` blocks along x; `dependent` lets it start
@@ -583,7 +579,7 @@ cudaError_t launch_attention(const void* q, const void* slots, const float* vali
   const AttnSmem L = attn_smem(1, R, S, cols, sizeof(T));
   if (L.bytes > kMaxSmem) return cudaErrorInvalidValue;
   const auto kernel = attention_kernel<T>;
-  static const cudaError_t attr = allow_smem(kernel);
+  const cudaError_t attr = vd::allow_smem<attention_kernel<T>, kMaxSmem>();
   if (attr != cudaSuccess) return attr;
   const bool vec = H % Vec<T>::N == 0 && aligned16(q) && aligned16(slots) && aligned16(out);
   return launch_cluster(kernel, dim3(B * cl), kThreads, L.bytes, cl, false, stream,
@@ -610,7 +606,7 @@ cudaError_t launch_stream(const void* q, const void* slots, const float* valid,
   const long long smem = stream_smem<T>(B, R, S, H, cl);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const auto kernel = fusion_stream_kernel<T>;
-  static const cudaError_t attr = allow_smem(kernel);
+  const cudaError_t attr = vd::allow_smem<fusion_stream_kernel<T>, kMaxSmem>();
   if (attr != cudaSuccess) return attr;
   const bool vec = H % Vec<T>::N == 0 && aligned16(q) && aligned16(slots) && aligned16(wf);
   return launch_cluster(kernel, dim3(cl, (H + kStreamCols - 1) / kStreamCols), kThreads,
@@ -628,7 +624,8 @@ cudaError_t launch_tiles(const void* q, const void* mem, const void* wk, const f
   const int tiles_m = (M + kTileM - 1) / kTileM, tiles_n = (H + kTileN - 1) / kTileN;
   if (tiles_m > 65535 || ks > 2 * Hp / BK) return cudaErrorInvalidValue;
   const auto kernel = fusion_tiles_kernel<T, kTileM, kTileN, kTileStages>;
-  static const cudaError_t attr = allow_smem(kernel);
+  const cudaError_t attr =
+      vd::allow_smem<fusion_tiles_kernel<T, kTileM, kTileN, kTileStages>, kMaxSmem>();
   if (attr != cudaSuccess) return attr;
   return launch_cluster(kernel, dim3(ks, tiles_n, tiles_m), kTileM * 2, L::BYTES, ks, true,
                         stream, (const T*)q, (const T*)mem, (const T*)wk, bias, (T*)out, M,

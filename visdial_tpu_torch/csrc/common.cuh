@@ -1,5 +1,6 @@
-// Helpers shared by the port's kernels: f32 <-> activation-type conversion,
-// the logistic function, warp reductions, and the tensor-core tile product
+// Helpers shared by the port's kernels: the launchers' per-device shared-
+// memory attribute, f32 <-> activation-type conversion, the logistic
+// function, warp reductions, and the tensor-core tile product
 // of the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu) and the LM head's
 // (lm_score.cu).
 #pragma once
@@ -8,9 +9,40 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace vd {
+
+// The device ordinals the launchers track (a larger one gets
+// cudaErrorInvalidDevice).
+constexpr int kMaxDevices = 64;
+
+// For each kernel and device: 0 until the kernel's dynamic shared-memory
+// limit is raised there, then that attribute call's cudaError_t plus one.
+// The attribute belongs to a device, so a process that launches a kernel
+// on two cards sets it on each.
+template <auto Kernel> inline std::atomic<int> smem_attr_state[kMaxDevices];
+
+// Raises Kernel's dynamic shared-memory limit to Bytes on the current
+// device, once a device, and returns that call's error on every later call
+// too (the launchers return it to the wrapper, which raises).  After the
+// first call a launch pays one atomic load; two threads that race to the
+// first call both set the same attribute, which is harmless.
+template <auto Kernel, int Bytes> cudaError_t allow_smem() {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::atomic<int>& state = smem_attr_state<Kernel>[dev];
+  int s = state.load(std::memory_order_acquire);
+  if (s == 0) {
+    s = 1 + (int)cudaFuncSetAttribute((const void*)Kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, Bytes);
+    state.store(s, std::memory_order_release);
+  }
+  return (cudaError_t)(s - 1);
+}
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }

@@ -293,8 +293,8 @@ int launch_score(const void* x, const void* w, const float* b, const int* tgt,
   using L = vd::TileSmem<T, BM, kBN, STAGES>;
   if (Hp % vd::TileK<T>::BK != 0) return (int)cudaErrorInvalidValue;
   const auto kernel = lm_score_partial_kernel<T, BM, kBN, STAGES>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  const cudaError_t attr =
+      vd::allow_smem<lm_score_partial_kernel<T, BM, kBN, STAGES>, L::BYTES>();
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((NT + BM - 1) / BM, splits);
   kernel<<<grid, BM * 2, L::BYTES, stream>>>((const T*)x, (const T*)w, b, tgt, part,
@@ -315,8 +315,7 @@ int launch_dlogits(const void* x, const void* w, const float* b, const int* tgt,
   if (Hp % vd::TileK<T>::BK != 0 || (NT + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   const auto kernel = lm_dlogits_kernel<T, BM, kBN, STAGES>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  const cudaError_t attr = vd::allow_smem<lm_dlogits_kernel<T, BM, kBN, STAGES>, L::BYTES>();
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((V + kBN - 1) / kBN, (NT + BM - 1) / BM);
   kernel<<<grid, BM * 2, L::BYTES, stream>>>((const T*)x, (const T*)w, b, tgt, lse, g,

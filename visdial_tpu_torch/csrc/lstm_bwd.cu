@@ -234,12 +234,9 @@ int bwd_launch(const BwdArgs<T>& a, cudaStream_t stream) {
   constexpr int BK = vd::TileK<T>::BK;
   const auto gates = lstm_bwd_gates_kernel<T, BM, BN, STAGES>;
   const auto dh = lstm_bwd_dh_kernel<T, BM, BN, STAGES>;
-  static const cudaError_t attr = [&] {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gates, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-    return e != cudaSuccess ? e : cudaFuncSetAttribute(
-        dh, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  }();
+  cudaError_t attr = vd::allow_smem<lstm_bwd_gates_kernel<T, BM, BN, STAGES>, L::BYTES>();
+  if (attr == cudaSuccess)
+    attr = vd::allow_smem<lstm_bwd_dh_kernel<T, BM, BN, STAGES>, L::BYTES>();
   if (attr != cudaSuccess) return (int)attr;
   const int ntm = (a.N + BM - 1) / BM;
   const int nkt = (4 * a.H + BK - 1) / BK, ck = (nkt + a.S - 1) / a.S;

@@ -172,8 +172,7 @@ template <typename T, int BM, int BN, int STAGES>
 int fwd_launch(const FwdArgs<T>& a, cudaStream_t stream) {
   using L = vd::TileSmem<T, BM, BN, STAGES>;
   const auto step = lstm_fwd_step_kernel<T, BM, BN, STAGES>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      step, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  const cudaError_t attr = vd::allow_smem<lstm_fwd_step_kernel<T, BM, BN, STAGES>, L::BYTES>();
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((4 * a.H + BN - 1) / BN, (a.N + BM - 1) / BM);
   for (int t = 0; t < a.Tn; ++t) {

@@ -203,17 +203,25 @@ class Vocabulary:
 
 
 def load_split(data_dir: str, split: str) -> tuple[VisDialSplit, Vocabulary]:
-    """Load a split from data_dir's npz/json artifacts (visdial_data_<split>
-    .npz + visdial_params.json, as `python -m visdial_tpu.data.prepro` or
-    `python -m visdial_tpu.data.ingest_h5` writes them).  Unlike the JAX
-    package's load_split this copy does not read the reference's h5
-    artifacts directly: convert them once with ingest_h5."""
+    """Load a split from data_dir (dataset.py::load_split).
+
+    Accepts either artifact family found there:
+      * native npz/json (written by the prepro / ingest_h5 CLIs), or
+      * the reference's visdial_data.h5 + visdial_params.json + data_img.h5
+        (reference: data/prepro.py + data/prepro_img.lua writers), read
+        through data/ingest_h5.py where no npz exists -- so
+        reference-produced data works with no conversion step where h5py
+        is installed.
+    """
     npz = os.path.join(data_dir, f"visdial_data_{split}.npz")
     if not os.path.exists(npz):
-        raise FileNotFoundError(
-            f"{npz} not found: the port reads the npz/json artifacts; "
-            "convert the reference's h5 files with "
-            "`python -m visdial_tpu.data.ingest_h5`")
+        from .ingest_h5 import (
+            load_split_from_reference_dir,
+            reference_artifacts_present,
+        )
+
+        if reference_artifacts_present(data_dir):
+            return load_split_from_reference_dir(data_dir, split)
     data = VisDialSplit.load(npz)
     vocab = Vocabulary.load(os.path.join(data_dir, "visdial_params.json"))
     return data, vocab

@@ -37,7 +37,7 @@ the metrics from them and returns rank 0's dict.  A batch the data axis
 does not divide is replicated instead: every rank scores all of it and no
 gather runs (JAX's mesh.py::shard_batch policy).  The disc option table is
 built whole on every rank; the vocab-dimensioned leaves are read as the
-rank's shard (parallel/mesh.py::vocab_parallel).
+rank's shard, passed down as an argument (parallel/mesh.py::VocabShard).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ from .data.loader import EvalLoader
 from .models.encoders import encoder_apply
 from .models.model import (_impl, batch_to_device, model_option_table,
                            model_scores, model_scores_with_table)
-from .parallel.mesh import Mesh, slice_dialogs, vocab_parallel
+from .parallel.mesh import Mesh, VocabShard, slice_dialogs
 from .parallel.train_step import gen_rows_score
 from .utils.metrics import (candidate_rankings, ranks_from_scores,
                             retrieval_metrics)
@@ -237,16 +237,17 @@ class _GenBucketPlan:
         return out
 
 
-def _disc_scorer(params, opt_list, cfg: Config, impl: str):
+def _disc_scorer(params, opt_list, cfg: Config, impl: str,
+                 shard: VocabShard | None):
     """score(dev) -> (B, R, K) disc scores through the option table, which
     is built here (it depends on the params)."""
-    table = model_option_table(params, opt_list, cfg, impl=impl)
+    table = model_option_table(params, opt_list, cfg, impl=impl, shard=shard)
     return lambda dev: model_scores_with_table(params, dev, table, cfg,
-                                               impl=impl)
+                                               impl=impl, shard=shard)
 
 
 def _gen_scorer(params, opt_list, opt_len, widths: list, vocab: Vocabulary,
-                cfg: Config, impl: str):
+                cfg: Config, impl: str, shard: VocabShard | None):
     """score(dev) -> (B, R, K) gen scores: the encoder, every active
     bucket's rows scored at its width (the batch's rows{i} / ridx{i} /
     scat{i}) and scattered into a (B*R*K + 1,) buffer whose last slot takes
@@ -255,7 +256,7 @@ def _gen_scorer(params, opt_list, opt_len, widths: list, vocab: Vocabulary,
 
     def score(dev):
         joint = encoder_apply(params["encoder"], params["embed"], dev, cfg,
-                              impl=impl)                          # (N, H)
+                              impl=impl, shard=shard)             # (N, H)
         B = dev["gt_ind"].shape[0]
         brk = B * R * K
         flat = torch.zeros(brk + 1, dtype=torch.float32, device=joint.device)
@@ -263,7 +264,7 @@ def _gen_scorer(params, opt_list, opt_len, widths: list, vocab: Vocabulary,
             flat[dev[f"scat{i}"]] = gen_rows_score(
                 params, joint, opt_list, opt_len, dev[f"rows{i}"],
                 dev[f"ridx{i}"], width, vocab.start, vocab.end, cfg,
-                impl=impl).float()
+                impl=impl, shard=shard).float()
         return flat[:brk].reshape(B, R, K)
 
     return score
@@ -351,6 +352,7 @@ class _ResidentEvalBase:
         self.vocab, self.cfg, self.ties = vocab, cfg, ties
         self.device = torch.device(device)
         self.mesh, self.sl = mesh, _data_slice(mesh, batch_size)
+        self.shard = None if mesh is None else mesh.vocab_shard(cfg.vocab_size)
         self.plan = self._plan(data, batch_size)
         loader = EvalLoader(data, vocab, _float32(cfg), batch_size=batch_size,
                             option_tokens=False)
@@ -420,7 +422,8 @@ class _ResidentDiscEval(_ResidentEvalBase):
     extra_keys = ("opt_inds", "gt_ind")
 
     def _scorer(self, params, impl):
-        return _disc_scorer(params, self.tables["opt_list"], self.cfg, impl)
+        return _disc_scorer(params, self.tables["opt_list"], self.cfg, impl,
+                            self.shard)
 
 
 class _ResidentGenEval(_ResidentEvalBase):
@@ -436,7 +439,7 @@ class _ResidentGenEval(_ResidentEvalBase):
     def _scorer(self, params, impl):
         return _gen_scorer(params, self.tables["opt_list"],
                            self.tables["opt_len"], self.plan.active,
-                           self.vocab, self.cfg, impl)
+                           self.vocab, self.cfg, impl, self.shard)
 
 
 def _resident_eval(res: _ResidentEvalBase, params, data: VisDialSplit,
@@ -499,11 +502,9 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
     With a mesh every rank must call, with the params it holds (the vocab
     leaves its shard); each returns the same metrics (rank 0's) and the
     whole split's ranks and rankings."""
-    shard = None if mesh is None else mesh.vocab_shard(cfg.vocab_size)
-    with vocab_parallel(shard):
-        out = _evaluate(params, data, vocab, cfg, device, batch_size, ties,
-                        impl, return_ranks, collect_rankings, resident,
-                        resident_max_bytes, mesh)
+    out = _evaluate(params, data, vocab, cfg, device, batch_size, ties, impl,
+                    return_ranks, collect_rankings, resident,
+                    resident_max_bytes, mesh)
     if isinstance(out, tuple):
         return (_rank0_metrics(out[0], mesh), *out[1:])
     return _rank0_metrics(out, mesh)
@@ -514,6 +515,7 @@ def _evaluate(params, data, vocab, cfg, device, batch_size, ties, impl,
               mesh):
     device = torch.device(device)
     impl = impl or _impl(cfg, device)
+    shard = None if mesh is None else mesh.vocab_shard(cfg.vocab_size)
     direct = cfg.decoder == "gen" and not cfg.gen_eval_bucketed
     bs = batch_size or cfg.batch_size
     if resident and not direct:
@@ -532,17 +534,19 @@ def _evaluate(params, data, vocab, cfg, device, batch_size, ties, impl,
     with torch.inference_mode():
         if direct:
             keys += ("opt_in", "opt_out")
-            score = lambda dev: model_scores(params, dev, cfg, impl=impl)  # noqa: E731
+            score = lambda dev: model_scores(params, dev, cfg, impl=impl,  # noqa: E731
+                                             shard=shard)
         else:
             tables = batch_to_device(_option_tables(data, cfg), device)
             if cfg.decoder == "disc":
                 keys += ("opt_inds",)
-                score = _disc_scorer(params, tables["opt_list"], cfg, impl)
+                score = _disc_scorer(params, tables["opt_list"], cfg, impl,
+                                     shard)
             else:
                 plan = _GenBucketPlan.cached(data, bs)
                 score = _gen_scorer(params, tables["opt_list"],
                                     tables["opt_len"], plan.active, vocab,
-                                    cfg, impl)
+                                    cfg, impl, shard)
     xfer = _Transfer(device)
     sl = _data_slice(mesh, bs)
     all_ranks, held = [], []

@@ -20,12 +20,15 @@ Usage:
         [--sample --temperature 0.8 | --beam_size 5] \
         [--out_path generated.json] [--device cuda | --device cpu]
 
-Under torchrun, --mesh_data lays the processes out as a data axis
-(parallel/mesh.py): each rank decodes its dialogs of every batch (all of a
-batch the axis does not divide), the answers are gathered in split order,
-and rank 0 alone writes them; a sampling rank's generator is seeded with
---seed plus its data coordinate.  Decoding on a model axis > 1 is not
-ported and exits.
+Under torchrun, --mesh_data / --mesh_model lay the processes out
+(parallel/mesh.py): each data rank decodes its dialogs of every batch (all
+of a batch the data axis does not divide), the answers are gathered in
+split order, and rank 0 alone writes them.  The params stay whole on every
+rank (the checkpoint holds whole arrays, the vocab leaves a few tens of MB),
+so the ranks of a model group decode their data rank's dialogs alike, with
+no communication between steps: the same tokens as one device, bit for bit.
+A sampling rank's generator is seeded with --seed plus its data coordinate,
+the same across its model group.
 """
 
 from __future__ import annotations
@@ -66,10 +69,6 @@ def main(argv=None) -> list:
     args = p.parse_args(argv)
 
     mesh = make_mesh(args.mesh_data, args.mesh_model, args.device)
-    if mesh.model > 1:
-        raise SystemExit("generate: greedy, sampled and beam decoding on a "
-                         "model axis > 1 are not ported (ROADMAP.md); pass "
-                         "--mesh_model 1")
     device = mesh.device
     params, cfg, _ = load_checkpoint(args.load_path, device)
     params = broadcast_tree(params, mesh)

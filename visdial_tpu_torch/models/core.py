@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.lstm import keep_mask, uniform
-from ..parallel.mesh import reduce_from_model, vocab_shard
+from ..parallel.mesh import VocabShard, reduce_from_model
 
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -44,14 +44,14 @@ def embedding_init(gen: torch.Generator, vocab_size: int, embed_size: int,
     return {"table": table}
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def embed(params: dict, tokens: torch.Tensor,
+          shard: VocabShard | None = None) -> torch.Tensor:
     """Zero-masked lookup (core.py::embed): pad token 0 embeds to zero.
 
-    Under a vocab shard (parallel/mesh.py::vocab_parallel) the table holds
-    this rank's rows only: ids in another shard look up zero rows, and the
-    rows are summed over the model group, whose backward keeps each rank's
-    own rows' gradient."""
-    shard = vocab_shard()
+    With a vocab shard (parallel/mesh.py::VocabShard) the table holds this
+    rank's rows only: ids in another shard look up zero rows, and the rows
+    are summed over the model group, whose backward keeps each rank's own
+    rows' gradient."""
     if shard is None:
         vecs = F.embedding(tokens, params["table"])
         return vecs * (tokens != 0)[..., None].to(vecs.dtype)

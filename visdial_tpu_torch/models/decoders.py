@@ -22,7 +22,6 @@ from ..config import Config
 
 from ..ops.lm_loss import masked_nll_fused, masked_nll_ref, token_logprobs
 from ..ops.lstm import lstm_init, lstm_keep_masks, lstm_step, masked_lstm
-from ..parallel.mesh import vocab_shard
 from .core import embed, linear, linear_init
 
 # rows per step of the plain path's candidate scoring (unchunked, the
@@ -71,11 +70,11 @@ def _joint_to_state(joint: torch.Tensor, num_layers: int):
 
 def _lm_hidden(params, embed_params, joint, tokens_in, cfg: Config, *,
                train: bool = False, gen: torch.Generator | None = None,
-               impl="plain"):
+               impl="plain", shard=None):
     """Teacher-forced top-layer LSTM states (N, T, H) in the compute dtype;
     tokens_in (N, T) left-aligned.  In train mode the LM LSTM's inter-layer
     dropout masks are drawn from `gen` (lstm_keep_masks)."""
-    vecs = embed(embed_params, tokens_in).to(_dt(cfg))
+    vecs = embed(embed_params, tokens_in, shard).to(_dt(cfg))
     mask = (tokens_in != 0).to(vecs.dtype)
     h0, c0 = _joint_to_state(joint.to(vecs.dtype), cfg.num_layers)
     rate = cfg.dropout if train and gen is not None else 0.0
@@ -90,15 +89,16 @@ def _lm_hidden(params, embed_params, joint, tokens_in, cfg: Config, *,
 
 def gen_loss(params, embed_params, joint, batch, cfg: Config, *,
              train: bool = False, gen: torch.Generator | None = None,
-             impl="plain", denominator=None) -> torch.Tensor:
+             impl="plain", denominator=None, shard=None) -> torch.Tensor:
     """Teacher-forced masked NLL of the ground-truth answers.  The mask is
     "the round has an answer" (decoders.py:94-101), not round_valid: an
     answerless round has ans_in = [<START>, 0, ...] and its lone <END>
     target is zeroed.  The kernel path goes through masked_nll_fused (K5
     forward, K6 backward), the plain path through its materialized-logits
     twin masked_nll_ref (decoders.py::gen_logits + masked_nll); on a vocab
-    shard both go through masked_nll_fused's sharded head (K5/K6 or their
-    plain versions).  The mean divides by denominator(the non-pad target
+    shard (parallel/mesh.py::VocabShard: the embedding's rows and the
+    head's columns are the shard's) both go through masked_nll_fused's
+    sharded head (K5/K6 or their plain versions).  The mean divides by denominator(the non-pad target
     count) where given (models/model.py::model_loss)."""
     N = joint.shape[0]
     tokens_in = batch["ans_in"].reshape(N, -1)
@@ -106,9 +106,8 @@ def gen_loss(params, embed_params, joint, batch, cfg: Config, *,
     has_answer = (tokens_in[:, 1] != 0).to(tokens_out.dtype)
     tokens_out = tokens_out * has_answer[:, None]
     outs = _lm_hidden(params, embed_params, joint, tokens_in, cfg,
-                      train=train, gen=gen, impl=impl)
+                      train=train, gen=gen, impl=impl, shard=shard)
     w, b = params["out_proj"]["w"], params["out_proj"]["b"]
-    shard = vocab_shard()
     if shard is not None:
         return masked_nll_fused(outs, w, b, tokens_out, denominator, shard,
                                 plain=impl != "cuda")
@@ -125,7 +124,8 @@ def _maybe_length_norm(scores, targets, cfg: Config):
 
 
 def gen_score_rows(params, embed_params, joint_rows, tokens_in, tgt,
-                   cfg: Config, *, impl="plain", sort: bool = True):
+                   cfg: Config, *, impl="plain", sort: bool = True,
+                   shard=None):
     """Sum of token log-probs per candidate ROW (decoders.py::
     gen_score_rows): joint_rows (rows, H) the per-row conditioning,
     tokens_in / tgt (rows, T) at any width >= each row's length + 1 (masked
@@ -142,12 +142,12 @@ def gen_score_rows(params, embed_params, joint_rows, tokens_in, tgt,
     if sort and impl == "cuda" and rows >= LENGTH_SORT_MIN_ROWS:
         order, rank = _length_sorted(tokens_in)
         tokens_in, tgt, joint_rows = tokens_in[order], tgt[order], joint_rows[order]
-    vecs = embed(embed_params, tokens_in).to(_dt(cfg))
+    vecs = embed(embed_params, tokens_in, shard).to(_dt(cfg))
     mask = (tokens_in != 0).to(vecs.dtype)
     h0, c0 = _joint_to_state(joint_rows.to(vecs.dtype), cfg.num_layers)
     outs, _ = masked_lstm(params["lm_lstm"], vecs, mask, h0, c0, impl=impl)
     w, b = params["out_proj"]["w"], params["out_proj"]["b"]
-    shard, plain = vocab_shard(), impl != "cuda"
+    plain = impl != "cuda"
     chunk = SCORE_CHUNK_ROWS if plain else rows
     tok_lp = torch.cat([
         token_logprobs(outs[lo:lo + chunk].reshape(-1, outs.shape[-1]), w, b,
@@ -158,14 +158,14 @@ def gen_score_rows(params, embed_params, joint_rows, tokens_in, tgt,
 
 
 def gen_candidate_scores(params, embed_params, joint, opt_in, opt_out,
-                         cfg: Config, *, impl="plain"):
+                         cfg: Config, *, impl="plain", shard=None):
     """Sum of token log-probs per candidate: joint (N, H), opt_in / opt_out
     (N, K, T).  Returns (N, K); the candidates fold into the rows."""
     N, K, T = opt_in.shape
     scores = gen_score_rows(params, embed_params,
                             joint.repeat_interleave(K, dim=0),
                             opt_in.reshape(N * K, T), opt_out.reshape(N * K, T),
-                            cfg, impl=impl)
+                            cfg, impl=impl, shard=shard)
     return scores.reshape(N, K)
 
 
@@ -266,7 +266,8 @@ def gen_beam_decode(params, embed_params, joint, cfg: Config, *,
 
 def disc_option_embeddings(params, embed_params, opt_tokens, cfg: Config,
                            *, train: bool = False,
-                           gen: torch.Generator | None = None, impl="plain"):
+                           gen: torch.Generator | None = None, impl="plain",
+                           shard=None):
     """(N, K, T) candidate tokens -> (N, K, H) final LSTM states.  On the
     kernel path, large row counts go through K1 length-sorted and come back
     in their original order.  In train mode the option LSTM's inter-layer
@@ -286,7 +287,7 @@ def disc_option_embeddings(params, embed_params, opt_tokens, cfg: Config,
         flat = flat[order]
         if keep is not None:
             keep = [m[order] for m in keep]
-    vecs = embed(embed_params, flat).to(_dt(cfg))
+    vecs = embed(embed_params, flat, shard).to(_dt(cfg))
     mask = (flat != 0).to(vecs.dtype)
     _, (h_fin, _) = masked_lstm(params["opt_lstm"], vecs, mask, impl=impl,
                                 dropout_rate=rate, keep_masks=keep)
@@ -297,12 +298,13 @@ def disc_option_embeddings(params, embed_params, opt_tokens, cfg: Config,
 
 
 def disc_option_table(params, embed_params, opt_list, cfg: Config, *,
-                      impl="plain", chunk: int = SCORE_CHUNK_ROWS):
+                      impl="plain", chunk: int = SCORE_CHUNK_ROWS,
+                      shard=None):
     """Embed the deduplicated option list once: (M, La) -> (M, H), `chunk`
     rows per LSTM call (decoders.py::disc_option_table)."""
     return torch.cat([
         disc_option_embeddings(params, embed_params, rows[:, None], cfg,
-                               impl=impl)[:, 0]
+                               impl=impl, shard=shard)[:, 0]
         for rows in torch.split(opt_list, chunk)])
 
 
@@ -315,18 +317,19 @@ def disc_scores_from_table(joint, table, opt_inds):
 
 def disc_scores(params, embed_params, joint, opt_tokens, cfg: Config, *,
                 train: bool = False, gen: torch.Generator | None = None,
-                impl="plain"):
+                impl="plain", shard=None):
     """score_k = dot(option_k, joint) with the option LSTM run on the
     (N, K, T) candidate tokens."""
     opt_emb = disc_option_embeddings(params, embed_params, opt_tokens, cfg,
-                                     train=train, gen=gen, impl=impl)
+                                     train=train, gen=gen, impl=impl,
+                                     shard=shard)
     return torch.einsum("nh,nkh->nk", joint.to(opt_emb.dtype).float(),
                         opt_emb.float())
 
 
 def disc_loss(params, embed_params, joint, batch, cfg: Config, *,
               train: bool = False, gen: torch.Generator | None = None,
-              impl="plain", denominator=None) -> torch.Tensor:
+              impl="plain", denominator=None, shard=None) -> torch.Tensor:
     """Mean 100-way NLL of the ground-truth candidate (decoders.py::
     disc_loss) over the rounds with round_valid set.  Takes the batch's
     unique candidate rows (opt_uniq) plus the gather map opt_row when the
@@ -337,13 +340,14 @@ def disc_loss(params, embed_params, joint, batch, cfg: Config, *,
     if "opt_uniq" in batch:
         emb = disc_option_embeddings(params, embed_params,
                                      batch["opt_uniq"][None], cfg,
-                                     train=train, gen=gen, impl=impl)[0]
+                                     train=train, gen=gen, impl=impl,
+                                     shard=shard)[0]
         scores = disc_scores_from_table(joint, emb,
                                         batch["opt_row"].reshape(N, K))
     else:
         scores = disc_scores(params, embed_params, joint,
                              batch["opt"].reshape(N, K, -1), cfg,
-                             train=train, gen=gen, impl=impl)
+                             train=train, gen=gen, impl=impl, shard=shard)
     logp = torch.log_softmax(scores, dim=-1)
     nll = -logp.gather(1, batch["gt_ind"].reshape(N, 1))[:, 0]
     if "round_valid" not in batch:

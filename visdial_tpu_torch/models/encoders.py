@@ -33,12 +33,13 @@ def _dt(cfg: Config) -> torch.dtype:
 
 
 def _lstm_over(lstm_params, embed_params, tokens, cfg: Config, impl,
-               train: bool = False, gen: torch.Generator | None = None):
-    """Embed tokens (N, L) and run the masked LSTM (inter-layer dropout in
-    train mode, masks drawn from `gen`).  Returns the top layer's outputs
-    (N, L, H) and the final states (h_fin, c_fin), each (layers, N, H), in
-    the compute dtype."""
-    vecs = embed(embed_params, tokens).to(_dt(cfg))
+               train: bool = False, gen: torch.Generator | None = None,
+               shard=None):
+    """Embed tokens (N, L) (on `shard`'s rows of the table where given) and
+    run the masked LSTM (inter-layer dropout in train mode, masks drawn
+    from `gen`).  Returns the top layer's outputs (N, L, H) and the final
+    states (h_fin, c_fin), each (layers, N, H), in the compute dtype."""
+    vecs = embed(embed_params, tokens, shard).to(_dt(cfg))
     mask = (tokens != 0).to(vecs.dtype)
     rate = cfg.dropout if train and gen is not None else 0.0
     keep = None
@@ -51,11 +52,12 @@ def _lstm_over(lstm_params, embed_params, tokens, cfg: Config, impl,
 
 
 def _run_lstm(lstm_params, embed_params, tokens, cfg: Config, impl,
-              train: bool = False, gen: torch.Generator | None = None):
+              train: bool = False, gen: torch.Generator | None = None,
+              shard=None):
     """_lstm_over on right-aligned tokens (N, L): the top layer's final h
     (N, H)."""
     _, (h_fin, _) = _lstm_over(lstm_params, embed_params, tokens, cfg, impl,
-                               train, gen)
+                               train, gen, shard)
     return h_fin[-1]
 
 
@@ -119,7 +121,7 @@ def _image_pathway(params, batch, q, cfg: Config, B: int, R: int, impl: str,
 
 
 def _lf_history(params, embed_params, batch, cfg: Config, impl, train, gen,
-                B: int, R: int) -> torch.Tensor:
+                B: int, R: int, shard=None) -> torch.Tensor:
     """LF's (N, H) history part.  hist_flat: ONE LSTM pass over each
     dialog's left-aligned concat (B, Lh); round r reads the top layer's
     output at its prefix bound (bounds - 1, clamped), and a round with no
@@ -128,9 +130,9 @@ def _lf_history(params, embed_params, batch, cfg: Config, impl, train, gen,
     if "hist_flat" not in batch:
         return _run_lstm(params["hist_lstm"], embed_params,
                          batch["hist_concat"].reshape(B * R, -1), cfg, impl,
-                         train, gen)
+                         train, gen, shard)
     outs, _ = _lstm_over(params["hist_lstm"], embed_params, batch["hist_flat"],
-                         cfg, impl, train, gen)                      # (B, Lh, H)
+                         cfg, impl, train, gen, shard)        # (B, Lh, H)
     bounds = batch["hist_bounds"]                                    # (B, R)
     idx = (bounds - 1).clamp(0, outs.shape[1] - 1).long()
     h = torch.gather(outs, 1, idx[..., None].expand(B, R, outs.shape[-1]))
@@ -140,9 +142,10 @@ def _lf_history(params, embed_params, batch, cfg: Config, impl, train, gen,
 
 def encoder_apply(params: dict, embed_params: dict, batch: dict, cfg: Config,
                   *, train: bool = False, gen: torch.Generator | None = None,
-                  impl: str = "plain") -> torch.Tensor:
+                  impl: str = "plain", shard=None) -> torch.Tensor:
     """Encode a batch to joint embeddings (N, H), N = B*R
-    (encoders.py::encoder_apply).
+    (encoders.py::encoder_apply).  The token lookups read `shard`'s rows of
+    the embedding table where given (parallel/mesh.py::VocabShard).
 
     Dropout (train with a generator `gen` on the batch's device) is drawn
     from `gen` in this order, as the JAX encoder consumes its rngs: the
@@ -162,13 +165,13 @@ def encoder_apply(params: dict, embed_params: dict, batch: dict, cfg: Config,
 
     q = _run_lstm(params["ques_lstm"], embed_params,
                   batch["ques"].reshape(B * R, -1), cfg, impl, train,
-                  gen)                                               # (N, H)
+                  gen, shard)                                        # (N, H)
 
     if fam == "lf":
         parts = [q]
         if encoder_uses_history(cfg.encoder):
             parts.append(_lf_history(params, embed_params, batch, cfg, impl,
-                                     train, gen, B, R).to(q.dtype))
+                                     train, gen, B, R, shard).to(q.dtype))
         if use_img:
             parts.append(_image_pathway(params, batch, q, cfg, B, R, impl,
                                         train))
@@ -178,7 +181,7 @@ def encoder_apply(params: dict, embed_params: dict, batch: dict, cfg: Config,
 
     facts = _run_lstm(params["fact_lstm"], embed_params,
                       batch["facts"].reshape(B * R, -1), cfg, impl, train,
-                      gen).reshape(B, R, -1)                         # (B, R, H)
+                      gen, shard).reshape(B, R, -1)                  # (B, R, H)
 
     if use_img:
         img = _image_pathway(params, batch, q, cfg, B, R, impl, train)

@@ -15,7 +15,6 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 
-from ..parallel.mesh import vocab_parallel, vocab_shard
 from ..utils.params import flatten, unflatten
 from .core import embedding_init, seeded, split_seeds
 from .decoders import (decoder_init, disc_loss, disc_option_table, disc_scores,
@@ -63,7 +62,7 @@ def batch_to_device(batch: dict, device) -> dict:
 def model_loss(params, batch, cfg: Config, *, train: bool = True,
                gen: torch.Generator | None = None,
                impl: str | None = None, denominator=None,
-               seed_offset: int = 0) -> torch.Tensor:
+               seed_offset: int = 0, shard=None) -> torch.Tensor:
     """The training loss of either decoder (model.py::model_loss).  `gen` is a CPU
     torch.Generator (the train state's); in train mode two seeds are drawn
     from it, one for the encoder's dropout and one for the decoder's (the
@@ -80,35 +79,36 @@ def model_loss(params, batch, cfg: Config, *, train: bool = True,
     of the global batch: the mean divides by `denominator`(the shard's
     count), the global batch's count, so the ranks' losses sum to the
     global batch's loss; and both seeds are offset by `seed_offset` (the
-    rank's data coordinate), so each data rank draws its own masks."""
+    rank's data coordinate), so each data rank draws its own masks.  On a
+    model axis `shard` (parallel/mesh.py::Mesh.vocab_shard) names this
+    rank's rows of the embedding and columns of the LM head."""
     impl = impl or _impl(cfg, batch["ques"].device)
     joint, dec_gen = _train_encode(params, batch, cfg, train, gen, impl,
-                                   seed_offset)
+                                   seed_offset, shard)
     loss_fn = gen_loss if cfg.decoder == "gen" else disc_loss
     return loss_fn(params["decoder"], params["embed"], joint, batch, cfg,
                    train=train, gen=dec_gen, impl=impl,
-                   denominator=denominator)
+                   denominator=denominator, shard=shard)
 
 
 def _train_encode(params, batch, cfg: Config, train: bool,
                   gen: torch.Generator | None, impl: str,
-                  seed_offset: int = 0):
+                  seed_offset: int = 0, shard=None):
     """The encoder of a training loss: (joint (N, H), the decoder's dropout
     generator or None).  Two seeds come from `gen` in train mode, each
     offset by seed_offset; with cfg.remat the encoder is checkpointed and
-    recomputed from its seed, under the vocab shard of the forward (the
-    recomputation may run on the autograd engine's thread)."""
+    recomputed from its seed.  The closure holds the seed and `shard`
+    itself, so the recomputation reads the forward's vocab shard on
+    whatever thread the autograd engine runs it."""
     device = batch["ques"].device
     enc_seed = dec_seed = None
     if train and gen is not None:
         enc_seed, dec_seed = (s + seed_offset for s in split_seeds(gen))
-    shard = vocab_shard()
 
     def encode(enc_params, embed_params):
-        with vocab_parallel(shard):
-            return encoder_apply(enc_params, embed_params, batch, cfg,
-                                 train=train, gen=seeded(enc_seed, device),
-                                 impl=impl)
+        return encoder_apply(enc_params, embed_params, batch, cfg,
+                             train=train, gen=seeded(enc_seed, device),
+                             impl=impl, shard=shard)
 
     if cfg.remat and train:
         joint = checkpoint(encode, params["encoder"], params["embed"],
@@ -121,7 +121,7 @@ def _train_encode(params, batch, cfg: Config, train: bool,
 def model_dense_loss(params, batch, cfg: Config, *, train: bool = True,
                      gen: torch.Generator | None = None,
                      impl: str | None = None, denominator=None,
-                     seed_offset: int = 0) -> torch.Tensor:
+                     seed_offset: int = 0, shard=None) -> torch.Tensor:
     """v1.0 dense-annotation fine-tuning loss of the disc decoder
     (model.py::model_dense_loss): cross-entropy between the softmax of the
     annotated round's 100 candidate scores (disc_scores over the B x K
@@ -131,20 +131,20 @@ def model_dense_loss(params, batch, cfg: Config, *, train: bool = True,
 
     Batch fields beyond the encoder inputs (data/loader.py::DenseLoader):
     dense_opt (B, K, La), dense_round (B,), dense_rel (B, K) raw relevance,
-    dense_valid (B,).  denominator and seed_offset as in model_loss (the
-    count is of the valid rows)."""
+    dense_valid (B,).  denominator, seed_offset and shard as in model_loss
+    (the count is of the valid rows)."""
     if cfg.decoder != "disc":
         raise ValueError("dense fine-tuning targets disc scores")
     impl = impl or _impl(cfg, batch["ques"].device)
     joint, dec_gen = _train_encode(params, batch, cfg, train, gen, impl,
-                                   seed_offset)
+                                   seed_offset, shard)
     B = batch["dense_rel"].shape[0]
     joint = joint.reshape(B, cfg.num_rounds, -1)
     joint_sel = joint[torch.arange(B, device=joint.device),
                       batch["dense_round"].long()]                 # (B, H)
     scores = disc_scores(params["decoder"], params["embed"], joint_sel,
                          batch["dense_opt"], cfg, train=train, gen=dec_gen,
-                         impl=impl)                                # (B, K)
+                         impl=impl, shard=shard)                   # (B, K)
     rel = batch["dense_rel"].float()
     total = rel.sum(dim=-1, keepdim=True)
     target = rel / total.clamp(min=1e-9)
@@ -154,40 +154,43 @@ def model_dense_loss(params, batch, cfg: Config, *, train: bool = True,
     return (ce * v).sum() / count.clamp(min=1.0)
 
 
-def model_scores(params, batch, cfg: Config, *, impl: str | None = None):
+def model_scores(params, batch, cfg: Config, *, impl: str | None = None,
+                 shard=None):
     """Candidate scores (B, R, K) from the batch's option tokens: opt for
-    disc, opt_in / opt_out for gen."""
+    disc, opt_in / opt_out for gen; on `shard`'s vocab leaves where
+    given."""
     impl = impl or _impl(cfg, batch["ques"].device)
     joint = encoder_apply(params["encoder"], params["embed"], batch, cfg,
-                          impl=impl)
+                          impl=impl, shard=shard)
     N, K = joint.shape[0], cfg.num_options
     if cfg.decoder == "gen":
         scores = gen_candidate_scores(
             params["decoder"], params["embed"], joint,
             batch["opt_in"].reshape(N, K, -1), batch["opt_out"].reshape(N, K, -1),
-            cfg, impl=impl)
+            cfg, impl=impl, shard=shard)
     else:
         scores = disc_scores(params["decoder"], params["embed"], joint,
-                             batch["opt"].reshape(N, K, -1), cfg, impl=impl)
+                             batch["opt"].reshape(N, K, -1), cfg, impl=impl,
+                             shard=shard)
     return scores.reshape(batch["ques"].shape[0], cfg.num_rounds, K)
 
 
 def model_option_table(params, opt_list, cfg: Config, *,
-                       impl: str | None = None):
+                       impl: str | None = None, shard=None):
     """Embed the split's deduplicated option list once: (M, La) -> (M, H)."""
     if cfg.decoder != "disc":
         raise ValueError("the option table belongs to the disc decoder")
     impl = impl or _impl(cfg, opt_list.device)
     return disc_option_table(params["decoder"], params["embed"], opt_list,
-                             cfg, impl=impl)
+                             cfg, impl=impl, shard=shard)
 
 
 def model_scores_with_table(params, batch, table, cfg: Config, *,
-                            impl: str | None = None):
+                            impl: str | None = None, shard=None):
     """Candidate scores (B, R, K) via the precomputed option table."""
     impl = impl or _impl(cfg, batch["ques"].device)
     joint = encoder_apply(params["encoder"], params["embed"], batch, cfg,
-                          impl=impl)
+                          impl=impl, shard=shard)
     N, K = joint.shape[0], cfg.num_options
     scores = disc_scores_from_table(joint, table,
                                     batch["opt_inds"].reshape(N, K))
@@ -203,12 +206,10 @@ def model_generate(params, batch, cfg: Config, *, start_token: int,
     (B, R).  Gen decoder only.  beam_size > 1 takes beam search, else
     greedy decoding or, with greedy=False, sampling from `gen` (a generator
     on the batch's device).  The encoder follows impl; the token-by-token
-    decode is plain PyTorch on either path, as in the JAX package."""
+    decode is plain PyTorch on either path, as in the JAX package.  The
+    params are whole (generate.py decodes a model axis on whole params)."""
     if cfg.decoder != "gen":
         raise ValueError("generation needs the gen decoder")
-    if vocab_shard() is not None:
-        raise NotImplementedError("decoding on a model axis > 1 is not "
-                                  "ported (ROADMAP.md)")
     impl = impl or _impl(cfg, batch["ques"].device)
     joint = encoder_apply(params["encoder"], params["embed"], batch, cfg,
                           impl=impl)

@@ -30,8 +30,6 @@ exits.  Resume on fewer cards by launching fewer processes.
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import os
 from dataclasses import dataclass
 
@@ -57,7 +55,9 @@ class VocabShard:
     """This rank's slice of the vocab on the model axis: ids [lo, lo + size)
     of every vocab-dimensioned leaf, and the model group that sums over the
     slices (the vocab-parallel embedding in models/core.py, the LM head in
-    ops/lm_loss.py)."""
+    ops/lm_loss.py).  The caller that owns the mesh makes it
+    (Mesh.vocab_shard) and passes it down as the model functions' `shard`
+    argument; None reads the leaves whole."""
 
     m: int
     model: int
@@ -81,26 +81,6 @@ class VocabShard:
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """(model, *t.shape): every shard's t, in shard order."""
         return _all_gather(t, self.group, self.model)
-
-
-_VOCAB_SHARD: contextvars.ContextVar = contextvars.ContextVar(
-    "vocab_shard", default=None)
-
-
-def vocab_shard() -> VocabShard | None:
-    """The vocab shard of the computation running, or None (whole vocab)."""
-    return _VOCAB_SHARD.get()
-
-
-@contextlib.contextmanager
-def vocab_parallel(shard: VocabShard | None):
-    """Run the block with the vocab-dimensioned leaves read as `shard` (None:
-    whole)."""
-    token = _VOCAB_SHARD.set(shard)
-    try:
-        yield
-    finally:
-        _VOCAB_SHARD.reset(token)
 
 
 class _ReduceFromModel(torch.autograd.Function):

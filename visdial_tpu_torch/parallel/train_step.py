@@ -33,8 +33,7 @@ from ..models.decoders import gen_score_rows
 from ..models.model import model_init, model_loss
 from ..utils.params import flatten, unflatten
 from .mesh import (Mesh, all_reduce_grads, broadcast_tree, gather_tree,
-                   param_layouts, shard_tree, sum_sharded_squares,
-                   vocab_parallel)
+                   param_layouts, shard_tree, sum_sharded_squares)
 from .optim import OptState, apply_updates, init_opt_state, lr_at_step
 
 
@@ -88,10 +87,9 @@ def loss_and_grads(params: dict, batch: dict, cfg: Config,
         loss = loss_fn(unflatten(flat), batch, cfg, train=True, gen=gen,
                        impl=impl)
     else:
-        with vocab_parallel(mesh.vocab_shard(cfg.vocab_size)):
-            loss = loss_fn(unflatten(flat), batch, cfg, train=True, gen=gen,
-                           impl=impl, denominator=mesh.count,
-                           seed_offset=mesh.d)
+        loss = loss_fn(unflatten(flat), batch, cfg, train=True, gen=gen,
+                       impl=impl, denominator=mesh.count, seed_offset=mesh.d,
+                       shard=mesh.vocab_shard(cfg.vocab_size))
     grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
     if mesh is not None:
         loss = mesh.sum_data(loss.detach().clone())
@@ -140,13 +138,14 @@ def multi_train_step(state: TrainState, batches: dict, cfg: Config,
 
 def gen_rows_score(params, joint, opt_list, opt_list_len, opt_rows, row_idx,
                    width: int, start_token: int, end_token: int, cfg: Config,
-                   *, impl: str = "plain"):
+                   *, impl: str = "plain", shard=None):
     """Score candidate rows at `width` steps, their <START>/<END> rows built
     on the device from the split's opt_list (train_step.py::gen_rows_score;
     the same construction as the loader's _with_start_end).  opt_rows (C,)
     rows into opt_list (M, La), row_idx (C,) rows into joint (N, H).  Returns
     (C,) summed token log-probs.  The rows arrive width-bucketed by the
-    eval harness and are not length-sorted again."""
+    eval harness and are not length-sorted again.  `shard` as in
+    models/model.py::model_loss."""
     tok = opt_list[opt_rows][:, :width - 1]                      # (C, w-1)
     lens = opt_list_len[opt_rows]                                # (C,)
     start = torch.full_like(tok[:, :1], start_token)
@@ -155,4 +154,5 @@ def gen_rows_score(params, joint, opt_list, opt_list_len, opt_rows, row_idx,
     pos = torch.arange(width, device=tok.device)[None, :]
     opt_out = torch.where(pos == lens[:, None], end_token, base)
     return gen_score_rows(params["decoder"], params["embed"], joint[row_idx],
-                          opt_in, opt_out, cfg, impl=impl, sort=False)
+                          opt_in, opt_out, cfg, impl=impl, sort=False,
+                          shard=shard)
