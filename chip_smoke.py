@@ -34,7 +34,17 @@ shards combined as the model axis combines them; the verify gate at
 flagship shapes; VGG-16 (card against CPU, images/s in f32 and bf16, the
 prepro_img CLI); and the real-data recipe on generated VisDial JSON
 (prepro, prepro_img on the card, prepro again, then the parity runbook
-training and re-evaluating LF-QIH-disc and MN-QIH-gen).  On a machine with
+training and re-evaluating LF-QIH-disc and MN-QIH-gen).  Beside them bf16, the
+JAX package's production precision: the contraction helper
+(ops/contract.py, bf16 operands, f32 results on the tensor cores) against
+float64 at the training step's head shapes beside the upcast route it
+replaced; MN-QIH-disc (batch 32) and MN-QIH-gen (batch 64) trained at bf16
+(kernel step against the plain step at dropout 0 and 0.5, 20 timed steps,
+the loss trajectory against the f32 step's); the resident eval of both at
+bf16 (scores, MRR and rank flips against the plain path); MN-QIH-disc
+served at bf16 (at the evals' scaled params, every top-1 the plain
+path's); and the port's two learning bars (LF-QIH-disc MRR > 0.8,
+MN-QH-gen > 0.6) trained on the card in f32 and in bf16.  On a machine with
 two cards also the generate CLI on two NCCL ranks at --mesh_model 2
 against one card, and every kernel launched on the second card in this
 process.  Each path must have gone through its kernels and agree with a
@@ -125,6 +135,58 @@ SPATIAL_SLOTS = 49
 # sums in another order (K2 and the f32 contractions vs autograd + cuBLAS)
 LOSS_TOL, GNORM_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
 TRAIN_STEPS = 20
+# bf16, the JAX package's production precision (bench.py:72-89: batch 32
+# disc, :578: batch 64 gen): the kernel path against the plain path, both
+# in bf16.  Every activation is rounded to bf16 (2^-8 relative) where the
+# two paths round sums taken in another order, so a rounding that lands
+# apart flips by one ulp and feeds the steps after it; the loss is a mean
+# of 320-640 NLLs, the norm a sum over every gradient, each leaf held to
+# GRAD_TOL's bf16 share of its largest value (measured on the H100: loss
+# within 2e-6, norm 1e-4 to 2e-4 relative, leaves 5e-3 to 6e-3)
+TRAIN_TOL = {"float32": (LOSS_TOL, GNORM_RTOL, TRAIN_GRAD_TOL),
+             "bfloat16": (1e-4, 2e-3, GRAD_TOL["bfloat16"])}
+BF16_GEN_BATCH = 64
+# the bf16 kernel step's 20-step loss trajectory at dropout 0 against the f32
+# kernel step's from the same init and batches, every step within this share
+# of the first step's f32 loss (ln 100 at init): bf16 rounds the scores and
+# every gradient, and the two runs drift apart by rounding only, a drift
+# that grows as the 64 dialogs are memorised (measured: 0.021 at step 20,
+# 0.46% of the first loss, as the loss falls to 0.42); a wrong gradient
+# moves a loss by far more
+TRAJ_RTOL = 1e-2
+# bf16 evals and serving (kernel path against the plain path, both bf16),
+# absolute: disc scores are 512-term dot products of bf16 LSTM states (at
+# EVAL_SCALE) that may differ by one bf16 ulp each, gen scores sums of <= 8
+# f32 token log-probs over bf16 hidden states (measured on the H100: disc
+# 0.0101, gen 0.00079); MRR may move only through rank flips at near ties
+# (measured 1e-5 to 3e-5)
+SCORE_TOL_BF16 = {"disc": 2.5e-2, "gen": 2e-3}
+# bf16 serving of MN-QIH-disc over the 50k-answer pool, at EVAL_SCALE as
+# the disc evals (at the init scale the pool's scores lie within ~1e-4 and
+# any rank would be a near tie): its own limit, ~2x its reading as the
+# eval's is (measured on the H100: 0.0130; the top-1 gap 0.004 or more)
+SERVE_TOL_BF16 = 3e-2
+MRR_TOL_BF16 = 1e-3
+# the contraction helper (ops/contract.py) at the head shapes against a
+# float64 product of the same bf16 operands, relative to the largest |value|:
+# f32 sums of exact bf16 products (the tensor cores' f32 accumulation
+# truncates, measured ~7e-5 over 256,000 rows); a GEMM whose output were
+# rounded to bf16 (the planted control) is ~2^-9 off and must fail it
+CONTRACT_ROWS, CONTRACT_TOL = 256_000, 5e-4
+# the learning bars of tests/test_torch_lf_integration.py and tests/
+# test_torch_gen.py::test_gen_decoder_learns_to_rank_above_chance on the
+# card, through the kernels: (label, Config fields over tests/conftest.py::
+# small_config's, steps, MRR bar)
+SMALL_CONFIG = dict(vocab_size=0, embed_size=16, rnn_hidden_size=24,
+                    num_layers=2, img_feat_size=32, img_embed_size=16,
+                    max_ques_len=6, max_ans_len=4, max_cap_len=8,
+                    num_rounds=4, num_options=12, batch_size=4, dropout=0.0)
+INTEGRATION = [
+    ("lf_disc", dict(encoder="lf-ques-im-hist", decoder="disc",
+                     rnn_hidden_size=32, embed_size=24, learning_rate=5e-3,
+                     lr_decay_rate=1.0), 300, 0.8),
+    ("mn_gen", dict(encoder="mn-ques-hist", decoder="gen", learning_rate=5e-3,
+                    lr_decay_rate=1.0), 400, 0.6)]
 # the evals' rate: runs of each path over 8 full 32-dialog batches
 EVAL_DIALOGS, EVAL_REPS = 256, 3
 # dense fine-tuning: the train CLI's MN-QIH-disc checkpoint on 64 annotated
@@ -459,12 +521,14 @@ def cudnn_lstm(w, b, x, mask, h0, c0, train: bool = False):
     step are left out (their state passes through unchanged).  With every
     step real, x goes as it is.  Returns (module, pack, hx, rows): pack()
     builds the input from x (the gather and pack_padded_sequence, the
-    packing time), hx the rows' (h0, c0)."""
+    packing time), hx the rows' (h0, c0).  The module computes in x's
+    dtype."""
     from torch.nn.utils.rnn import pack_padded_sequence
 
     N, T, E = x.shape
     H = w.shape[1] // 4
-    m = torch.nn.LSTM(E, H, batch_first=True).to(x.device)
+    m = torch.nn.LSTM(E, H, batch_first=True).to(x.device, x.dtype)
+    h0, c0 = h0.to(x.dtype), c0.to(x.dtype)
     with torch.no_grad():
         m.weight_ih_l0.copy_(w[:E].T)
         m.weight_hh_l0.copy_(w[E:].T)
@@ -498,9 +562,10 @@ def cudnn_forward(w, b, x, mask, h0, c0, hT) -> dict:
         want = hT if rows is None else hT[rows]
         out = {"library_ms": time_ms(lambda: m(packed, hx)),
                "library_pack_ms": None if rows is None else time_ms(pack),
-               "library_max_abs_err": float((h_n[0] - want).abs().max()),
+               "library_max_abs_err": float((h_n[0].float() - want).abs().max()),
                "library": "torch.nn.LSTM (cuDNN)"}
-    check(out["library_max_abs_err"] <= TOL["float32"],
+    name = str(x.dtype).split(".")[1]
+    check(out["library_max_abs_err"] <= TOL[name],
           f"cuDNN's LSTM disagrees with K1: {out['library_max_abs_err']}")
     return out
 
@@ -516,6 +581,7 @@ def cudnn_backward(w, b, x, mask, h0, c0, cot, dw) -> dict:
     from torch.nn.utils.rnn import PackedSequence
 
     m, pack, (h0r, c0r), rows = cudnn_lstm(w, b, x, mask, h0, c0, train=True)
+    dt, name = x.dtype, str(x.dtype).split(".")[1]
     g_hs, g_ht, g_ct = cot
     steps = torch.arange(mask.shape[1], device=mask.device)
     last = torch.where(mask != 0, steps, -1).max(dim=1).values
@@ -523,10 +589,10 @@ def cudnn_backward(w, b, x, mask, h0, c0, cot, dw) -> dict:
     g_ht = g_ht.float() + (g_hs.float() * after[..., None]).sum(dim=1)
     with torch.no_grad():
         packed = pack()
-        g = pack(g_hs.float())
+        g = pack(g_hs.to(dt))
     if rows is None:
         xin = packed.detach().clone().requires_grad_()
-        g_out = g_hs.float()
+        g_out = g_hs.to(dt)
     else:
         data = packed.data.detach().clone().requires_grad_()
         xin = PackedSequence(data, packed.batch_sizes, packed.sorted_indices,
@@ -537,10 +603,10 @@ def cudnn_backward(w, b, x, mask, h0, c0, cot, dw) -> dict:
     out, (h_n, c_n) = m(xin, hx)
     outs = (out if rows is None else out.data, h_n, c_n)
     ins = [data if rows is not None else xin, *hx, *m.parameters()]
-    cots = (g_out, g_ht.float()[None], g_ct.float()[None])
+    cots = (g_out, g_ht.to(dt)[None], g_ct.to(dt)[None])
     grads = torch.autograd.grad(outs, ins, cots, retain_graph=True)
     err = rel_err([torch.cat([grads[3], grads[4]], dim=1).T], [dw])
-    check(err <= GRAD_TOL["float32"],
+    check(err <= GRAD_TOL[name],
           f"cuDNN's LSTM weight gradient disagrees with LSTMLayerFn's: {err}")
     ms = time_ms(lambda: torch.autograd.grad(outs, ins, cots,
                                              retain_graph=True),
@@ -591,7 +657,7 @@ def lstm_checks(dev, gen) -> list[dict]:
                     lstm_layer_plain, args, want, abs_err, TOL[name],
                     "lstm_layer", (N, T, E, H))
             if ((N, T, E, H) in (LSTM_HEAD, DIALOG_HEAD, HIST_HEAD)
-                    and dt == torch.float32):
+                    and dt == torch.float32 or (N, T, E, H) == LSTM_HEAD):
                 row.update(cudnn_forward(*args, got[1]))
             emit(row)
             rows.append(row)
@@ -727,7 +793,8 @@ def lstm_bwd_checks(dev, gen) -> list[dict]:
             # the K2 rows of the kernel table: the option LSTM, the dialog
             # LSTM and LF's history with its gradient at the bounds only
             if ((sparse or (N, T, E, H) in (LSTM_HEAD, DIALOG_HEAD))
-                    and dt == torch.float32):
+                    and dt == torch.float32
+                    or (N, T, E, H) == LSTM_HEAD and not sparse):
                 extra.update(cudnn_backward(w, b, x, mask, h0, c0, cot, dw))
             del k2, k2_plain, dw
             row = {**extra, "phase": "lstm_layer_bwd", "shape": [N, T, E, H],
@@ -1031,20 +1098,23 @@ def compare_steps(cfg, state0, batch, seed: int, loss_fn=None) -> dict:
         grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
         out[impl] = (flatten(new.params), m, flatten(grads))
     (pk, mk, gk), (pp, mp, gp) = out["cuda"], out["plain"]
+    loss_tol, gnorm_rtol, grad_tol = TRAIN_TOL[cfg.compute_dtype]
     loss_err = abs(float(mk["loss"]) - float(mp["loss"]))
     gnorm_err = abs(float(mk["grad_norm"]) / float(mp["grad_norm"]) - 1)
     grad_err, param_err, param_excess = first_step_errs(pk, gk, pp, gp,
                                                         mk["lr"], cfg)
     check(bool(torch.isfinite(mk["loss"])), "train_step loss non-finite")
-    check(loss_err <= LOSS_TOL and gnorm_err <= GNORM_RTOL
-          and grad_err <= TRAIN_GRAD_TOL and param_excess <= 0.0,
-          f"train_step kernel vs plain (dropout {cfg.dropout}): loss err "
-          f"{loss_err} (tol {LOSS_TOL}), grad_norm rel err {gnorm_err} (tol "
-          f"{GNORM_RTOL}), grad rel err {grad_err} (tol {TRAIN_GRAD_TOL}), "
-          f"param err {param_err} exceeding its bound by {param_excess}")
+    check(loss_err <= loss_tol and gnorm_err <= gnorm_rtol
+          and grad_err <= grad_tol and param_excess <= 0.0,
+          f"train_step kernel vs plain ({cfg.compute_dtype}, dropout "
+          f"{cfg.dropout}): loss err {loss_err} (tol {loss_tol}), grad_norm "
+          f"rel err {gnorm_err} (tol {gnorm_rtol}), grad rel err {grad_err} "
+          f"(tol {grad_tol}), param err {param_err} exceeding its bound by "
+          f"{param_excess}")
     return {"loss": float(mk["loss"]), "loss_err": loss_err,
             "grad_norm": float(mk["grad_norm"]), "grad_norm_rel_err": gnorm_err,
-            "grad_max_rel_err": grad_err, "param_max_abs_err": param_err}
+            "grad_max_rel_err": grad_err, "param_max_abs_err": param_err,
+            "tols": [loss_tol, gnorm_rtol, grad_tol]}
 
 
 def path_kernels(cfg, train: bool) -> tuple[set, set]:
@@ -1077,17 +1147,57 @@ def check_launches(launches: dict, cfg, train: bool, what: str) -> None:
           f"and 0 for {sorted(never)}")
 
 
+def tensor_core_calls() -> int:
+    """The contraction helper's calls on its bf16 tensor-core route."""
+    from visdial_tpu_torch.ops.contract import mm_f32, scores_f32
+
+    return mm_f32.tensor_core + scores_f32.tensor_core
+
+
+def check_contractions(calls: int, cfg, what: str) -> None:
+    """A bf16 path on the card contracts on the tensor cores (the upcast
+    route never runs there); an f32 path never does."""
+    check((calls > 0) == (cfg.compute_dtype == "bfloat16"),
+          f"{what} ({cfg.compute_dtype}): {calls} tensor-core contractions")
+
+
+def loss_trajectory(cfg, state0, batches) -> dict:
+    """TRAIN_STEPS kernel-path steps at dropout 0 in bf16 and in f32 from
+    the same init and batches: every step's bf16 loss within TRAJ_RTOL x
+    the first f32 loss of the f32 one."""
+    from visdial_tpu_torch.parallel.train_step import train_step
+
+    losses = {}
+    for dt in ("bfloat16", "float32"):
+        c, st = cfg.replace(dropout=0.0, compute_dtype=dt), state0
+        losses[dt] = []
+        for b in batches:
+            st, m = train_step(st, b, c, impl="cuda")
+            losses[dt].append(float(m["loss"]))
+        del st
+    first = abs(losses["float32"][0])
+    rel = max(abs(a - r) for a, r in zip(*losses.values())) / first
+    check(all(map(math.isfinite, losses["bfloat16"])) and rel <= TRAJ_RTOL,
+          f"bf16 loss trajectory {losses['bfloat16']} against f32 "
+          f"{losses['float32']}: err {rel} of the first loss > {TRAJ_RTOL}")
+    return {"steps": len(batches), "max_rel_err": rel, "tol": TRAJ_RTOL,
+            "bf16": losses["bfloat16"], "f32": losses["float32"]}
+
+
 def train(dev, decoder: str = "disc", encoder: str = "mn-ques-im-hist",
-          phase: str = "") -> dict:
-    """A training path: flagship <encoder>-<decoder> at full width, f32."""
+          phase: str = "", dtype: str = "float32",
+          batch_size: int = 32) -> dict:
+    """A training path: flagship <encoder>-<decoder> at full width in
+    `dtype` (bf16 adds the loss trajectory against f32)."""
     from visdial_tpu_torch.parallel.train_step import train_step
     from visdial_tpu_torch.profile_train import flagship_setup
 
     cfg, batches, state0 = flagship_setup(dev, TRAIN_STEPS, decoder=decoder,
-                                          encoder=encoder)
+                                          encoder=encoder, compute_dtype=dtype,
+                                          batch_size=batch_size)
     row = {"phase": phase or ("train" if decoder == "disc" else "gen_train"),
            "model": f"{encoder}-{decoder}", "vocab": cfg.vocab_size,
-           "batch_dialogs": cfg.batch_size}
+           "dtype": dtype, "batch_dialogs": cfg.batch_size}
     if decoder == "disc":
         check(cfg.vocab_size == 8804 and "opt_uniq" in batches[0],
               "train batches: vocab 8,804 and the dedup layout")
@@ -1117,11 +1227,14 @@ def train(dev, decoder: str = "disc", encoder: str = "mn-ques-im-hist",
 
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
+    calls = tensor_core_calls()
     losses, step_ms = run(state0, "cuda", TRAIN_STEPS)
     launches = kernel_launches()
+    calls = tensor_core_calls() - calls
     peak = torch.cuda.max_memory_allocated(dev)
     check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
     check_launches(launches, cfg, True, row["phase"])
+    check_contractions(calls, cfg, row["phase"])
     torch.cuda.reset_peak_memory_stats(dev)
     _, plain_ms = run(state0, "plain", 5)
     rounds = cfg.batch_size * cfg.num_rounds
@@ -1132,7 +1245,10 @@ def train(dev, decoder: str = "disc", encoder: str = "mn-ques-im-hist",
                 "plain_step_ms": plain_ms,
                 "plain_rounds_per_s": rounds / plain_ms * 1e3,
                 "peak_mem_gb": peak / 2 ** 30,
-                "plain_peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
+                "plain_peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                "tensor_core_contractions": calls})
+    if dtype == "bfloat16":
+        row["trajectory"] = loss_trajectory(cfg, state0, batches)
     emit(row)
     return row
 
@@ -1571,6 +1687,218 @@ def eval_resident(dev) -> list[dict]:
     return rows
 
 
+def eval_scores(params, split, vocab, cfg, dev, impl: str) -> torch.Tensor:
+    """(dialogs, R, K) candidate scores of `split`: disc through the option
+    table (disc_scores), gen through model_scores on the candidate
+    tokens."""
+    from visdial_tpu_torch.data.loader import EvalLoader
+    from visdial_tpu_torch.models.model import batch_to_device, model_scores
+
+    if cfg.decoder == "disc":
+        return disc_scores(params, split, vocab, cfg, dev, impl)
+    out = []
+    with torch.inference_mode():
+        for b in EvalLoader(split, vocab, cfg):
+            s = model_scores(params, batch_to_device(b.as_dict(), dev), cfg,
+                             impl=impl)
+            out.append(s[torch.from_numpy(b.dialog_valid.astype(bool)).to(dev)])
+    return torch.cat(out)
+
+
+def eval_bf16(dev) -> list[dict]:
+    """The resident eval of flagship MN-QIH disc and gen at bf16 over
+    EVAL_DIALOGS dialogs (as eval_resident runs it at f32): a cold run (its
+    launches are the path's), then EVAL_REPS timed runs; against the plain
+    path at bf16: scores within the decoder's SCORE_TOL_BF16, MRR within
+    MRR_TOL_BF16, and a ground truth's rank may move from the plain path's
+    by at most the number of candidates whose plain score lies within twice
+    the measured score error of its own (a bf16 near tie; the rounds with
+    such candidates and the moved ranks are counted)."""
+    import numpy as np
+
+    from visdial_tpu_torch.config import Config
+    from visdial_tpu_torch.data.synthetic import make_random_split
+    from visdial_tpu_torch.eval_harness import evaluate_split
+    from visdial_tpu_torch.models.model import model_init
+
+    rows = []
+    for decoder in ("disc", "gen"):
+        base = Config(encoder="mn-ques-im-hist", decoder=decoder, dropout=0.0,
+                      compute_dtype="bfloat16")
+        split, vocab = make_random_split(base, num_dialogs=EVAL_DIALOGS, seed=1)
+        cfg = base.replace(vocab_size=vocab.size)
+        params = model_init(cfg, seed=0, device=dev)
+        if decoder == "disc":
+            params = scaled(params, EVAL_SCALE)
+        what, tol = f"eval_bf16 {decoder}", SCORE_TOL_BF16[decoder]
+
+        def run(impl, resident):
+            return evaluate_split(params, split, vocab, cfg, dev, impl=impl,
+                                  return_ranks=True, resident=resident)
+
+        reset_launches()
+        calls = tensor_core_calls()
+        cold, rk = run("cuda", True)
+        launches = kernel_launches()
+        check_launches(launches, cfg, False, what)
+        check_contractions(tensor_core_calls() - calls, cfg, what)
+        rates = [run("cuda", True)[0]["evals_per_sec"] for _ in range(EVAL_REPS)]
+        mp, rp = run("plain", False)
+        s_k = eval_scores(params, split, vocab, cfg, dev, "cuda")
+        s_p = eval_scores(params, split, vocab, cfg, dev, "plain")
+        err = float((s_k - s_p).abs().max())
+        check(bool(torch.isfinite(s_k).all()) and err <= tol,
+              f"{what}: score err {err} > {tol}")
+        # two scores each off by at most err can change order only where
+        # they lie within 2 err, so a ground truth's rank may move by at
+        # most the number of candidates whose plain score is that close
+        gt = torch.from_numpy(split.gt_ind).long().to(dev)[..., None]
+        close = ((s_p - s_p.gather(-1, gt)).abs() <= 2 * err).sum(-1) - 1
+        close = close.flatten().cpu().numpy()
+        moved = np.abs(rk.astype(np.int64) - rp.astype(np.int64))
+        check(len(rk) == len(rp) == close.size and (moved <= close).all(),
+              f"{what}: {int((moved > close).sum())} ranks moved further "
+              f"from the plain path's than the candidates within 2 x the "
+              f"score error ({2 * err}) allow")
+        mrr_err = abs(cold["mrr"] - mp["mrr"])
+        check(mrr_err <= MRR_TOL_BF16, f"{what}: mrr {cold['mrr']} against "
+              f"plain {mp['mrr']} (tol {MRR_TOL_BF16})")
+        row = {"phase": "eval_bf16", "model": f"mn-ques-im-hist-{decoder}",
+               "dtype": "bfloat16", "dialogs": EVAL_DIALOGS,
+               "rounds": int(len(rk)), "launches": launches,
+               "mrr": cold["mrr"], "plain_mrr": mp["mrr"], "mrr_err": mrr_err,
+               "mrr_tol": MRR_TOL_BF16, "score_max_abs_err": err,
+               "score_tol": tol,
+               "near_tie_rounds": int((close > 0).sum()),
+               "rank_flips": int((moved > 0).sum()),
+               "rank_moved_max": int(moved.max()),
+               "evals_per_sec": statistics.median(rates),
+               "evals_per_sec_runs": rates,
+               "plain_evals_per_sec": mp["evals_per_sec"]}
+        emit(row)
+        rows.append(row)
+        del params, s_k, s_p
+        torch.cuda.empty_cache()
+    return rows
+
+
+def contraction_checks(dev, k2_rows) -> list[dict]:
+    """The contraction helper (ops/contract.py) on bf16 operands at the
+    training step's head shapes, against a float64 product of the same
+    operands (relative to its largest |value|, within CONTRACT_TOL), each
+    beside a planted control (the same GEMM with a bf16 output, which the
+    limit must refuse) and the upcast route the port ran before (f32 copies,
+    then an f32 GEMM, TF32 off), timed in the same call: the option LSTM's
+    dW (x^T . dgp over CONTRACT_ROWS rows at E 300 and 512) and dx (dgp .
+    Wx^T), and TokenLogprobFn's dx (dlog . W^T) and dW (x^T . dlog) at
+    LM_HEAD.  Then LSTMLayerFn's whole bf16 backward at the head beside
+    cuDNN's bf16 backward (lstm_bwd_checks)."""
+    from visdial_tpu_torch.ops.contract import mm_f32
+
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).bfloat16()
+
+    M, G = CONTRACT_ROWS, 4 * 512
+    NT, H, V = LM_HEAD
+    dgp = rand(M, G, scale=0.01)
+    dlog, xl = rand(NT, V, scale=1e-3), torch.tanh(rand(NT, H))
+    cases = [("lstm_dw", rand(M, E, scale=0.5).T, dgp) for E in (300, 512)]
+    cases += [("lstm_dx", dgp, rand(300, G, scale=0.08).T),
+              ("lm_dx", dlog, rand(H, V, scale=0.1).T),
+              ("lm_dw", xl.T, dlog)]
+    rows = []
+    for site, a, b in cases:
+        shape = [a.shape[0], a.shape[1], b.shape[1]]
+        got = mm_f32(a, b)
+        ref = a.double() @ b.double()
+        scale = float(ref.abs().max())
+        err = float((got.double() - ref).abs().max()) / scale
+        control = float((torch.mm(a, b).double() - ref).abs().max()) / scale
+        del ref
+        check(got.dtype == torch.float32 and err <= CONTRACT_TOL < control,
+              f"contraction {site} {shape}: rel err {err} (tol {CONTRACT_TOL}), "
+              f"bf16-output control {control} must exceed it")
+        ops = 2.0 * shape[0] * shape[1] * shape[2]
+        nbytes = 2 * (a.numel() + b.numel()) + 4 * got.numel()
+        row = {"phase": "contraction", "site": site, "shape": shape,
+               "dtype": "bfloat16", "max_rel_err": err, "tol": CONTRACT_TOL,
+               "control_err": control,
+               "ms": time_ms(lambda: mm_f32(a, b)),
+               "upcast_ms": time_ms(lambda: a.float() @ b.float()),
+               **bound(ops, nbytes, "bfloat16")}
+        emit(row)
+        rows.append(row)
+        del got
+    head = next(r for r in k2_rows if r["shape"] == list(LSTM_HEAD)
+                and r["dtype"] == "bfloat16" and not r["sparse_g_hs"])
+    row = {"phase": "contraction", "site": "lstm_layer_fn_backward",
+           "shape": list(LSTM_HEAD), "dtype": "bfloat16",
+           "bwd_ms": head["bwd_ms"], "k2_ms": head["ms"],
+           "library_ms": head["library_ms"], "library": head["library"]}
+    emit(row)
+    rows.append(row)
+    del dgp, dlog, cases
+    torch.cuda.empty_cache()
+    return rows
+
+
+def integration(dev) -> list[dict]:
+    """The port's two learning bars on the card through the kernels, in f32
+    and in bf16, at the CPU tests' configs and step counts
+    (tests/test_torch_lf_integration.py: LF-QIH-disc, MRR > 0.8 at 300
+    steps; tests/test_torch_gen.py::test_gen_decoder_learns_to_rank_above_
+    chance: MN-QH-gen, MRR > 0.6 at 400): the CPU tests' small_config with
+    use_pallas on, the same synthetic split and init, the loss falling as
+    those tests require, then evaluate_split on the card."""
+    from visdial_tpu_torch.config import Config
+    from visdial_tpu_torch.data.loader import TrainLoader
+    from visdial_tpu_torch.data.synthetic import make_synthetic_split
+    from visdial_tpu_torch.eval_harness import evaluate_split
+    from visdial_tpu_torch.models.model import batch_to_device
+    from visdial_tpu_torch.parallel.train_step import (init_train_state,
+                                                       train_step)
+
+    rows = []
+    for label, fields, steps, bar in INTEGRATION:
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            base = Config(**{**SMALL_CONFIG, **fields, "compute_dtype": dtype})
+            split, vocab = make_synthetic_split(base, num_dialogs=32, seed=0)
+            cfg = base.replace(vocab_size=vocab.size)
+            state = init_train_state(cfg, device=dev)
+            loader, losses = TrainLoader(split, vocab, cfg), []
+            reset_launches()
+            calls = tensor_core_calls()
+            while len(losses) < steps:
+                for b in loader.epoch(seed=len(losses)):
+                    state, m = train_step(
+                        state, batch_to_device(b.as_dict(), dev), cfg)
+                    losses.append(m["loss"])
+                    if len(losses) == steps:
+                        break
+            losses = torch.stack(losses).tolist()
+            what = f"integration {label} {dtype}"
+            launches = kernel_launches()
+            check_launches(launches, cfg, True, what)
+            check_contractions(tensor_core_calls() - calls, cfg, what)
+            first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+            mrr = evaluate_split(state.params, split, vocab, cfg, dev)["mrr"]
+            check(all(map(math.isfinite, losses))
+                  and last < first * (0.5 if cfg.decoder == "disc" else 1.0)
+                  and mrr > bar, f"{what}: loss {first} -> {last}, mrr {mrr} "
+                  f"(bar {bar})")
+            row = {"phase": "integration_bf16", "model": f"{cfg.encoder}-{cfg.decoder}",
+                   "label": label, "dtype": dtype, "steps": steps,
+                   "launches": launches, "loss_first5": first,
+                   "loss_last5": last, "mrr": mrr, "mrr_bar": bar,
+                   "wall_s": time.perf_counter() - t0}
+            emit(row)
+            rows.append(row)
+    return rows
+
+
 def dense_entries(split, cfg) -> list[dict]:
     """Dense targets built from the split as tests/test_finetune.py builds
     them: relevance 1.0 on a fixed non-ground-truth slot of round 2."""
@@ -1811,22 +2139,30 @@ def sweep(dev) -> dict:
 
 
 def serve(dev, encoder: str = "mn-ques-im-hist", phase: str = "serve",
-          beside: dict | None = None) -> dict:
+          beside: dict | None = None, dtype: str = "float32") -> dict:
     """A serving path: flagship <encoder>-disc served over a 50k-answer
-    pool (the main path with MN-QIH; `beside`, another serve row, puts its
-    latencies next to this one's)."""
+    pool in `dtype` (the main path with MN-QIH; `beside`, another serve
+    row, puts its latencies next to this one's).  In bf16 the params are
+    scaled as the disc evals' (EVAL_SCALE) so that the ranks it checks
+    are not near ties of the init scale, and every request's top-1 answer
+    must be the plain path's."""
     from visdial_tpu_torch.config import Config
     from visdial_tpu_torch.data.synthetic import make_random_split
     from visdial_tpu_torch.infer import InferenceEngine
     from visdial_tpu_torch.models.model import model_init
 
-    base = Config(encoder=encoder, decoder="disc", dropout=0.0)
+    base = Config(encoder=encoder, decoder="disc", dropout=0.0,
+                  compute_dtype=dtype)
     split, vocab = make_random_split(base, num_dialogs=8,
                                      num_unique_answers=50_000, seed=0)
     cfg = base.replace(vocab_size=vocab.size)
     params = model_init(cfg, seed=0, device=dev)
+    score_tol = SCORE_TOL
+    if dtype != "float32":
+        params, score_tol = scaled(params, EVAL_SCALE), SERVE_TOL_BF16
 
     reset_launches()
+    calls = tensor_core_calls()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng = InferenceEngine(params=params, cfg=cfg, data=split, vocab=vocab,
@@ -1841,6 +2177,7 @@ def serve(dev, encoder: str = "mn-ques-im-hist", phase: str = "serve",
         lat_ms.append((time.perf_counter() - t0) * 1e3)
     launches = kernel_launches()
     check_launches(launches, cfg, False, phase)
+    check_contractions(tensor_core_calls() - calls, cfg, phase)
 
     # the same requests through the plain versions on the same card
     plain = InferenceEngine(params=params, cfg=cfg.replace(use_pallas=False),
@@ -1848,33 +2185,46 @@ def serve(dev, encoder: str = "mn-ques-im-hist", phase: str = "serve",
     check(plain.impl == "plain" and eng.impl == "cuda", "impl routing")
     check(tuple(eng.table.shape) == (50_000, cfg.rnn_hidden_size)
           and bool(torch.isfinite(eng.table).all()), "answer table shape/finite")
-    table_err = float((eng.table - plain.table).abs().max())
-    check(table_err <= TOL["float32"], f"answer table err {table_err}")
-    score_err, near_ties = 0.0, 0
-    for (question, caption, history), got in zip(REQUESTS, answers):
-        s_k = eng.pool_scores(question, caption, history)
-        s_p = plain.pool_scores(question, caption, history)
+    table_err = float((eng.table.float() - plain.table.float()).abs().max())
+    check(table_err <= TOL[dtype], f"answer table err {table_err}")
+    scores = [(eng.pool_scores(*req), plain.pool_scores(*req))
+              for req in REQUESTS]
+    score_err = max(float((s_k - s_p).abs().max()) for s_k, s_p in scores)
+    check(score_err <= score_tol, f"served score err {score_err} > {score_tol}")
+    # the k-th of two score lists each within score_err of the other differ
+    # by at most score_err, so a place may hold another answer only where
+    # the plain scores of the two lie within 2 score_err (bf16; f32 keeps
+    # the limit it had)
+    allow = score_tol if dtype == "float32" else 2 * score_err
+    near_ties, top1_equal, top1_gaps = 0, 0, []
+    for (s_k, s_p), got in zip(scores, answers):
         check(bool(torch.isfinite(s_k).all()), "non-finite served scores")
-        score_err = max(score_err, float((s_k - s_p).abs().max()))
         top_k = torch.topk(s_k, 5).indices.tolist()
-        top_p = torch.topk(s_p, 5).indices.tolist()
+        best_p, top_p = torch.topk(s_p, 5)
+        top_p = top_p.tolist()
         check([a["answer"] for a in got]
               == [" ".join(vocab.decode(split.opt_list[i])) for i in top_k],
               "rank_answers disagrees with its own pool scores")
+        top1_equal += top_k[0] == top_p[0]
+        top1_gaps.append(float(best_p[0] - best_p[1]))
         for i, j in zip(top_k, top_p):
-            if i != j:   # allowed only where the plain scores tie within tol
+            if i != j:
                 near_ties += 1
-                check(abs(float(s_p[i] - s_p[j])) <= SCORE_TOL,
+                check(abs(float(s_p[i] - s_p[j])) <= allow,
                       f"top-k differs from the plain run: {top_k} vs {top_p}")
-    check(score_err <= SCORE_TOL, f"served score err {score_err} > {SCORE_TOL}")
+    if dtype != "float32":
+        check(top1_equal == len(REQUESTS), f"{phase}: top-1 answer differs "
+              f"from the plain run's in {len(REQUESTS) - top1_equal} requests")
     lat_ms.sort()
-    row = {"phase": phase, "model": f"{encoder}-disc",
+    row = {"phase": phase, "model": f"{encoder}-disc", "dtype": dtype,
            "vocab": cfg.vocab_size, "pool": int(split.opt_list.shape[0]),
            "requests": len(REQUESTS), "launches": launches,
            "table_build_s": table_s, "p50_ms": lat_ms[len(lat_ms) // 2],
            "max_ms": lat_ms[-1], "table_max_abs_err": table_err,
-           "score_max_abs_err": score_err, "score_tol": SCORE_TOL,
-           "topk_near_ties": near_ties, "top1": answers[0][0]["answer"]}
+           "score_max_abs_err": score_err, "score_tol": score_tol,
+           "topk_near_ties": near_ties, "top1_equal_plain": top1_equal,
+           "top1_plain_gap_min": min(top1_gaps),
+           "top1": answers[0][0]["answer"]}
     if beside:
         row.update({f"{beside['model']}_p50_ms": beside["p50_ms"],
                     f"{beside['model']}_max_ms": beside["max_ms"]})
@@ -2802,6 +3152,18 @@ def main() -> None:
                       served["row"])
     fams = timed("families", families, dev)
     resident = timed("eval_resident", eval_resident, dev)
+    # bf16, the JAX package's production precision, on the main paths
+    contracted = timed("contraction", contraction_checks, dev, k2)
+    trained_bf16 = timed("train_bf16", train, dev, phase="train_bf16",
+                         dtype="bfloat16")
+    gen_trained_bf16 = timed("gen_train_bf16", train, dev, "gen",
+                             phase="gen_train_bf16", dtype="bfloat16",
+                             batch_size=BF16_GEN_BATCH)
+    evaluated_bf16 = timed("eval_bf16", eval_bf16, dev)
+    served_bf16 = timed("serve_bf16", serve, dev, phase="serve_bf16",
+                        beside=served["row"], dtype="bfloat16")
+    del served_bf16["params"]
+    integrated = timed("integration_bf16", integration, dev)
     timed("train_cli", train_cli)
     timed("evaluate_cli", evaluate_cli)
     tuned = timed("finetune", finetune, dev)
@@ -2833,6 +3195,13 @@ def main() -> None:
         decoder = r["model"].rsplit("-", 1)[1]
         by_path[f"eval_resident:{decoder}"] = r["launches"]
         by_path[f"eval_staged:{decoder}"] = r["staged_launches"]
+    by_path.update({"train_bf16": trained_bf16["launches"],
+                    "gen_train_bf16": gen_trained_bf16["launches"],
+                    "serve_bf16": served_bf16["row"]["launches"]})
+    for r in evaluated_bf16:
+        by_path[f"eval_bf16:{r['model'].rsplit('-', 1)[1]}"] = r["launches"]
+    for r in integrated:
+        by_path[f"integration_bf16:{r['label']}:{r['dtype']}"] = r["launches"]
     by_path.update({"finetune": tuned["launches"],
                     "finetune_cli": tuned["cli_launches"],
                     "generate": generated["launches"],
@@ -2844,14 +3213,14 @@ def main() -> None:
         for stage, n in m["launches"].items():
             by_path[f"pipeline:{key}:{stage}"] = n
 
-    def head_row(rows, shape, **match):
+    def head_row(rows, shape, dtype="float32", **match):
         return next(r for r in rows if r["shape"] == shape
-                    and r["dtype"] == "float32"
+                    and r["dtype"] == dtype
                     and all(r.get(k) == v for k, v in match.items()))
 
-    def side_head(rows, shape, keys, **match):
-        head = head_row(rows, shape, **match)
-        return {k: head.get(k) for k in ("shape",) + keys + (
+    def side_head(rows, shape, keys, dtype="float32", **match):
+        head = head_row(rows, shape, dtype, **match)
+        return {k: head.get(k) for k in ("shape", "dtype") + keys + (
             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
 
     def summary(rows, head_shape, path, **fixed):
@@ -2881,7 +3250,11 @@ def main() -> None:
                 library_pack_ms=head_row(k1, [32000, 8, 300, 512])["library_pack_ms"],
                 # HRE/HREA's dialog LSTM, every step real: cuDNN unpacked
                 dialog_head=side_head(k1, list(DIALOG_HEAD),
-                                      ("align", "library_ms"))),
+                                      ("align", "library_ms")),
+                # the head in bf16 beside cuDNN's LSTM in bf16
+                bf16_head=side_head(k1, list(LSTM_HEAD),
+                                    ("library_ms", "library_pack_ms"),
+                                    "bfloat16")),
         summary(k2, [32000, 8, 300, 512], "train", name="lstm_layer_bwd",
                 source="visdial_tpu_torch/csrc/lstm_bwd.cu",
                 replaces="visdial_tpu/ops/lstm_pallas.py:305",
@@ -2893,7 +3266,12 @@ def main() -> None:
                 # LSTMLayerFn's whole backward, K2 and the GEMMs
                 bwd_ms=head_row(k2, [32000, 8, 300, 512])["bwd_ms"],
                 dialog_head=side_head(k2, list(DIALOG_HEAD),
-                                      ("align", "bwd_ms", "library_ms"))),
+                                      ("align", "bwd_ms", "library_ms")),
+                # the head in bf16: LSTMLayerFn's whole backward (K2 and
+                # the bf16 contractions) beside cuDNN's bf16 backward
+                bf16_head=side_head(k2, list(LSTM_HEAD), ("bwd_ms",
+                                                          "library_ms"),
+                                    "bfloat16", sparse_g_hs=False)),
         summary(k3, [32, 10, 10, 512], "train", name="attention",
                 source="visdial_tpu_torch/csrc/attention_fusion.cu",
                 replaces="visdial_tpu/ops/attention_pallas.py:24",

@@ -1,8 +1,10 @@
 """Device times of K1 (LSTM forward) and K2 (LSTM backward) at the head
 shape and the 320-row question and fact shapes, f32 and bf16, for the
 checkout it is run from (CUDA events, median of 10 calls, chip_smoke's
-inputs).  To compare two commits on one card, unpack each and run this
-script from each in turn in one session:
+inputs), and of LSTMLayerFn's whole backward (K2, then the dW, db and dx
+contractions; `bwd_ms`, median of 5) with the peak device memory of those
+calls (`bwd_peak_gb`).  To compare two commits on one card, unpack each
+and run this script from each in turn in one session:
 
     python scripts/lstm_kernel_times.py --label parent
 
@@ -20,7 +22,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
-from visdial_tpu_torch.ops.lstm_cuda import lstm_layer, lstm_layer_bwd  # noqa: E402
+from visdial_tpu_torch.ops.lstm_cuda import (LSTMLayerFn, lstm_layer,  # noqa: E402
+                                            lstm_layer_bwd)
 
 SHAPES = [(32000, 8, 300, 512), (320, 40, 300, 512), (320, 16, 300, 512)]
 
@@ -45,13 +48,21 @@ def main() -> None:
             c_prev = torch.cat([c0.to(dt)[:, None], cs[:, :-1]], dim=1)
             bwd = (w, b, x, mask, h_prev, c_prev, g_hs.cuda().to(dt), g_ht.cuda(),
                    g_ct.cuda())
-            print(json.dumps({
-                "label": args.label, "shape": [N, T, E, H],
-                "dtype": str(dt).split(".")[1],
-                "gpu": torch.cuda.get_device_name(0),
-                "k1_ms": chip_smoke.time_ms(lambda: lstm_layer(w, b, x, mask, h0, c0)),
-                "k2_ms": chip_smoke.time_ms(lambda: lstm_layer_bwd(*bwd))}),
-                flush=True)
+            row = {"label": args.label, "shape": [N, T, E, H],
+                   "dtype": str(dt).split(".")[1],
+                   "gpu": torch.cuda.get_device_name(0),
+                   "k1_ms": chip_smoke.time_ms(lambda: lstm_layer(w, b, x, mask, h0, c0)),
+                   "k2_ms": chip_smoke.time_ms(lambda: lstm_layer_bwd(*bwd))}
+            del hs, cs, h_prev, c_prev, bwd
+            ins = [t.clone().requires_grad_() for t in (w, b, x, h0, c0)]
+            outs = LSTMLayerFn.apply(*ins[:3], mask, *ins[3:])
+            cot = [g_hs.cuda().to(dt), g_ht.cuda(), g_ct.cuda()]
+            torch.cuda.reset_peak_memory_stats()
+            row["bwd_ms"] = chip_smoke.time_ms(lambda: torch.autograd.grad(
+                outs, ins, cot, retain_graph=True), reps=5, warmup=1)
+            row["bwd_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            del outs, ins
+            print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

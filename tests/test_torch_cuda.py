@@ -13,9 +13,11 @@ Needs an NVIDIA GPU: every test skips without one.  On the card:
 import pytest
 import torch
 
+from visdial_tpu_torch.models.core import linear
 from visdial_tpu_torch.ops.attention import attention_fusion_ref, attention_plain
 from visdial_tpu_torch.ops.attention_cuda import (AttentionFn, attention_fusion,
                                                   masked_slot_attention)
+from visdial_tpu_torch.ops.contract import mm_f32, scores_f32
 from visdial_tpu_torch.ops.lm_loss import masked_nll_fused, masked_nll_ref
 from visdial_tpu_torch.ops.lm_score import (lm_dlogits_plain,
                                             lm_token_logprobs_lse_plain)
@@ -636,3 +638,111 @@ def test_every_kernel_launches_on_a_second_card(dtype):
             lim = 1e-5 * (r + cot.abs()[:, None] / r.shape[1])
         assert bool(((dl.float() - want_dl.float()).abs() <= lim).all())
         torch.cuda.synchronize(dev)
+
+
+# The contraction helper (ops/contract.py): bf16 operands, f32 results on
+# the tensor cores, against a float64 product of the same bf16 operands,
+# relative to its largest |value|.  Products of bf16 values are exact; the
+# f32 sums differ by order and by the tensor cores' truncating f32
+# accumulation (~7e-5 over 256,000 rows on the H100; chip_smoke.py's
+# CONTRACT_TOL).  (rows a, depth, columns b, a stored transposed): ragged
+# sizes, the LM head's dx, and dW-like reductions over more than 100,000
+# rows with a transposed operand.
+CONTRACT_TOL = 5e-4
+CONTRACT_CASES = [(1, 8, 10, False), (70, 33, 130, False),
+                  (2880, 8804, 512, False), (40, 120_000, 64, True),
+                  (300, 150_001, 2048, True)]
+
+
+@pytest.mark.parametrize("M,K,N,transposed", CONTRACT_CASES)
+def test_contraction_bf16_matches_float64(dev, M, K, N, transposed):
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    a = torch.randn(*((K, M) if transposed else (M, K)), generator=g,
+                    device=dev).bfloat16()
+    a = a.T if transposed else a
+    b = (torch.randn(K, N, generator=g, device=dev) * 0.1).bfloat16()
+    before = mm_f32.tensor_core
+    got = mm_f32(a, b)
+    ref = a.double() @ b.double()
+    torch.cuda.synchronize()
+    assert mm_f32.tensor_core == before + 1
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    err = float((got.double() - ref).abs().max()) / float(ref.abs().max())
+    assert err <= CONTRACT_TOL, err
+
+
+def test_contraction_ignores_the_reduced_precision_flag(dev):
+    """cuBLAS reduces in f32 when the output is f32: the bf16 GEMM gives the
+    same bits with allow_bf16_reduced_precision_reduction on and off."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    a = torch.randn(150_001, 300, generator=g, device=dev).bfloat16().T
+    b = torch.randn(150_001, 2048, generator=g, device=dev).bfloat16()
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    try:
+        outs = []
+        for on in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = on
+            outs.append(mm_f32(a, b))
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    assert torch.equal(*outs)
+
+
+def test_contraction_scores_bf16_matches_float64(dev):
+    """The (N, H) x (N, K, H) form of the disc scores, at the flagship eval
+    batch (320 rounds x 100 candidates x 512)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(320, 512, generator=g, device=dev).bfloat16()
+    e = torch.randn(320, 100, 512, generator=g, device=dev).bfloat16()
+    got = scores_f32(q, e)
+    ref = torch.einsum("nh,nkh->nk", q.double(), e.double())
+    assert got.dtype == torch.float32 and got.shape == (320, 100)
+    assert float((got.double() - ref).abs().max()) <= \
+        CONTRACT_TOL * float(ref.abs().max())
+
+
+def test_contraction_f32_route_is_unchanged(dev):
+    """float32 operands on the card keep the f32 product, bit for bit, and
+    never reach the tensor-core route; another dtype raises."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    a = torch.randn(4, 600, 300, generator=g, device=dev)
+    b = torch.randn(300, 2048, generator=g, device=dev)
+    q, e = a[0], torch.randn(600, 7, 300, generator=g, device=dev)
+    before = (mm_f32.tensor_core, scores_f32.tensor_core)
+    assert torch.equal(mm_f32(a, b), a @ b)
+    assert torch.equal(scores_f32(q, e), torch.einsum("nh,nkh->nk", q, e))
+    assert (mm_f32.tensor_core, scores_f32.tensor_core) == before
+    with pytest.raises(TypeError, match="float16"):
+        mm_f32(a.half(), b.half())
+
+
+def test_contraction_gradients_are_the_upcast_products(dev):
+    """Where autograd differentiates a site (linear, the disc scores), the
+    gradients on the tensor-core route are what autograd of the upcast
+    product gives: the f32 cotangent times the other operand upcast, cast to
+    the operand's dtype (dx, dW bit for bit; the scores' einsum within f32
+    rounding)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(320, 300, generator=g, device=dev).bfloat16()
+    p = {"w": torch.randn(300, 512, generator=g, device=dev) * 0.08,
+         "b": torch.randn(512, generator=g, device=dev) * 0.1}
+    cot = torch.randn(320, 512, generator=g, device=dev)
+    grads = []
+    for fn in (lambda x, w, b: linear({"w": w, "b": b}, x, torch.float32),
+               lambda x, w, b: x.float() @ w.to(x.dtype).float() + b):
+        ins = [t.clone().requires_grad_() for t in (x, p["w"], p["b"])]
+        grads.append(torch.autograd.grad(fn(*ins), ins, cot))
+    for a, r in zip(*grads):
+        assert a.dtype == r.dtype and torch.equal(a, r)
+    q = torch.randn(64, 512, generator=g, device=dev).bfloat16()
+    e = torch.randn(64, 100, 512, generator=g, device=dev).bfloat16()
+    cot = torch.randn(64, 100, generator=g, device=dev)
+    grads = []
+    for fn in (scores_f32,
+               lambda q, e: torch.einsum("nh,nkh->nk", q.float(), e.float())):
+        ins = [t.clone().requires_grad_() for t in (q, e)]
+        grads.append(torch.autograd.grad(fn(*ins), ins, cot))
+    for a, r in zip(*grads):
+        assert a.dtype == r.dtype == torch.bfloat16
+        assert float((a.float() - r.float()).abs().max()) <= \
+            2.0 ** -8 * float(r.float().abs().max())

@@ -76,6 +76,27 @@ def test_synthetic_splits_equal():
         jax_synthetic.synthetic_vocab(20).word2ind
 
 
+@pytest.mark.parametrize("a,seed", [(1.2, 1), (1.5, 7)])
+def test_zipf_redraw_options_equal(a, seed):
+    """The port's zipf redraw gives the JAX function's candidate pools for
+    the same split and seed, keeping every round's ground-truth row in its
+    slot (and, as the reference does, possibly in other slots too)."""
+    fl = _flagship(jax_config)
+    splits = [m.make_random_split(fl, num_dialogs=6, num_unique_answers=400,
+                                  seed=2)[0]
+              for m in (jax_synthetic, torch_synthetic)]
+    gt_rows = np.take_along_axis(splits[0].opt_inds,
+                                 splits[0].gt_ind[..., None], axis=2)
+    jax_synthetic.zipf_redraw_options(splits[0], a, seed=seed)
+    torch_synthetic.zipf_redraw_options(splits[1], a, seed=seed)
+    _assert_splits_equal(*splits)
+    assert np.array_equal(np.take_along_axis(
+        splits[1].opt_inds, splits[1].gt_ind[..., None], axis=2), gt_rows)
+    # the skew: the most drawn row takes far more than a uniform share
+    counts = np.bincount(splits[1].opt_inds.ravel(), minlength=400)
+    assert counts.max() > 10 * splits[1].opt_inds.size / 400
+
+
 def _assert_splits_equal(a, b):
     fa, fb = dataclasses.asdict(a), dataclasses.asdict(b)
     assert fa.keys() == fb.keys()

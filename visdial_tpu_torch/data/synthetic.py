@@ -1,7 +1,8 @@
 """Synthetic datasets for tests and benchmarks (the port's own copy of
 visdial_tpu/data/synthetic.py: make_synthetic_split, random_batch,
-make_random_split and synthetic_vocab; the same arrays for the same seed,
-tests/test_torch_data.py and tests/test_torch_verify.py).
+make_random_split, synthetic_vocab and zipf_redraw_options; the same
+arrays for the same seed, tests/test_torch_data.py and
+tests/test_torch_verify.py).
 
 The reference has no test fixtures (SURVEY.md §4); this generator plays the
 role of the golden fixture: a deterministic, structured dataset small enough
@@ -227,3 +228,27 @@ def make_random_split(cfg: Config, num_dialogs: int,
     ).validate()
     return split, vocab
 
+
+def zipf_redraw_options(split, a: float, seed: int = 1) -> None:
+    """In-place zipf(a) answer-popularity redraw of the split's candidate
+    pools, keeping each round's planted ground-truth row where it is
+    (visdial_tpu/data/synthetic.py::zipf_redraw_options, the same arrays
+    for the same seed).
+
+    make_random_split draws candidates uniformly from the option list; real
+    VisDial answer options are heavily popularity-skewed (yes/no/counts
+    dominate), so uniform duplication fractions are a lower bound.
+    a ~ 1.2-1.5 approximates the real skew.
+
+    Copied with the reference's fault: the redraw can put the ground
+    truth's row in other slots of the same round too, which ties their
+    scores with the ground truth's.  Use it for rate rows (how much the
+    candidate rows deduplicate) only, never for metrics."""
+    rng = np.random.default_rng(seed)
+    M = split.opt_list.shape[0]
+    pop = 1.0 / (1.0 + np.arange(M, dtype=np.float64)) ** a
+    pop = pop[rng.permutation(M)] / pop.sum()
+    redraw = rng.choice(M, size=split.opt_inds.shape, p=pop).astype(np.int32)
+    gt = np.take_along_axis(split.opt_inds, split.gt_ind[..., None], axis=2)
+    np.put_along_axis(redraw, split.gt_ind[..., None], gt, axis=2)
+    split.opt_inds[:] = redraw

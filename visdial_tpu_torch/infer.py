@@ -34,6 +34,7 @@ from .data.prepro import tokenize
 from .models.encoders import encoder_apply
 from .models.model import (_impl, batch_to_device, model_generate,
                            model_option_table)
+from .ops.contract import mm_f32
 from .utils.checkpoint import load_checkpoint
 
 
@@ -125,8 +126,8 @@ class InferenceEngine:
         batch, t = self._batch(caption, history, question, img_feat)
         joint = encoder_apply(self.params["encoder"], self.params["embed"],
                               batch, self.cfg, impl=self.impl)
-        j = joint[t:t + 1].to(self.table.dtype).float()          # (1, H)
-        return (j @ self.table.float().T)[0]
+        j = joint[t:t + 1].to(self.table.dtype)                  # (1, H)
+        return mm_f32(j, self.table.T)[0]
 
     def rank_answers(self, question: str, caption: str = "", history=None,
                      img_feat=None, top_k: int = 5) -> list[dict]:

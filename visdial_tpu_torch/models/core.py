@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.contract import mm_f32
 from ..ops.lstm import keep_mask, uniform
 from ..parallel.mesh import VocabShard, reduce_from_model
 
@@ -31,9 +32,9 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
 
 def linear(params: dict, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """Mixed-precision linear (core.py::linear): weights cast to the
-    activation dtype, f32 accumulation, output in `out_dtype` (default: the
-    activation dtype)."""
-    y = x.float() @ params["w"].to(x.dtype).float() + params["b"].float()
+    activation dtype, f32 accumulation (ops/contract.py), output in
+    `out_dtype` (default: the activation dtype)."""
+    y = mm_f32(x, params["w"].to(x.dtype)) + params["b"].float()
     return y.to(out_dtype or x.dtype)
 
 

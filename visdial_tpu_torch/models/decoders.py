@@ -20,6 +20,7 @@ import torch
 
 from ..config import Config
 
+from ..ops.contract import scores_f32
 from ..ops.lm_loss import masked_nll_fused, masked_nll_ref, token_logprobs
 from ..ops.lstm import lstm_init, lstm_keep_masks, lstm_step, masked_lstm
 from .core import embed, linear, linear_init
@@ -312,7 +313,7 @@ def disc_scores_from_table(joint, table, opt_inds):
     """score_k = dot(table[opt_inds_k], joint): joint (N, H), table (M, H),
     opt_inds (N, K) -> (N, K) float32."""
     emb = table[opt_inds]
-    return torch.einsum("nh,nkh->nk", joint.to(emb.dtype).float(), emb.float())
+    return scores_f32(joint.to(emb.dtype), emb)
 
 
 def disc_scores(params, embed_params, joint, opt_tokens, cfg: Config, *,
@@ -323,8 +324,7 @@ def disc_scores(params, embed_params, joint, opt_tokens, cfg: Config, *,
     opt_emb = disc_option_embeddings(params, embed_params, opt_tokens, cfg,
                                      train=train, gen=gen, impl=impl,
                                      shard=shard)
-    return torch.einsum("nh,nkh->nk", joint.to(opt_emb.dtype).float(),
-                        opt_emb.float())
+    return scores_f32(joint.to(opt_emb.dtype), opt_emb)
 
 
 def disc_loss(params, embed_params, joint, batch, cfg: Config, *,

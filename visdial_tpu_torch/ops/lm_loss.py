@@ -5,10 +5,11 @@ visdial_tpu/ops/lm_loss.py).
 `_token_logprobs`: its forward is K5 (per-token log p(target), saving the
 row logsumexp), its backward K6 (d-logits rebuilt tile by tile from that
 logsumexp, in the compute dtype) followed by dx = dlog . W^T,
-dW = x^T . dlog and db = sum(dlog) as plain matmuls with f32 results (the
-JAX package leaves those three to XLA outside its kernel).  The (N*T, V)
-logits never exist in either direction on the card.  On CPU tensors K5 and
-K6 take their plain versions (ops/lm_score.py).
+dW = x^T . dlog and db = sum(dlog), contractions of compute-dtype operands
+with f32 results (ops/contract.py; the JAX package leaves those three to
+XLA outside its kernel).  The (N*T, V) logits never exist in either
+direction on the card.  On CPU tensors K5 and K6 take their plain versions
+(ops/lm_score.py).
 
 `masked_nll_ref` is the materialized-logits twin (the behavior of record).
 In bf16 the two differ only by the rounding of d-logits to bf16 before the
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from .contract import mm_f32
 from .lm_score import (lm_dlogits_plain, lm_logits,
                        lm_token_logprobs_lse_plain)
 from .lm_score_cuda import lm_dlogits, lm_token_logprobs_lse
@@ -77,12 +79,12 @@ class TokenLogprobFn(torch.autograd.Function):
     def backward(ctx, g):
         x, w, b, tgt, lse = ctx.saved_tensors
         dlogits = lm_dlogits_plain if ctx.plain else lm_dlogits
-        dlog = dlogits(x, w, b, tgt, lse, g.float().contiguous()).float()
-        dx = dlog @ w.to(x.dtype).float().T
+        dlog = dlogits(x, w, b, tgt, lse, g.float().contiguous())  # (NT, V) cdt
+        dx = mm_f32(dlog, w.to(x.dtype).T)
         if ctx.shard is not None:
             dx = ctx.shard.sum(dx)
-        dw = (x.float().T @ dlog).to(w.dtype)
-        db = dlog.sum(dim=0).to(b.dtype)
+        dw = mm_f32(x.T, dlog).to(w.dtype)
+        db = dlog.sum(dim=0, dtype=torch.float32).to(b.dtype)
         return dx.to(x.dtype), dw, db, None, None, None
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .contract import mm_f32
 from .lstm import lstm_layer_bwd_plain, lstm_layer_plain
 
 
@@ -176,9 +177,10 @@ class LSTMLayerFn(torch.autograd.Function):
 
     forward(w, b, x, mask, h0, c0) -> (hs, hT, cT) runs K1 saving the cell
     states.  backward runs K2 on the residuals, then the dW, db and dx
-    contractions over all N*T rows as plain matmuls with f32 results (the
-    JAX package leaves them to XLA outside its kernel).  On CPU tensors both
-    directions take the plain versions of K1 and K2."""
+    contractions over all N*T rows as matmuls of compute-dtype operands
+    with f32 results (ops/contract.py; the JAX package leaves them to XLA
+    outside its kernel).  On CPU tensors both directions take the plain
+    versions of K1 and K2."""
 
     @staticmethod
     def forward(ctx, w, b, x, mask, h0, c0):
@@ -197,10 +199,12 @@ class LSTMLayerFn(torch.autograd.Function):
         c_prev = torch.cat([c0.to(cdt)[:, None], cs[:, :-1]], dim=1)
         dgp, dh0, dc0 = lstm_layer_bwd(w, b, x, mask, h_prev, c_prev,
                                        g_hs.to(cdt).contiguous(), g_ht, g_ct)
-        dgp_flat = dgp.reshape(N * T, 4 * H).float()
-        dwx = x.reshape(N * T, E).float().T @ dgp_flat
-        dwh = h_prev.reshape(N * T, H).float().T @ dgp_flat
+        # the reference's bf16 x bf16 -> f32 dots (ops/contract.py): dgp
+        # stays in the compute dtype, with no f32 copy of it
+        dgp_flat = dgp.reshape(N * T, 4 * H)
+        dwx = mm_f32(x.reshape(N * T, E).T, dgp_flat)
+        dwh = mm_f32(h_prev.reshape(N * T, H).T, dgp_flat)
         dw = torch.cat([dwx, dwh], dim=0).to(w.dtype)
-        db = dgp_flat.sum(dim=0).to(b.dtype)
-        dx = (dgp_flat @ w[:E].to(cdt).float().T).reshape(N, T, E).to(cdt)
+        db = dgp_flat.sum(dim=0, dtype=torch.float32).to(b.dtype)
+        dx = mm_f32(dgp_flat, w[:E].to(cdt).T).reshape(N, T, E).to(cdt)
         return dw, db, dx, None, dh0.to(h0.dtype), dc0.to(c0.dtype)

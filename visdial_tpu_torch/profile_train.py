@@ -2,25 +2,29 @@
 
     python -m visdial_tpu_torch.profile_train [--steps 3] [--warmup 3] \
         [--dropout 0.5] [--decoder disc|gen] [--encoder mn-ques-im-hist] \
-        [--img_spatial] [--trace train_trace.json]
+        [--img_spatial] [--compute_dtype float32|bfloat16] [--batch_size 32] \
+        [--trace train_trace.json]
 
 The workload is chip_smoke.py's `train` phase (`gen_train` with --decoder
 gen, `train_lf` with --encoder lf-ques-im-hist): MN-QIH by default at full
 width (E 300, H 512, 2 layers, fc7 4096 or with --img_spatial pool5 49 x
-512, batch 32 dialogs, f32), random weights from seed 0, batches from
-TrainLoader over
+512, batch 32 dialogs, f32; --compute_dtype and --batch_size set those
+Config fields, as bench.py's bf16 points take them: batch 32 disc, 64
+gen), random weights from seed 0, batches from TrainLoader over
 make_random_split(num_dialogs=64, num_unique_answers=100_000, seed=0)
 (vocab 8,804; disc batches carry deduplicated candidate rows, gen batches
-the teacher-forced answers).  After the warm-up steps it traces --steps train steps and prints one
-JSON line: wall ms per step, the device's busy share of the traced wall
-time, kernel launches per step, and the kernels with the most device time.
-Needs a CUDA device.
+the teacher-forced answers).  After the warm-up steps it times --steps
+train steps one at a time (`step_ms`, the median), then traces as many and
+prints one JSON line: the peak device memory, wall ms per traced step, the
+device's busy share of the traced wall time, kernel launches per step, and
+the kernels with the most device time.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import time
 
 import torch
@@ -88,6 +92,9 @@ def main(argv=None) -> None:
     p.add_argument("--decoder", choices=("disc", "gen"), default="disc")
     p.add_argument("--encoder", type=str, default="mn-ques-im-hist")
     p.add_argument("--img_spatial", action="store_true")
+    p.add_argument("--compute_dtype", choices=("float32", "bfloat16"),
+                   default="float32")
+    p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--trace", type=str, default="")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -95,10 +102,19 @@ def main(argv=None) -> None:
     dev = torch.device("cuda:0")
     cfg, batches, state = flagship_setup(dev, args.warmup + args.steps,
                                          args.dropout, args.decoder,
-                                         args.encoder, args.img_spatial)
+                                         args.encoder, args.img_spatial,
+                                         compute_dtype=args.compute_dtype,
+                                         batch_size=args.batch_size)
+    torch.cuda.reset_peak_memory_stats()
     for b in batches[:args.warmup]:
         state, _ = train_step(state, b, cfg)
     torch.cuda.synchronize()
+    times = []                 # the same steps untraced, one at a time
+    for b in batches[args.warmup:]:
+        t0 = time.perf_counter()
+        state, _ = train_step(state, b, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -111,8 +127,12 @@ def main(argv=None) -> None:
     print(json.dumps({"phase": "train_profile", "steps": args.steps,
                       "model": f"{cfg.encoder}-{cfg.decoder}",
                       "dropout": args.dropout,
+                      "compute_dtype": cfg.compute_dtype,
+                      "batch_size": cfg.batch_size,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "step_ms": statistics.median(times),
                       "wall_ms_per_step": wall * 1e3 / args.steps,
-                      **device_time_summary(prof, args.steps, wall)}), flush=True)
+                      **device_time_summary(prof, args.steps, wall, top=12)}), flush=True)
 
 
 if __name__ == "__main__":
