@@ -47,8 +47,12 @@ path's); and the port's two learning bars (LF-QIH-disc MRR > 0.8,
 MN-QH-gen > 0.6) trained on the card in f32 and in bf16.  On a machine with
 two cards also the generate CLI on two NCCL ranks at --mesh_model 2
 against one card, and every kernel launched on the second card in this
-process.  Each path must have gone through its kernels and agree with a
-run of the plain versions on the same card.
+process.  Last the bench (visdial_tpu_torch.bench.bench_port at its
+default flagship configuration, the Torch-CPU baseline left out): its
+line's keys the JAX bench's plus the port's, every rate finite and
+positive, both MFUs in (0, 1] and every kernel launched by its rows.  Each
+path must have gone through its kernels and agree with a run of the plain
+versions on the same card.
 
 Each phase prints one JSON line.  Then come the raw nvidia-smi line (card
 name, power limit), the kernel summary line (each kernel's launches on its
@@ -262,6 +266,40 @@ CONTROL_DEPTH = 16
 PEAK_OPS = {"float32": 165e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 SIZE = {"float32": 4, "bfloat16": 2}
+# the bench phase: the keys of the JAX bench's line (BENCH_r05.json's
+# record), its realistic block's, and the keys the port's line adds
+BENCH_STEPS = 8
+BENCH_JAX_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "baseline_torch_cpu", "backend",
+    "n_chips", "kernel_check", "lengths", "model", "compute_dtype",
+    "batch_size", "train_rounds_per_sec", "train_rounds_per_sec_per_chip",
+    "loss_fingerprint", "train_achieved_tflops_per_sec_per_chip", "train_mfu",
+    "eval_100cand_per_sec", "eval_100cand_per_sec_per_chip",
+    "disc_table_eval_per_sec_per_chip", "disc_table_build_seconds",
+    "disc_eval_e2e_per_sec_per_chip", "disc_eval_resident_per_sec_per_chip",
+    "disc_eval_resident_cache_seconds", "gen_eval_e2e_per_sec_per_chip",
+    "gen_eval_resident_per_sec_per_chip", "gen_eval_resident_cache_seconds",
+    "serving_disc_p50_ms", "serving_disc_p95_ms", "serving_gen_p50_ms",
+    "serving_gen_p95_ms", "gen_batch_size", "gen_train_rounds_per_sec_per_chip",
+    "gen_loss_fingerprint", "gen_train_mfu", "gen_eval_100cand_per_sec",
+    "gen_eval_100cand_per_sec_per_chip",
+    "disc_train_plain_rounds_per_sec_per_chip",
+    "disc_train_dedup_rounds_per_sec_per_chip",
+    "disc_train_dedup_zipf_rounds_per_sec_per_chip", "realistic"}
+BENCH_REALISTIC_KEYS = {
+    "train_rounds_per_sec_per_chip", "eval_100cand_per_sec",
+    "eval_100cand_per_sec_per_chip", "gen_train_rounds_per_sec_per_chip",
+    "gen_eval_100cand_per_sec", "gen_eval_100cand_per_sec_per_chip"}
+BENCH_PORT_KEYS = {"device_name", "power_limit_w", "allow_tf32",
+                   "train_flops_per_step", "gen_train_flops_per_step",
+                   "kernel_launches"}
+# what bench.main adds around bench_port's rows (the baseline left out here)
+BENCH_MAIN_KEYS = {"metric", "value", "unit", "vs_baseline",
+                   "baseline_torch_cpu"}
+# the counted plain f32 step at the flagship widths: linear in the batch,
+# counted on a CPU at batch 1, 2 and 3 (a dialog's operations; shapes only)
+BENCH_FLOPS = {"train_flops_per_step": 32 * 193_195_163_648,
+               "gen_train_flops_per_step": 64 * 17_182_711_808}
 REQUESTS = [
     ("is it sunny ?", "a park photo", []),
     ("what color is it ?", "w101 w202 w303", [("is there a dog ?", "yes")]),
@@ -1037,16 +1075,9 @@ def lm_checks(dev, gen) -> tuple[list[dict], list[dict]]:
 
 
 def _wrappers() -> dict:
-    from visdial_tpu_torch.ops.attention_cuda import (attention_fusion,
-                                                      masked_slot_attention)
-    from visdial_tpu_torch.ops.lm_score_cuda import (lm_dlogits,
-                                                     lm_token_logprobs_lse)
-    from visdial_tpu_torch.ops.lstm_cuda import lstm_layer, lstm_layer_bwd
+    from visdial_tpu_torch.bench import kernel_wrappers
 
-    return {"lstm_layer": lstm_layer, "lstm_layer_bwd": lstm_layer_bwd,
-            "attention": masked_slot_attention,
-            "attention_fusion": attention_fusion,
-            "lm_score": lm_token_logprobs_lse, "lm_dlogits": lm_dlogits}
+    return kernel_wrappers()
 
 
 def kernel_launches() -> dict:
@@ -2548,6 +2579,55 @@ def verify_phase() -> dict:
     return row
 
 
+def bench_phase() -> dict:
+    """visdial_tpu_torch.bench.bench_port in this process at the default
+    flagship configuration (the gate first, every row, BENCH_STEPS steps),
+    without the Torch-CPU baseline: the line's keys are the JAX line's plus
+    the port's, every rate finite and positive, both MFUs in (0, 1], the
+    counted steps the CPU's count, and every kernel launched by the rows
+    measured after the gate."""
+    from visdial_tpu_torch import bench
+
+    args = bench.parse_args(["--steps", str(BENCH_STEPS)])
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = bench.bench_port(args)
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    check(stats["kernel_check"]["ok"], "bench: the kernel gate failed")
+    keys = set(stats) | BENCH_MAIN_KEYS
+    want = BENCH_JAX_KEYS | BENCH_PORT_KEYS
+    check(keys == want, f"bench keys: missing {sorted(want - keys)}, "
+          f"extra {sorted(keys - want)}")
+    check(set(stats["realistic"]) == BENCH_REALISTIC_KEYS,
+          f"bench realistic keys {sorted(stats['realistic'])}")
+
+    def numbers(d):
+        for k, v in d.items():
+            if isinstance(v, bool) or k in ("kernel_check", "kernel_launches"):
+                continue
+            if isinstance(v, dict):
+                yield from numbers(v)
+            elif isinstance(v, list):
+                yield from ((k, x) for x in v)
+            elif isinstance(v, (int, float)):
+                yield k, v
+
+    bad = [(k, v) for k, v in numbers(stats)
+           if not (math.isfinite(v) and v > 0)]
+    check(not bad, f"bench: numbers not finite and positive {bad}")
+    for k in ("train_mfu", "gen_train_mfu"):
+        check(0 < stats[k] <= 1, f"bench: {k} {stats[k]}")
+    for k, n in BENCH_FLOPS.items():
+        check(stats[k] == n, f"bench: {k} {stats[k]} against the CPU's {n}")
+    check(all(n > 0 for n in stats["kernel_launches"].values()),
+          f"bench: kernels not launched by the rows {stats['kernel_launches']}")
+    row = {"phase": "bench", "seconds": seconds, "launches": launches,
+           "line": stats}
+    emit(row)
+    return row
+
+
 def vgg16_phase(dev) -> dict:
     """VGG-16 (models/vgg16.py) with He-scaled random weights from a seed,
     written in the JAX layout: apply on the card (f32, TF32 off) against
@@ -3176,6 +3256,7 @@ def main() -> None:
     pipe = timed("pipeline", pipeline, dev)
     timed("generate_model_axis", generate_model_axis, dev, pipe)
     timed("two_cards", two_cards, dev)
+    benched = timed("bench", bench_phase)
     emit({"phase": "wall_seconds", **walls, "total": sum(walls.values())})
 
     # launches: each kernel's count from the run of the main path it is
@@ -3208,7 +3289,8 @@ def main() -> None:
                     "sweep": swept["launches"],
                     "ddp": meshed["launches"],
                     "vocab_shards": sharded["launches"],
-                    "verify": verified["launches"]})
+                    "verify": verified["launches"],
+                    "bench": benched["launches"]})
     for key, m in pipe["models"].items():
         for stage, n in m["launches"].items():
             by_path[f"pipeline:{key}:{stage}"] = n

@@ -746,3 +746,19 @@ def test_contraction_gradients_are_the_upcast_products(dev):
         assert a.dtype == r.dtype == torch.bfloat16
         assert float((a.float() - r.float()).abs().max()) <= \
             2.0 ** -8 * float(r.float().abs().max())
+
+
+def test_bench_train_row_at_flagship_widths(dev):
+    """The bench's headline row (visdial_tpu_torch.bench.bench_train) at the
+    flagship widths in bf16, two dispatches a window: an MFU in (0, 1] from
+    the counted plain step, and K1, K2 and K3 launched by the timed steps."""
+    from visdial_tpu_torch import bench
+
+    cfg = bench.flagship_config()
+    before = bench.kernel_launches()
+    row = bench.bench_train(cfg, dev, steps=2 * bench.TRAIN_DISPATCH_GROUP,
+                            warmup=1)
+    launched = {k: n - before[k] for k, n in bench.kernel_launches().items()}
+    assert 0 < row["train_mfu"] <= 1
+    assert all(launched[k] > 0
+               for k in ("lstm_layer", "lstm_layer_bwd", "attention")), launched

@@ -216,7 +216,8 @@ def test_port_imports_no_jax_anywhere():
         "new = {'visdial_tpu_torch.parallel.mesh', 'visdial_tpu_torch.verify',"
         " 'visdial_tpu_torch.parallel.launch', 'visdial_tpu_torch.models.vgg16',"
         " 'visdial_tpu_torch.data.prepro_img',"
-        " 'visdial_tpu_torch.data.ingest_h5', 'visdial_tpu_torch.parity_run'}\n"
+        " 'visdial_tpu_torch.data.ingest_h5', 'visdial_tpu_torch.parity_run',"
+        " 'visdial_tpu_torch.bench'}\n"
         "assert new <= set(mods), new - set(mods)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
