@@ -47,7 +47,11 @@ path's); and the port's two learning bars (LF-QIH-disc MRR > 0.8,
 MN-QH-gen > 0.6) trained on the card in f32 and in bf16.  On a machine with
 two cards also the generate CLI on two NCCL ranks at --mesh_model 2
 against one card, and every kernel launched on the second card in this
-process.  Last the bench (visdial_tpu_torch.bench.bench_port at its
+process.  Then the compiled dispatch (parallel/graph.py): the train steps
+as CUDA graphs (make_multistep_train_fn) against the eager multi_train_step
+at the bench's points, bit for bit, and serving through the engine's
+graphs against their eager bodies, with both paths' rates, latencies and
+peak memory.  Last the bench (visdial_tpu_torch.bench.bench_port at its
 default flagship configuration, the Torch-CPU baseline left out): its
 line's keys the JAX bench's plus the port's, every rate finite and
 positive, both MFUs in (0, 1] and every kernel launched by its rows.  Each
@@ -64,6 +68,7 @@ once.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -73,7 +78,9 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -300,6 +307,10 @@ BENCH_MAIN_KEYS = {"metric", "value", "unit", "vs_baseline",
 # counted on a CPU at batch 1, 2 and 3 (a dialog's operations; shapes only)
 BENCH_FLOPS = {"train_flops_per_step": 32 * 193_195_163_648,
                "gen_train_flops_per_step": 64 * 17_182_711_808}
+# graphs: timed dispatches a window (two windows a path, in turns) and
+# rounds of REQUESTS a serving path
+GRAPH_DISPATCHES = 2
+GRAPH_SERVE_ROUNDS = 4
 REQUESTS = [
     ("is it sunny ?", "a park photo", []),
     ("what color is it ?", "w101 w202 w303", [("is there a dog ?", "yes")]),
@@ -2628,6 +2639,187 @@ def bench_phase() -> dict:
     return row
 
 
+def _timed_dispatches(fn, state, stack, n: int):
+    """n calls of fn(state, stack) between synchronisations: (state, each
+    call's metrics, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms = []
+    for _ in range(n):
+        state, m = fn(state, stack)
+        ms.append(m)
+    torch.cuda.synchronize()
+    return state, ms, time.perf_counter() - t0
+
+
+def graph_train_point(dev, decoder: str, batch_size: int, dtype: str) -> dict:
+    """One bench point (bench.flagship_config: dropout 0.5, full-length
+    random batches, 8 steps a dispatch) trained eagerly (multi_train_step)
+    and through make_multistep_train_fn's graph from one init, in turns
+    (eager, graph, graph, eager; GRAPH_DISPATCHES dispatches a window after
+    a first dispatch each): every dispatch's losses, grad norms and lr, the
+    params, moments and CPU generator at the end bit for bit; one capture;
+    a replay's launches equal an eager dispatch's; rounds/s a path (the
+    mean of its two windows) and peak memory a path (both states resident)."""
+    from visdial_tpu_torch.bench import TRAIN_DISPATCH_GROUP, flagship_config
+    from visdial_tpu_torch.data.synthetic import random_batch
+    from visdial_tpu_torch.models.model import batch_to_device
+    from visdial_tpu_torch.parallel.train_step import (init_train_state,
+                                                       make_multistep_train_fn,
+                                                       multi_train_step)
+    from visdial_tpu_torch.utils.params import flatten
+
+    cfg = flagship_config(decoder=decoder, batch_size=batch_size,
+                          compute_dtype=dtype)
+    host = [random_batch(cfg, seed=s) for s in range(TRAIN_DISPATCH_GROUP)]
+    stack = batch_to_device({k: np.stack([b[k] for b in host])
+                             for k in host[0]}, dev)
+    eager_fn = partial(multi_train_step, cfg=cfg)
+    graph_fn = make_multistep_train_fn(cfg)
+    states = {"eager": init_train_state(cfg, device=dev, seed=0),
+              "graph": init_train_state(cfg, device=dev, seed=0)}
+    fns = {"eager": eager_fn, "graph": graph_fn}
+    metrics = {"eager": [], "graph": []}
+    seconds = {"eager": 0.0, "graph": 0.0}
+    peak, launches = {}, {}
+    for path in ("eager", "graph"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        states[path], ms, first_s = _timed_dispatches(fns[path], states[path],
+                                                      stack, 1)
+        metrics[path] += ms
+        launches[path] = kernel_launches()
+        peak[path] = torch.cuda.max_memory_allocated(dev)
+        seconds[f"{path}_first"] = first_s
+    for path in ("eager", "graph", "graph", "eager"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        states[path], ms, sec = _timed_dispatches(fns[path], states[path],
+                                                  stack, GRAPH_DISPATCHES)
+        seconds[path] += sec
+        metrics[path] += ms
+        peak[path] = max(peak[path], torch.cuda.max_memory_allocated(dev))
+        per = {k: n // GRAPH_DISPATCHES for k, n in kernel_launches().items()}
+        check(per == launches[path], f"graphs {decoder} {dtype}: {path} "
+              f"launches a dispatch {per} against the first's {launches[path]}")
+    what = f"graphs {decoder} batch {batch_size} {dtype}"
+    check(graph_fn.captures == 1, f"{what}: {graph_fn.captures} captures")
+    check(launches["graph"] == launches["eager"],
+          f"{what}: graph launches {launches['graph']} against eager "
+          f"{launches['eager']}")
+    check_launches(launches["graph"], cfg, True, what)
+    for me, mg in zip(metrics["eager"], metrics["graph"]):
+        for k in ("loss", "grad_norm", "lr", "step"):
+            check(torch.equal(me[k], mg[k]), f"{what}: {k} {mg[k].tolist()} "
+                  f"against eager {me[k].tolist()}")
+    e, g = states["eager"], states["graph"]
+    for name, a, b in (("params", e.params, g.params), ("m", e.opt.m, g.opt.m),
+                       ("v", e.opt.v, g.opt.v)):
+        fa, fb = flatten(a), flatten(b)
+        bad = [k for k in fa if not torch.equal(fa[k], fb[k])]
+        check(not bad, f"{what}: {name} differ from eager's at {bad[:5]}")
+    check(torch.equal(e.gen.get_state(), g.gen.get_state()),
+          f"{what}: the CPU generators differ")
+    check(all(math.isfinite(x) for m in metrics["graph"]
+              for x in m["loss"].tolist()), f"{what}: non-finite losses")
+    rounds = 2 * GRAPH_DISPATCHES * TRAIN_DISPATCH_GROUP * batch_size * \
+        cfg.num_rounds
+    row = {"decoder": decoder, "batch_dialogs": batch_size, "dtype": dtype,
+           "dropout": cfg.dropout, "steps_a_dispatch": TRAIN_DISPATCH_GROUP,
+           "dispatches_timed": 2 * GRAPH_DISPATCHES,
+           "captures": graph_fn.captures,
+           "launches_a_replay": launches["graph"],
+           "loss_last": metrics["graph"][-1]["loss"].tolist()[-1],
+           "bit_equal": True}
+    for path in ("eager", "graph"):
+        row[f"{path}_rounds_per_s"] = rounds / seconds[path]
+        row[f"{path}_step_ms"] = seconds[path] / (
+            2 * GRAPH_DISPATCHES * TRAIN_DISPATCH_GROUP) * 1e3
+        row[f"{path}_first_dispatch_s"] = seconds[f"{path}_first"]
+        row[f"{path}_peak_mem_gb"] = peak[path] / 2 ** 30
+    del states, fns, graph_fn, stack, e, g
+    gc.collect()                 # the graph (a cycle through its body) and pool
+    torch.cuda.empty_cache()
+    return row
+
+
+def graph_serve_point(dev, decoder: str, beam: int = 0) -> dict:
+    """Serving at the bench's point (bench.bench_serving: flagship weights
+    in bf16, a 50,000-answer pool): each of REQUESTS through the engine's
+    graphed serve function and through its eager body (the same host work:
+    tokenizer, batch assembly, one readback), in turns over GRAPH_SERVE_ROUNDS
+    rounds; the packed outputs equal, one capture, p50 / p95 a path."""
+    from visdial_tpu_torch.bench import SERVING_ANSWERS, SERVING_DIALOGS
+    from visdial_tpu_torch.config import Config
+    from visdial_tpu_torch.data.synthetic import make_random_split
+    from visdial_tpu_torch.infer import InferenceEngine
+    from visdial_tpu_torch.models.model import model_init
+
+    base = Config(encoder="mn-ques-im-hist", decoder=decoder, dropout=0.0,
+                  compute_dtype="bfloat16")
+    split, vocab = make_random_split(base, num_dialogs=SERVING_DIALOGS,
+                                     num_unique_answers=SERVING_ANSWERS, seed=0)
+    cfg = base.replace(vocab_size=vocab.size)
+    eng = InferenceEngine(params=model_init(cfg, seed=0, device=dev), cfg=cfg,
+                          data=split, vocab=vocab, device=dev)
+    served = eng.serve_disc if decoder == "disc" else eng.serve_gen
+    static = 5 if decoder == "disc" else beam
+    paths = {"graph": served, "eager": served.fn}
+
+    def call(path, req):
+        question, caption, history = req
+        batch, t = eng._batch(caption, history, question, None)
+        return paths[path](batch, eng._round(t), static).cpu()
+
+    outs = {"eager": [], "graph": []}
+    lat = {"eager": [], "graph": []}
+    reset_launches()
+    call("graph", REQUESTS[0])                               # capture
+    call("eager", REQUESTS[0])
+    for r in range(GRAPH_SERVE_ROUNDS):
+        for path in (("eager", "graph") if r % 2 else ("graph", "eager")):
+            for req in REQUESTS:
+                t0 = time.perf_counter()
+                out = call(path, req)
+                lat[path].append((time.perf_counter() - t0) * 1e3)
+                if r == 0:
+                    outs[path].append(out)
+    what = f"graphs serve {decoder}" + (f" beam {beam}" if beam else "")
+    check(served.captures == 1, f"{what}: {served.captures} captures")
+    for a, b in zip(outs["eager"], outs["graph"]):
+        check(torch.equal(a, b), f"{what}: graphed {b.tolist()} against eager "
+              f"{a.tolist()}")
+    launches = kernel_launches()
+    check(launches["lstm_layer"] > 0 and launches["attention_fusion"] > 0,
+          f"{what}: launches {launches}")
+    row = {"decoder": decoder, "beam": beam, "dtype": cfg.compute_dtype,
+           "pool": int(split.opt_list.shape[0]),
+           "requests": len(lat["graph"]), "captures": served.captures,
+           "equal": True, "launches": launches}
+    for path in ("eager", "graph"):
+        xs = sorted(lat[path])
+        row[f"{path}_p50_ms"] = xs[len(xs) // 2]
+        row[f"{path}_p95_ms"] = xs[int(len(xs) * 0.95)]
+    return row
+
+
+def graphs(dev) -> dict:
+    """The compiled dispatch (parallel/graph.py): the train graphs against
+    the eager steps at the bench's points (disc batch 32, gen batch 64; bf16
+    and f32), then serving (disc top 5, gen greedy and beam 5) graphed
+    against eager."""
+    t0 = time.perf_counter()
+    train = [graph_train_point(dev, decoder, batch, dtype)
+             for decoder, batch in (("disc", 32), ("gen", 64))
+             for dtype in ("bfloat16", "float32")]
+    serve = [graph_serve_point(dev, "disc"), graph_serve_point(dev, "gen"),
+             graph_serve_point(dev, "gen", beam=5)]
+    row = {"phase": "graphs", "train": train, "serve": serve,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
 def vgg16_phase(dev) -> dict:
     """VGG-16 (models/vgg16.py) with He-scaled random weights from a seed,
     written in the JAX layout: apply on the card (f32, TF32 off) against
@@ -3256,6 +3448,7 @@ def main() -> None:
     pipe = timed("pipeline", pipeline, dev)
     timed("generate_model_axis", generate_model_axis, dev, pipe)
     timed("two_cards", two_cards, dev)
+    graphed = timed("graphs", graphs, dev)
     benched = timed("bench", bench_phase)
     emit({"phase": "wall_seconds", **walls, "total": sum(walls.values())})
 
@@ -3291,6 +3484,10 @@ def main() -> None:
                     "vocab_shards": sharded["launches"],
                     "verify": verified["launches"],
                     "bench": benched["launches"]})
+    for r in graphed["train"]:
+        by_path[f"graphs:{r['decoder']}:{r['dtype']}"] = r["launches_a_replay"]
+    for r in graphed["serve"]:
+        by_path[f"graphs:serve_{r['decoder']}{r['beam'] or ''}"] = r["launches"]
     for key, m in pipe["models"].items():
         for stage, n in m["launches"].items():
             by_path[f"pipeline:{key}:{stage}"] = n

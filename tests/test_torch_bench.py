@@ -133,7 +133,7 @@ def test_main_prints_the_jax_keys_at_a_tiny_scale(tiny_bench, capsys):
 def test_warmup_zero_is_refused_before_any_step(monkeypatch):
     """(b) The JAX bench crashes after its timed windows with warmup 0
     (bench.py:235-239); the port refuses it at entry."""
-    monkeypatch.setattr(bench, "multi_train_step", _boom("a train step"))
+    monkeypatch.setattr(bench, "make_multistep_train_fn", _boom("a train step"))
     monkeypatch.setattr(bench, "random_batch", _boom("batch assembly"))
     cfg = small_config(vocab_size=40)
     with pytest.raises(ValueError, match="warmup"):

@@ -762,3 +762,192 @@ def test_bench_train_row_at_flagship_widths(dev):
     assert 0 < row["train_mfu"] <= 1
     assert all(launched[k] > 0
                for k in ("lstm_layer", "lstm_layer_bwd", "attention")), launched
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs (parallel/graph.py, the train factories, the engine's serving)
+# ---------------------------------------------------------------------------
+
+GRAPH_GROUP = 8        # steps a dispatch, as the bench's
+GRAPH_DISPATCHES = 3
+
+
+def _stacked(batches):
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decoder,batch_size", [("disc", 32), ("gen", 64)])
+def test_multistep_graph_equals_eager_steps(dev, decoder, batch_size, dtype,
+                                            dropout):
+    """make_multistep_train_fn (8 steps, one graph) against multi_train_step
+    at the bench's points, flagship widths: 3 dispatches, every loss and
+    grad norm, then every param and moment and the CPU generator, bit for
+    bit; one capture; the replays' kernel launches counted as eager's.
+    Then a state from elsewhere (another init, a resume) is copied into the
+    graph's buffers and stepped as eager steps it, bit for bit."""
+    from visdial_tpu_torch.bench import kernel_launches
+    from visdial_tpu_torch.parallel.train_step import (init_train_state,
+                                                       make_multistep_train_fn,
+                                                       multi_train_step)
+    from visdial_tpu_torch.profile_train import flagship_setup
+    from visdial_tpu_torch.utils.params import flatten
+
+    cfg, batches, eager = flagship_setup(dev, GRAPH_GROUP, dropout=dropout,
+                                         decoder=decoder, compute_dtype=dtype,
+                                         batch_size=batch_size)
+    stack = _stacked(batches)
+    graphed = init_train_state(cfg, device=dev, seed=0)
+    fn = make_multistep_train_fn(cfg)
+    for _ in range(GRAPH_DISPATCHES):
+        before = kernel_launches()
+        eager, me = multi_train_step(eager, stack, cfg)
+        mid = kernel_launches()
+        graphed, mg = fn(graphed, stack)
+        after = kernel_launches()
+        assert {k: after[k] - mid[k] for k in after} == \
+            {k: mid[k] - before[k] for k in after}
+        assert torch.equal(me["loss"], mg["loss"])
+        assert torch.equal(me["grad_norm"], mg["grad_norm"])
+        assert torch.equal(me["lr"], mg["lr"])
+        assert torch.equal(me["step"], mg["step"])
+    assert fn.captures == 1
+    for tree in ("params", "m", "v"):
+        get = (lambda s: s.params) if tree == "params" else (
+            lambda s: getattr(s.opt, tree))
+        for k, v in flatten(get(eager)).items():
+            assert torch.equal(flatten(get(graphed))[k], v), (tree, k)
+    assert torch.equal(eager.gen.get_state(), graphed.gen.get_state())
+    buffers = flatten(graphed.params)
+    eager, me = multi_train_step(init_train_state(cfg, device=dev, seed=4),
+                                 stack, cfg)
+    graphed, mg = fn(init_train_state(cfg, device=dev, seed=4), stack)
+    assert fn.captures == 1 and torch.equal(me["loss"], mg["loss"])
+    for k, v in flatten(eager.params).items():
+        assert flatten(graphed.params)[k] is buffers[k]
+        assert torch.equal(flatten(graphed.params)[k], v), k
+
+
+def test_registered_generators_redraw_the_eager_masks(dev):
+    """The dropout mechanism under replay: a captured keep_mask over a
+    registered generator, re-seeded before each replay, draws what a fresh
+    generator with that seed draws eagerly; two seeds draw different masks;
+    the keep share is within 4 sigma of 0.5."""
+    from visdial_tpu_torch.models.core import seeded
+    from visdial_tpu_torch.ops.lstm import keep_mask
+    from visdial_tpu_torch.parallel.graph import Graphed
+
+    shape = (320, 40, 512)
+    gen = torch.Generator(device=dev)
+    g = Graphed(lambda x: keep_mask(gen, shape, 0.5) & (x > 0))
+    x = torch.ones(1, device=dev)
+    masks = []
+    for seed in (11, 12, 11, 13):
+        gen.manual_seed(seed)
+        masks.append(g(x, generators=[gen]))
+        assert torch.equal(masks[-1], keep_mask(seeded(seed, dev), shape, 0.5))
+    assert g.captures == 1
+    assert not torch.equal(masks[1], masks[3]) and torch.equal(masks[0],
+                                                               masks[2])
+    n = masks[1].numel()
+    assert abs(float(masks[1].float().mean()) - 0.5) <= 4 * (0.25 / n) ** 0.5
+
+
+def _small_graph_case(dev, batch_size=8, dropout=0.5):
+    """A narrow MN-QIH-disc (the bench's points are held bit for bit in
+    test_multistep_graph_equals_eager_steps)."""
+    from visdial_tpu_torch.config import Config
+    from visdial_tpu_torch.data.loader import TrainLoader
+    from visdial_tpu_torch.data.synthetic import make_synthetic_split
+    from visdial_tpu_torch.models.model import batch_to_device
+
+    cfg = Config(encoder="mn-ques-im-hist", embed_size=32, rnn_hidden_size=64,
+                 img_feat_size=64, img_embed_size=32, max_ques_len=6,
+                 max_ans_len=5, max_cap_len=8, num_rounds=4, num_options=20,
+                 batch_size=batch_size, dropout=dropout, vocab_size=0)
+    split, vocab = make_synthetic_split(cfg, num_dialogs=32, seed=0)
+    cfg = cfg.replace(vocab_size=vocab.size)
+    batches = [batch_to_device(b.as_dict(), dev)
+               for b in TrainLoader(split, vocab, cfg).epoch(0)]
+    return cfg, batches
+
+
+def test_train_graph_captures_once_a_signature(dev):
+    """make_train_fn: one capture for a run of equal batches, another for a
+    new batch shape (whose first call, the warm-up, is train_step's step
+    from the state it was given, bit for bit), none for the first shape
+    again."""
+    from visdial_tpu_torch.parallel.train_step import (init_train_state,
+                                                       make_train_fn,
+                                                       train_step)
+    from visdial_tpu_torch.utils.params import flatten
+
+    cfg, batches = _small_graph_case(dev)
+    fn = make_train_fn(cfg)
+    state = init_train_state(cfg, device=dev)
+    for b in batches[:3]:
+        state, m = fn(state, b)
+    assert fn.captures == 1 and state.opt.step == 3
+    small, halves = _small_graph_case(dev, batch_size=4)
+    want, wm = train_step(init_train_state(small, device=dev, seed=5),
+                          halves[0], small)
+    got, gm = fn(init_train_state(small, device=dev, seed=5), halves[0])
+    assert fn.captures == 2
+    assert torch.equal(gm["loss"], wm["loss"]) and got.opt.step == 1
+    for k, v in flatten(want.params).items():
+        assert torch.equal(flatten(got.params)[k], v), k
+    out, _ = fn(got, batches[1])
+    assert fn.captures == 2 and out.opt.step == 2
+
+
+def test_train_graph_refuses_remat(dev):
+    """cfg.remat is refused at the factory: the recompute would draw new
+    masks from the graph's generators (ROADMAP queues remat under a
+    graph)."""
+    from visdial_tpu_torch.parallel.train_step import make_train_fn
+
+    cfg, _ = _small_graph_case(dev)
+    with pytest.raises(ValueError, match="remat"):
+        make_train_fn(cfg.replace(remat=True))
+
+
+@pytest.mark.parametrize("decoder", ["disc", "gen"])
+def test_served_answers_equal_the_eager_path(dev, decoder):
+    """InferenceEngine's graphed serve functions against their eager bodies
+    and (disc) the eager pool scores' top 5: equal indices and scores,
+    tokens and log-probs; one capture a top_k or beam; K1 (and K4 for MN)
+    launches counted on every replay."""
+    from visdial_tpu_torch.bench import kernel_launches
+    from visdial_tpu_torch.data.synthetic import make_synthetic_split
+    from visdial_tpu_torch.infer import InferenceEngine
+    from visdial_tpu_torch.models.model import model_init
+
+    cfg, _ = _small_graph_case(dev, dropout=0.0)
+    cfg = cfg.replace(decoder=decoder)
+    split, vocab = make_synthetic_split(cfg, num_dialogs=8, seed=1)
+    params = model_init(cfg, seed=3, device=dev)
+    eng = InferenceEngine(params=params, cfg=cfg, data=split, vocab=vocab,
+                          device=dev)
+    queries = [("w002 w001 ?", "w003 w004", [("w001", "w002 w003")]),
+               ("w010 w011 ?", "w012", [])]
+    for _ in range(2):
+        for q, cap, hist in queries:
+            batch, t = eng._batch(cap, hist, q, None)
+            if decoder == "disc":
+                before = kernel_launches()
+                got = eng.serve_disc(batch, eng._round(t), 5)
+                step = {k: n - before[k] for k, n in kernel_launches().items()}
+                want = eng.serve_disc.fn(batch, eng._round(t), 5)
+                top_s, top_i = torch.topk(eng.pool_scores(q, cap, hist), 5)
+                assert torch.equal(got, want)
+                assert torch.equal(got[0].long(), top_i)
+                assert torch.equal(got[1], top_s)
+                assert step["lstm_layer"] > 0 and step["attention_fusion"] > 0
+            else:
+                for beam in (0, 5):
+                    got = eng.serve_gen(batch, eng._round(t), beam)
+                    want = eng.serve_gen.fn(batch, eng._round(t), beam)
+                    assert torch.equal(got, want)
+    served = eng.serve_disc if decoder == "disc" else eng.serve_gen
+    assert served.captures == (1 if decoder == "disc" else 2)

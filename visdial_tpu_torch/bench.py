@@ -15,8 +15,9 @@ VisDial shapes (vocab 8,848, batch 32 dialogs x 10 rounds, 100 candidates),
 bf16 by default.  The gate comes first: visdial_tpu_torch.verify's flagship
 checks (every kernel against its plain version on this card); a failed gate
 prints the gate block alone and exits 1.  Then, in the JAX bench's order:
-training (8 steps a dispatch through parallel/train_step.py::
-multi_train_step), the direct and option-table evals, evaluate_split
+training (8 steps a dispatch, one CUDA graph, through
+parallel/train_step.py::make_multistep_train_fn, as the JAX bench's one
+jitted lax.scan), the direct and option-table evals, evaluate_split
 streaming and resident for both decoders, serving latency through
 InferenceEngine, the gen decoder's rows at batch 64, the candidate-dedup
 rows over TrainLoader batches and the realistic-lengths block.  Per chip
@@ -57,7 +58,9 @@ from .eval_harness import evaluate_split
 from .infer import InferenceEngine
 from .models.model import (batch_to_device, model_init, model_option_table,
                            model_scores, model_scores_with_table)
-from .parallel.train_step import init_train_state, multi_train_step, train_step
+from .ops import kernel_wrappers
+from .parallel.train_step import (init_train_state, make_multistep_train_fn,
+                                  train_step)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX bench's cache (read only) and the port's own
@@ -115,19 +118,6 @@ def _sync(device: torch.device) -> None:
 def _read(t: torch.Tensor) -> float:
     """One element to the host: waits for the work that made t."""
     return float(t.reshape(-1)[-1])
-
-
-def kernel_wrappers() -> dict:
-    """The wrappers of the six hand-written kernels by name; each counts
-    its launches in `.launches`."""
-    from .ops.attention_cuda import attention_fusion, masked_slot_attention
-    from .ops.lm_score_cuda import lm_dlogits, lm_token_logprobs_lse
-    from .ops.lstm_cuda import lstm_layer, lstm_layer_bwd
-
-    return {"lstm_layer": lstm_layer, "lstm_layer_bwd": lstm_layer_bwd,
-            "attention": masked_slot_attention,
-            "attention_fusion": attention_fusion,
-            "lm_score": lm_token_logprobs_lse, "lm_dlogits": lm_dlogits}
 
 
 def kernel_launches() -> dict:
@@ -195,7 +185,8 @@ def bench_train(cfg: Config, device, steps: int = 16, warmup: int = 3,
                 full_lengths: bool = True, host_batches=None) -> dict:
     """Train throughput (+ achieved TFLOP/s + MFU) for one model config,
     through the multi-step dispatch (TRAIN_DISPATCH_GROUP steps a call of
-    multi_train_step over a stack of batches moved to the device once).
+    make_multistep_train_fn, one CUDA graph, over a stack of batches moved
+    to the device once).
     Returns the rows plus "_state" and "_batch" (the stack's first batch)
     for the evals."""
     if warmup < 1:
@@ -212,11 +203,12 @@ def bench_train(cfg: Config, device, steps: int = 16, warmup: int = 3,
     batches = batch_to_device({k: np.stack([b[k] for b in host])
                                for k in host[0]}, device)
     state = init_train_state(cfg, device=device)
+    train_fn = make_multistep_train_fn(cfg)
 
     t0 = time.perf_counter()
     first_m = None
     for _ in range(warmup):
-        state, m = multi_train_step(state, batches, cfg)
+        state, m = train_fn(state, batches)
         first_m = first_m if first_m is not None else m
     _sync(device)
     _read(m["loss"])
@@ -233,7 +225,7 @@ def bench_train(cfg: Config, device, steps: int = 16, warmup: int = 3,
         nonlocal state, m
         t0 = time.perf_counter()
         for _ in range(dispatches):
-            state, m = multi_train_step(state, batches, cfg)
+            state, m = train_fn(state, batches)
         _sync(device)
         _read(m["loss"])
         return rounds / (time.perf_counter() - t0)

@@ -4,12 +4,13 @@ visdial_tpu/finetune.py), the VisDial v1.0 NDCG phase.
 Loads a trained disc checkpoint of either package and fine-tunes it so its
 candidate-score softmax matches the dense human gt_relevance annotations
 (the `visdial_1.0_val_dense_annotations.json` schema) with
-models/model.py::model_dense_loss.  The learning rate is --learning_rate
-without decay; the optimizer state is fresh and the dropout generator is
-seeded from --seed.  Progress is JSONL: `ndcg` on the annotated rounds at
-step 0, every --eval_every steps and at the end (the resident eval's
-candidate rankings), `finetune` per step (read back every --log_every
-steps), then `checkpoint`.
+models/model.py::model_dense_loss, each step one CUDA graph on one card
+(parallel/train_step.py::make_dense_train_fn).  The learning rate is
+--learning_rate without decay; the optimizer state is fresh and the
+dropout generator is seeded from --seed.  Progress is JSONL: `ndcg` on the
+annotated rounds at step 0, every --eval_every steps and at the end (the
+resident eval's candidate rankings), `finetune` per step (read back every
+--log_every steps), then `checkpoint`.
 
 Usage:
     python -m visdial_tpu_torch.finetune --load_path checkpoints/run/step_N \
@@ -37,11 +38,11 @@ from .data.loader import DenseLoader
 from .data.synthetic import make_synthetic_split
 from .eval_harness import evaluate_split
 from .evaluate import ndcg_from_dense
-from .models.model import batch_to_device, model_dense_loss
+from .models.model import batch_to_device
 from .parallel.mesh import add_mesh_args, make_mesh
 from .parallel.optim import init_opt_state
 from .parallel.train_step import (TrainState, gather_train_state,
-                                  shard_train_state, train_step)
+                                  make_dense_train_fn, shard_train_state)
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 
 
@@ -110,6 +111,8 @@ def main(argv=None) -> dict:
         TrainState(params, init_opt_state(params, cfg),
                    torch.Generator().manual_seed(args.seed)), cfg, mesh)
 
+    train_fn = make_dense_train_fn(cfg, mesh)
+
     def emit(event: str, **kw) -> None:
         if mesh.is_main:
             print(json.dumps({"event": event, **kw}), flush=True)
@@ -141,8 +144,7 @@ def main(argv=None) -> dict:
     while step < args.steps:
         for batch in loader.epoch(seed=args.seed + epoch,
                                   shard=mesh.data_shard):
-            state, m = train_step(state, batch_to_device(batch, device), cfg,
-                                  loss_fn=model_dense_loss, mesh=mesh)
+            state, m = train_fn(state, batch_to_device(batch, device))
             step += 1
             buf.append({**m, "step": step})
             if step % args.log_every == 0 or step >= args.steps:

@@ -8,6 +8,14 @@ decodes a free-form answer, greedily or by beam search: as in the JAX
 package every round of the one-dialog batch is decoded and the current
 round's answer is returned.
 
+Each request is one CUDA graph replay (parallel/graph.py), the counterpart
+of the JAX engine's _serve_disc_jit and _serve_gen_jit: serve_disc runs the
+encoder, takes the current round by a device index, scores the pool and
+takes the top k, packed as [top_i; top_s] in float32; serve_gen decodes and
+packs [log_prob, tokens...].  One graph per top_k or beam width; one
+readback per request.  The host keeps the tokenizer and the batch assembly,
+as the JAX engine does.  pool_scores stays eager: the reference.
+
 CLI: one JSON query per stdin line, one JSON answer per stdout line
 ({"answers": [...]} for disc, {"answer", "log_prob"} for gen):
 
@@ -22,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from functools import partial
 
 import numpy as np
 import torch
@@ -35,7 +44,32 @@ from .models.encoders import encoder_apply
 from .models.model import (_impl, batch_to_device, model_generate,
                            model_option_table)
 from .ops.contract import mm_f32
+from .parallel.graph import Graphed
 from .utils.checkpoint import load_checkpoint
+
+
+@torch.inference_mode()
+def serve_disc(params, table, cfg, impl: str, batch: dict, t: torch.Tensor,
+               k: int) -> torch.Tensor:
+    """(2, k) float32 [top_i; top_s]: round t's (a (1,) index tensor) joint
+    state against the pool table, its k best (infer.py::serve_disc; indices
+    < 2^24 are exact in float32)."""
+    joint = encoder_apply(params["encoder"], params["embed"], batch, cfg,
+                          impl=impl)
+    j = joint.index_select(0, t).to(table.dtype)                 # (1, H)
+    top_s, top_i = torch.topk(mm_f32(j, table.T)[0], k)
+    return torch.stack([top_i.float(), top_s])
+
+
+@torch.inference_mode()
+def serve_gen(params, cfg, start_token: int, end_token: int, impl: str,
+              batch: dict, t: torch.Tensor, beam: int) -> torch.Tensor:
+    """(1 + La,) float32 [log_prob, tokens...] of round t's decoded answer
+    (infer.py::serve_gen; beam <= 1 decodes greedily)."""
+    toks, logp = model_generate(params, batch, cfg, start_token=start_token,
+                                end_token=end_token, beam_size=beam, impl=impl)
+    return torch.cat([logp[0].index_select(0, t),
+                      toks[0].index_select(0, t)[0].float()])
 
 
 class InferenceEngine:
@@ -75,6 +109,12 @@ class InferenceEngine:
                 self.table = model_option_table(
                     params, torch.from_numpy(data.opt_list.astype(np.int64)).to(
                         self.device), cfg, impl=self.impl)
+        # the served functions hold the params, not the engine, so a dropped
+        # engine frees its graphs at once
+        self.serve_disc = Graphed(partial(serve_disc, params, self.table, cfg,
+                                          self.impl))
+        self.serve_gen = Graphed(partial(serve_gen, params, cfg, vocab.start,
+                                         vocab.end, self.impl))
 
     # -- raw text -> one-dialog split (visdial_tpu/infer.py::_encode_dialog)
     def _encode_dialog(self, caption: str, history, question: str,
@@ -115,6 +155,9 @@ class InferenceEngine:
         batch = asm.assemble(np.array([0]), with_options=False).as_dict()
         return batch_to_device(batch, self.device), t
 
+    def _round(self, t: int) -> torch.Tensor:
+        return torch.tensor([t], dtype=torch.long, device=self.device)
+
     # -- public API -------------------------------------------------------
     @torch.inference_mode()
     def pool_scores(self, question: str, caption: str = "", history=None,
@@ -131,29 +174,28 @@ class InferenceEngine:
 
     def rank_answers(self, question: str, caption: str = "", history=None,
                      img_feat=None, top_k: int = 5) -> list[dict]:
-        """Top-k answers of the whole pool with their scores."""
-        scores = self.pool_scores(question, caption, history, img_feat)
-        k = min(int(top_k), scores.numel())
-        top_s, top_i = torch.topk(scores, k)
+        """Top-k answers of the whole pool with their scores (one call of
+        serve_disc, one readback)."""
+        if self.table is None:
+            raise ValueError("ranking needs a disc checkpoint")
+        batch, t = self._batch(caption, history, question, img_feat)
+        k = min(int(top_k), self.table.shape[0])
+        top_i, top_s = self.serve_disc(batch, self._round(t), k).cpu()
         return [{"answer": " ".join(self.vocab.decode(self.opt_list[i])),
                  "score": s}
-                for i, s in zip(top_i.tolist(), top_s.tolist())]
+                for i, s in zip(top_i.long().tolist(), top_s.tolist())]
 
-    @torch.inference_mode()
     def generate_answer(self, question: str, caption: str = "", history=None,
                         img_feat=None, beam_size: int = 0) -> dict:
         """Free-form decoded answer (gen decoder), greedy or by beam search
         at beam_size > 1: {"answer", "log_prob"} (the summed log-prob of
-        the emitted tokens)."""
+        the emitted tokens; one call of serve_gen, one readback)."""
         if self.cfg.decoder != "gen":
             raise ValueError("generation needs a gen checkpoint")
         batch, t = self._batch(caption, history, question, img_feat)
-        toks, logp = model_generate(self.params, batch, self.cfg,
-                                    start_token=self.vocab.start,
-                                    end_token=self.vocab.end,
-                                    beam_size=int(beam_size), impl=self.impl)
-        return {"answer": " ".join(self.vocab.decode(toks[0, t].cpu().numpy())),
-                "log_prob": float(logp[0, t])}
+        packed = self.serve_gen(batch, self._round(t), int(beam_size)).cpu()
+        return {"answer": " ".join(self.vocab.decode(packed[1:].long().numpy())),
+                "log_prob": float(packed[0])}
 
 
 def main(argv=None) -> None:

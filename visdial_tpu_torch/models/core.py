@@ -16,6 +16,8 @@ path and the plain path draw the same masks from the same generator state.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -83,3 +85,13 @@ def seeded(seed: int | None, device) -> torch.Generator | None:
     if seed is None:
         return None
     return torch.Generator(device=device).manual_seed(seed)
+
+
+class StepGenerators(NamedTuple):
+    """A train step's two dropout generators on the device, made and seeded
+    already, which models/model.py::model_loss takes in place of the CPU
+    generator whose seeds would make them (`seeded`).  A captured step
+    (parallel/train_step.py) keeps them across replays and re-seeds them
+    from the state's generator before each."""
+    encoder: torch.Generator
+    decoder: torch.Generator

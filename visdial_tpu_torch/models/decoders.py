@@ -235,7 +235,7 @@ def gen_beam_decode(params, embed_params, joint, cfg: Config, *,
     beam_lp = torch.zeros((N, W), device=dev)
     seqs = torch.zeros((N, W, max_len), dtype=torch.long, device=dev)
     frozen = torch.full((V,), NEG, device=dev)
-    frozen[0] = 0.0
+    frozen[:1].fill_(0.0)       # a fill on the device: no host copy to capture
     rows = torch.arange(N, device=dev)[:, None]
     for t in range(max_len):
         logp, _, h, c = _step_logp(params, embed_params, tok.reshape(N * W),

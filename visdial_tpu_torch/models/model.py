@@ -16,7 +16,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import Config
 
 from ..utils.params import flatten, unflatten
-from .core import embedding_init, seeded, split_seeds
+from .core import StepGenerators, embedding_init, seeded, split_seeds
 from .decoders import (decoder_init, disc_loss, disc_option_table, disc_scores,
                        disc_scores_from_table, gen_beam_decode,
                        gen_candidate_scores, gen_decode, gen_loss)
@@ -67,7 +67,9 @@ def model_loss(params, batch, cfg: Config, *, train: bool = True,
     torch.Generator (the train state's); in train mode two seeds are drawn
     from it, one for the encoder's dropout and one for the decoder's (the
     roles of jax.random.split(rng)), each seeding a generator on the
-    batch's device where it is used.
+    batch's device where it is used.  `gen` may instead be the step's two
+    device generators, seeded already (core.py::StepGenerators: a captured
+    step's, parallel/train_step.py).
 
     cfg.remat checkpoints the encoder (torch.utils.checkpoint, non-reentrant)
     and recomputes it in the backward.  The recomputation makes its
@@ -97,17 +99,25 @@ def _train_encode(params, batch, cfg: Config, train: bool,
     """The encoder of a training loss: (joint (N, H), the decoder's dropout
     generator or None).  Two seeds come from `gen` in train mode, each
     offset by seed_offset; with cfg.remat the encoder is checkpointed and
-    recomputed from its seed.  The closure holds the seed and `shard`
+    recomputed from its seed.  StepGenerators are used as they are (they
+    carry no seed to recompute from: the factories that make them refuse
+    cfg.remat).  The closure holds the seed and `shard`
     itself, so the recomputation reads the forward's vocab shard on
     whatever thread the autograd engine runs it."""
     device = batch["ques"].device
     enc_seed = dec_seed = None
-    if train and gen is not None:
-        enc_seed, dec_seed = (s + seed_offset for s in split_seeds(gen))
+    if isinstance(gen, StepGenerators):
+        enc_gen, dec_gen = gen if train else (None, None)
+    else:
+        if train and gen is not None:
+            enc_seed, dec_seed = (s + seed_offset for s in split_seeds(gen))
+        enc_gen, dec_gen = None, seeded(dec_seed, device)
 
     def encode(enc_params, embed_params):
         return encoder_apply(enc_params, embed_params, batch, cfg,
-                             train=train, gen=seeded(enc_seed, device),
+                             train=train,
+                             gen=(seeded(enc_seed, device) if enc_gen is None
+                                  else enc_gen),
                              impl=impl, shard=shard)
 
     if cfg.remat and train:
@@ -115,7 +125,7 @@ def _train_encode(params, batch, cfg: Config, train: bool,
                            use_reentrant=False, preserve_rng_state=False)
     else:
         joint = encode(params["encoder"], params["embed"])
-    return joint, seeded(dec_seed, device)
+    return joint, dec_gen
 
 
 def model_dense_loss(params, batch, cfg: Config, *, train: bool = True,

@@ -5,7 +5,10 @@ State mirrors the params: nested dicts of tensors keyed like the JAX tree,
 so a checkpoint stores the moments by tree path exactly as the JAX package
 does (which is why torch.optim is not used).  Updates are functional: new
 tensors, never in place.  Step-dependent scalars (the learning rate, Adam's
-bias corrections) are computed in float32, as JAX computes them.
+bias corrections) are computed in float32, as JAX computes them, on the host;
+a captured step (parallel/train_step.py's factories) reads the same floats
+from a device buffer (step_scalars), since a graph would freeze a Python
+number at its capture value.
 """
 
 from __future__ import annotations
@@ -58,10 +61,21 @@ def clip_by_global_norm(grads: dict, max_norm: float, sq_sums=None):
     return tree_map(lambda g: g * scale, grads), gnorm
 
 
-def apply_updates(params: dict, grads: dict, state: OptState, lr: float,
-                  cfg: Config, sq_sums=None):
+def adam_scales(step: int, cfg: Config) -> tuple[float, float]:
+    """Adam's bias corrections (1 / (1 - b1^t), 1 / (1 - b2^t)) at the
+    post-increment step t, in float32."""
+    t = _f32(float(step))
+    return (float(1.0 / (1.0 - _f32(cfg.adam_beta1) ** t)),
+            float(1.0 / (1.0 - _f32(cfg.adam_beta2) ** t)))
+
+
+def apply_updates(params: dict, grads: dict, state: OptState, lr,
+                  cfg: Config, sq_sums=None, scales=None):
     """One optimizer step.  Returns (new_params, new_state, grad_norm);
-    sq_sums as in clip_by_global_norm."""
+    sq_sums as in clip_by_global_norm.  lr is a float or a 0-dim float32
+    tensor on the params' device; `scales`, where given, are Adam's
+    (mhat_scale, vhat_scale) as such tensors (a captured step's, from
+    step_scalars), else adam_scales of the step."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, sq_sums)
     step = state.step + 1
 
@@ -69,9 +83,8 @@ def apply_updates(params: dict, grads: dict, state: OptState, lr: float,
         b1, b2, eps = cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps
         m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state.m, grads)
         v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state.v, grads)
-        t = _f32(float(step))
-        mhat_scale = float(1.0 / (1.0 - _f32(b1) ** t))
-        vhat_scale = float(1.0 / (1.0 - _f32(b2) ** t))
+        mhat_scale, vhat_scale = (adam_scales(step, cfg) if scales is None
+                                  else scales)
         new_params = tree_map(
             lambda p, m_, v_: p - lr * (m_ * mhat_scale)
             / (torch.sqrt(v_ * vhat_scale) + eps),
@@ -97,3 +110,13 @@ def lr_at_step(step: int, cfg: Config) -> float:
     pre-increment step (optim.py::lr_at_step)."""
     lr = _f32(cfg.learning_rate) * _f32(cfg.lr_decay_rate) ** _f32(float(step))
     return float(torch.maximum(lr, _f32(cfg.min_lr)))
+
+
+def step_scalars(step: int, count: int, cfg: Config) -> torch.Tensor:
+    """(count, 3) float32: [lr_at_step, mhat_scale, vhat_scale] of the
+    `count` optimizer steps from `step` (the pre-increment count), the
+    floats the eager step computes (lr_at_step, adam_scales), which float32
+    holds exactly.  A captured step reads them from the device, so its
+    updates are the eager step's bit for bit."""
+    return torch.tensor([[lr_at_step(step + g, cfg), *adam_scales(step + g + 1, cfg)]
+                         for g in range(count)], dtype=torch.float32)

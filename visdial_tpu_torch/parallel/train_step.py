@@ -18,6 +18,12 @@ identically on every rank (the ranks stay in lockstep) and each rank offsets
 them by its data coordinate, so the ranks of one data row draw the same
 masks and different rows draw their own: a mesh step equals the one-device
 step over the global batch at dropout 0 only.
+
+make_train_fn, make_multistep_train_fn and make_dense_train_fn are the JAX
+package's compiled dispatch: on one card each call is one CUDA graph
+(parallel/graph.py), G steps of multistep included, as jax.jit of the step
+or of its lax.scan is one device program there.  train_step and
+multi_train_step stay eager; they are the reference the graphs are held to.
 """
 
 from __future__ import annotations
@@ -29,12 +35,15 @@ import torch
 
 from ..config import Config
 
+from ..models.core import StepGenerators, split_seeds
 from ..models.decoders import gen_score_rows
-from ..models.model import model_init, model_loss
+from ..models.model import model_dense_loss, model_init, model_loss
 from ..utils.params import flatten, unflatten
+from .graph import Graphed
 from .mesh import (Mesh, all_reduce_grads, broadcast_tree, gather_tree,
                    param_layouts, shard_tree, sum_sharded_squares)
-from .optim import OptState, apply_updates, init_opt_state, lr_at_step
+from .optim import (OptState, apply_updates, init_opt_state, lr_at_step,
+                    step_scalars)
 
 
 class TrainState(NamedTuple):
@@ -119,8 +128,9 @@ def multi_train_step(state: TrainState, batches: dict, cfg: Config,
                      impl: str | None = None, loss_fn=model_loss,
                      mesh: Mesh | None = None):
     """G optimizer steps in one call over a stack of G batches (leading
-    axis of every array), the counterpart of the JAX lax.scan.  Returns
-    (state, metrics) with every metric stacked to (G,)."""
+    axis of every array), eagerly: the reference that
+    make_multistep_train_fn's graph (the JAX lax.scan's counterpart) is
+    held to.  Returns (state, metrics) with every metric stacked to (G,)."""
     G = len(next(iter(batches.values())))
     rows = []
     for g in range(G):
@@ -134,6 +144,160 @@ def multi_train_step(state: TrainState, batches: dict, cfg: Config,
         "step": torch.tensor([m["step"] for m in rows], dtype=torch.int32),
     }
     return state, metrics
+
+
+def step_seeds(gen: torch.Generator, steps: int) -> list[tuple[int, int]]:
+    """The (encoder, decoder) dropout seeds of `steps` train steps, drawn
+    from the state's CPU generator as that many eager steps draw them
+    (models/model.py::_train_encode), which leaves it in the same state."""
+    return [tuple(split_seeds(gen)) for _ in range(steps)]
+
+
+class _TrainSteps:
+    """The graphs' body: G steps from the buffers (params, m, v), written
+    back into them at the end; it refers to nothing that holds its graphs,
+    so a dropped factory frees them (and their memory pools) at once."""
+
+    def __init__(self, cfg: Config, impl: str | None, loss_fn, stacked: bool):
+        self.cfg, self.impl, self.loss_fn, self.stacked = (cfg, impl, loss_fn,
+                                                           stacked)
+        self.buffers: tuple | None = None    # (params, m, v) the graphs use
+        self._gens: dict = {}                # (G, device) -> [StepGenerators]
+
+    def generators(self, G: int, device) -> list:
+        """The G steps' dropout generators on `device`, made once."""
+        key = (G, torch.device(device))
+        if key not in self._gens:
+            self._gens[key] = [
+                StepGenerators(torch.Generator(device=device),
+                               torch.Generator(device=device))
+                for _ in range(G)]
+        return self._gens[key]
+
+    def __call__(self, batch: dict, scalars: torch.Tensor):
+        """Returns the (G,) losses and grad norms."""
+        G = scalars.shape[0]
+        params, m, v = self.buffers
+        opt = OptState(0, m, v)
+        losses, gnorms = [], []
+        for g, gens in enumerate(self.generators(G, scalars.device)):
+            b = {k: x[g] for k, x in batch.items()} if self.stacked else batch
+            loss, grads = loss_and_grads(params, b, self.cfg, gens, self.impl,
+                                         self.loss_fn)
+            params, opt, gnorm = apply_updates(
+                params, grads, opt, scalars[g, 0], self.cfg,
+                scales=(scalars[g, 1], scalars[g, 2]))
+            losses.append(loss)
+            gnorms.append(gnorm)
+        for dst, src in zip(self.buffers, (params, opt.m, opt.v)):
+            dst, src = flatten(dst), flatten(src)
+            for k, t in dst.items():
+                if src[k] is not t:
+                    t.copy_(src[k])
+        return torch.stack(losses), torch.stack(gnorms)
+
+
+class GraphedTrainStep:
+    """G optimizer steps of loss_fn a call as one CUDA graph per batch
+    signature (parallel/graph.py::Graphed), on one device: what
+    make_train_fn, make_multistep_train_fn and make_dense_train_fn return.
+
+    The state's tensors are the graph's buffers: the first call adopts the
+    state it is given, the steps write the new params and moments into them
+    in place at the end of the graph (jax.jit's donate_argnums=(0,)), and a
+    later call with a state whose tensors are not those copies it in first
+    (a resume, a state from elsewhere).  The step count stays on the host;
+    before each call the host writes the steps' lr and Adam scales into a
+    device buffer (optim.py::step_scalars) and seeds 2G device generators,
+    registered with the graphs, from the state's CPU generator in the eager
+    order (step_seeds), so a replay computes the eager steps bit for bit,
+    dropout masks included.  On CPU tensors the same steps run eagerly."""
+
+    def __init__(self, cfg: Config, impl: str | None, loss_fn, stacked: bool):
+        if cfg.remat:
+            raise ValueError(
+                "cfg.remat under a CUDA graph: the recomputed encoder would "
+                "draw new dropout masks from the graph's generators, not the "
+                "forward's (they hold no seed to rebuild them from); train "
+                "with remat off, or call train_step")
+        self.steps = _TrainSteps(cfg, impl, loss_fn, stacked)
+        self.graph = Graphed(self.steps)
+
+    @property
+    def captures(self) -> int:
+        return self.graph.captures
+
+    def __call__(self, state: TrainState, batch: dict):
+        first = next(iter(batch.values()))
+        G = len(first) if self.steps.stacked else 1
+        self._donate(state)
+        gens = self.steps.generators(G, first.device)
+        for g, (enc, dec) in zip(gens, step_seeds(state.gen, G)):
+            g.encoder.manual_seed(enc)
+            g.decoder.manual_seed(dec)
+        scalars = step_scalars(state.opt.step, G, self.steps.cfg)
+        losses, gnorms = self.graph(
+            batch, scalars.to(first.device),
+            generators=[x for g in gens for x in g])
+        step = state.opt.step + G
+        params, m, v = self.steps.buffers
+        new = TrainState(params, OptState(step, m, v), state.gen)
+        if self.steps.stacked:
+            return new, {"loss": losses, "lr": scalars[:, 0].clone(),
+                         "grad_norm": gnorms,
+                         "step": torch.arange(state.opt.step + 1, step + 1,
+                                              dtype=torch.int32)}
+        return new, {"loss": losses[0], "lr": float(scalars[0, 0]),
+                     "grad_norm": gnorms[0], "step": step}
+
+    def _donate(self, state: TrainState) -> None:
+        trees = (state.params, state.opt.m, state.opt.v)
+        if self.steps.buffers is None:
+            self.steps.buffers = trees
+            return
+        for mine, theirs in zip(self.steps.buffers, trees):
+            dst, src = flatten(mine), flatten(theirs)
+            if dst.keys() != src.keys() or any(
+                    dst[k].shape != src[k].shape for k in dst):
+                raise ValueError("the state does not fit the graphed step's: "
+                                 "another model or optimizer")
+            for k, t in src.items():
+                if t is not dst[k]:
+                    dst[k].copy_(t)
+
+
+def _factory(cfg: Config, mesh: Mesh | None, impl, loss_fn, stacked: bool):
+    if mesh is not None and mesh.world > 1:
+        return partial(multi_train_step if stacked else train_step, cfg=cfg,
+                       impl=impl, loss_fn=loss_fn, mesh=mesh)
+    return GraphedTrainStep(cfg, impl, loss_fn, stacked)
+
+
+def make_train_fn(cfg: Config, mesh: Mesh | None = None,
+                  impl: str | None = None):
+    """train_step as one CUDA graph a call (train_step.py::make_train_fn):
+    fn(state, batch) -> (state, metrics) as train_step returns them, the
+    state donated (GraphedTrainStep).  On a mesh of more than one rank it
+    is the eager mesh step (graphs over NCCL are not captured); a world of
+    one is the one-device step."""
+    return _factory(cfg, mesh, impl, model_loss, stacked=False)
+
+
+def make_multistep_train_fn(cfg: Config, mesh: Mesh | None = None,
+                            impl: str | None = None, loss_fn=model_loss):
+    """multi_train_step as one CUDA graph a call
+    (train_step.py::make_multistep_train_fn, jit of the lax.scan): G steps
+    over a stack of G batches, one dispatch from the host, metrics stacked
+    to (G,); the state donated.  The mesh as in make_train_fn."""
+    return _factory(cfg, mesh, impl, loss_fn, stacked=True)
+
+
+def make_dense_train_fn(cfg: Config, mesh: Mesh | None = None,
+                        impl: str | None = None):
+    """make_train_fn over the dense fine-tuning loss
+    (train_step.py::make_dense_train_fn, models/model.py::
+    model_dense_loss)."""
+    return _factory(cfg, mesh, impl, model_dense_loss, stacked=False)
 
 
 def gen_rows_score(params, joint, opt_list, opt_list_len, opt_rows, row_idx,

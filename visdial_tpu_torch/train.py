@@ -24,6 +24,13 @@ notice/resumed/step_time/profile) to stdout and <save_path>/<run_name>/
 metrics.jsonl, and full resumable checkpoints (params, optimizer moments,
 step, dropout generator, config) in the JAX package's format.  Every
 encoder (with or without img_spatial) trains with either decoder.
+
+The steps go through parallel/train_step.py's factories, as the JAX CLI's
+go through its jitted ones: on one card each call is one CUDA graph
+(make_train_fn, and make_multistep_train_fn for --steps_per_dispatch > 1),
+captured once for the run's batch shape.  --debug_nans runs the eager steps
+(train_step, multi_train_step): anomaly detection reads every backward
+output on the host, which a graph cannot.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import argparse
 import dataclasses
 import os
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -46,6 +54,7 @@ from .eval_harness import evaluate_split
 from .models.model import batch_to_device
 from .parallel.mesh import make_mesh
 from .parallel.train_step import (gather_train_state, init_train_state,
+                                  make_multistep_train_fn, make_train_fn,
                                   multi_train_step, shard_train_state,
                                   train_step)
 from .utils.checkpoint import latest_checkpoint, load_train_state, save_checkpoint
@@ -80,7 +89,7 @@ def build_argparser() -> argparse.ArgumentParser:
                         "device synchronised each step) for the first N steps")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
                    help="optimizer steps per call (>1 runs G steps in one "
-                        "multi_train_step over a stacked batch group; "
+                        "dispatch over a stacked batch group; "
                         "metrics/eval/checkpoint cadences quantize to group "
                         "boundaries)")
     p.add_argument("--eval_resident", type=_flag_bool, default=True,
@@ -166,6 +175,13 @@ def main(argv=None) -> dict:
                   if args.profile_steps else None)
     prof = None
 
+    if args.debug_nans:
+        train_fn = partial(train_step, cfg=cfg, mesh=mesh)
+        multi_fn = partial(multi_train_step, cfg=cfg, mesh=mesh)
+    else:
+        train_fn = make_train_fn(cfg, mesh)
+        multi_fn = make_multistep_train_fn(cfg, mesh) if group > 1 else None
+
     step = state.opt.step
     t_last, s_last = time.time(), step
     rounds_per_batch = cfg.batch_size * cfg.num_rounds
@@ -232,13 +248,12 @@ def main(argv=None) -> dict:
                 stacked = batch_to_device(
                     {k: np.stack([bd[k] for bd in pending]) for k in pending[0]},
                     device)
-                state, m = multi_train_step(state, stacked, cfg, mesh=mesh)
+                state, m = multi_fn(state, stacked)
                 step += len(pending)
                 loss_buf.append(m["loss"])
             else:  # group == 1, epoch tail, or max_steps trim
                 for bd in pending:
-                    state, m = train_step(state, batch_to_device(bd, device),
-                                          cfg, mesh=mesh)
+                    state, m = train_fn(state, batch_to_device(bd, device))
                     step += 1
                     loss_buf.append(m["loss"])
             if timing:
