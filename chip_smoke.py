@@ -49,10 +49,12 @@ two cards also the generate CLI on two NCCL ranks at --mesh_model 2
 against one card, and every kernel launched on the second card in this
 process.  Then the compiled dispatch (parallel/graph.py): the train steps
 as CUDA graphs (make_multistep_train_fn) against the eager multi_train_step
-at the bench's points, bit for bit, and serving through the engine's
-graphs against their eager bodies, with both paths' rates, latencies and
-peak memory.  Last the bench (visdial_tpu_torch.bench.bench_port at its
-default flagship configuration, the Torch-CPU baseline left out): its
+at the bench's points, bit for bit, serving through the engine's graphs
+against their eager bodies, the eval factories, evaluate_split streaming
+and resident, generate's decode and VGG-16's forward graphed against
+their eager functions, with both paths' rates, latencies and memory.
+Last the bench (visdial_tpu_torch.bench.bench_port at its default
+flagship configuration, the Torch-CPU baseline left out): its
 line's keys the JAX bench's plus the port's, every rate finite and
 positive, both MFUs in (0, 1] and every kernel launched by its rows.  Each
 path must have gone through its kernels and agree with a run of the plain
@@ -311,6 +313,12 @@ BENCH_FLOPS = {"train_flops_per_step": 32 * 193_195_163_648,
 # rounds of REQUESTS a serving path
 GRAPH_DISPATCHES = 2
 GRAPH_SERVE_ROUNDS = 4
+# the eval, generate and VGG-16 points of `graphs`: calls a turn, score
+# batches a table eval, the sampling seed, and the bound on a graphed
+# path's peak device memory (what its graphs keep included) over eager's
+GRAPH_EVAL_REPS, GRAPH_TABLE_BATCHES, GRAPH_VGG_REPS = 4, 8, 2
+GRAPH_SAMPLE_SEED = 5
+GRAPH_PEAK_RATIO = 1.3
 REQUESTS = [
     ("is it sunny ?", "a park photo", []),
     ("what color is it ?", "w101 w202 w303", [("is there a dog ?", "yes")]),
@@ -2803,19 +2811,320 @@ def graph_serve_point(dev, decoder: str, beam: int = 0) -> dict:
     return row
 
 
+def _leaves(out) -> list:
+    from torch.utils import _pytree as pytree
+
+    return [x for x in pytree.tree_leaves(out)
+            if isinstance(x, (torch.Tensor, np.ndarray))]
+
+
+def _equal(a, b) -> bool:
+    """Two outputs bit for bit: every tensor or array leaf equal."""
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor)
+        else np.array_equal(x, y) for x, y in zip(la, lb))
+
+
+def graph_turns(dev, what: str, calls: dict, reps: int, units: float) -> dict:
+    """calls["eager"] and calls["graph"] (() -> outputs), each called once
+    (the graph's capture) from an emptied allocator cache, then in turns
+    (eager, graph, graph, eager) `reps` calls a turn between
+    synchronisations: every call's outputs bit for bit the first eager
+    call's, a call's launches equal on both paths (replays counted),
+    `units` a call per second a path over its two turns.  Memory, the
+    device memory each path reserves over what was reserved before its
+    first call: eager's peak over that call, its allocations made in a
+    fresh pool (torch.cuda.MemPool) so that they take new segments as a
+    graph's private pool does; the graph's kept after its capture (its
+    pool, buffers and params copy; the warm-up's blocks released) and its
+    peak over the replayed call that follows (what it keeps and what a
+    call allocates).  Checked: the graph's peak at most GRAPH_PEAK_RATIO
+    times eager's."""
+    first, launches, seconds, mem = {}, {}, {}, {}
+    for path in ("eager", "graph"):
+        reset_launches()
+        _release()
+        reserved = torch.cuda.memory_reserved(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if path == "eager":
+            pool = torch.cuda.MemPool()
+            with torch.cuda.use_mem_pool(pool):
+                first[path] = calls[path]()
+        else:
+            first[path] = calls[path]()
+        torch.cuda.synchronize(dev)
+        seconds[f"{path}_first"] = time.perf_counter() - t0
+        launches[path] = kernel_launches()
+        if path == "eager":
+            mem["eager_peak_gb"] = (torch.cuda.max_memory_reserved(dev)
+                                    - reserved) / 2 ** 30
+            continue
+        _release()            # the warm-up's blocks go; the graph's stay
+        mem["graph_kept_gb"] = (torch.cuda.memory_reserved(dev)
+                                - reserved) / 2 ** 30
+        torch.cuda.reset_peak_memory_stats(dev)
+        calls[path]()
+        torch.cuda.synchronize(dev)
+        mem["graph_peak_gb"] = (torch.cuda.max_memory_reserved(dev)
+                                - reserved) / 2 ** 30
+    check(_equal(first["graph"], first["eager"]),
+          f"{what}: the graph's first call differs from eager")
+    calls["eager"]()                  # refill the allocator's emptied cache
+    for path in ("eager", "graph", "graph", "eager"):
+        reset_launches()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = calls[path]()
+            check(_equal(out, first["eager"]),
+                  f"{what}: {path} outputs differ from the first eager call's")
+        torch.cuda.synchronize(dev)
+        seconds[path] = seconds.get(path, 0.0) + time.perf_counter() - t0
+        per = {k: n // reps for k, n in kernel_launches().items()}
+        check(per == launches[path], f"{what}: {path} launches a call {per} "
+              f"against its first call's {launches[path]}")
+    check(launches["graph"] == launches["eager"],
+          f"{what}: graph launches {launches['graph']} against eager "
+          f"{launches['eager']}")
+    mem["graph_over_eager_peak"] = mem["graph_peak_gb"] / mem["eager_peak_gb"]
+    check(mem["graph_peak_gb"] <= GRAPH_PEAK_RATIO * mem["eager_peak_gb"],
+          f"{what}: graphed peak {mem['graph_peak_gb']:.4f} GB (kept "
+          f"{mem['graph_kept_gb']:.4f}) over {GRAPH_PEAK_RATIO}x eager's "
+          f"{mem['eager_peak_gb']:.4f}")
+    row = {"point": what, "bit_equal": True, "launches": launches["graph"],
+           **mem}
+    for path in ("eager", "graph"):
+        row[f"{path}_per_s"] = 2 * reps * units / seconds[path]
+        row[f"{path}_ms_a_call"] = seconds[path] / (2 * reps) * 1e3
+        row[f"{path}_first_s"] = seconds[f"{path}_first"]
+    del first, pool
+    return row
+
+
+def _release() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def graph_eval_points(dev) -> list[dict]:
+    """The eval factories and evaluate_split graphed against their eager
+    functions at the bench's points in bf16 (bench_eval: disc at batch 32,
+    gen at 64, random_batch, random weights; the disc table over
+    TABLE_ROWS answers; bench_harness_e2e: HARNESS_DIALOGS dialogs over
+    HARNESS_ANSWERS answers, streaming and resident, disc and gen)."""
+    from visdial_tpu_torch.bench import (GEN_BATCH, HARNESS_ANSWERS,
+                                         HARNESS_DIALOGS, TABLE_ROWS,
+                                         flagship_config)
+    from visdial_tpu_torch.data.synthetic import make_random_split, random_batch
+    from visdial_tpu_torch.eval_harness import _GenBucketPlan, evaluate_split
+    from visdial_tpu_torch.models.model import batch_to_device, model_init
+    from visdial_tpu_torch.parallel.train_step import (make_disc_table_eval_fns,
+                                                       make_eval_fn,
+                                                       make_gen_bucket_eval_fns)
+
+    rows = []
+    for decoder, bs in (("disc", 32), ("gen", GEN_BATCH)):
+        cfg = flagship_config(decoder=decoder, batch_size=bs)
+        params = model_init(cfg, seed=cfg.seed, device=dev)
+        batch = batch_to_device(random_batch(cfg, seed=0), dev)
+        fn = make_eval_fn(cfg)
+
+        def eager(f=fn):
+            with torch.inference_mode():
+                return f.fn(params, batch)
+
+        row = graph_turns(dev, f"eval {decoder} batch {bs}",
+                          {"eager": eager, "graph": partial(fn, params, batch)},
+                          reps=GRAPH_EVAL_REPS, units=bs * cfg.num_rounds)
+        rows.append({**row, "captures": fn.captures, "replays": fn.replays,
+                     "unit": "rounds"})
+        if decoder == "disc":
+            opt_list = torch.from_numpy(np.random.default_rng(0).integers(
+                1, cfg.vocab_size - 3, (TABLE_ROWS, cfg.max_ans_len))).to(dev)
+            table_fn, score_fn = make_disc_table_eval_fns(cfg)
+
+            def eager_table():
+                with torch.inference_mode():
+                    table = table_fn.fn(params, opt_list)
+                    return table, [score_fn.fn(params, table, batch)
+                                   for _ in range(GRAPH_TABLE_BATCHES)]
+
+            def graph_table():
+                # as the bench calls them: the factories' params copy, the
+                # table read where its graph wrote it (score_fn in its pool)
+                p = table_fn.held.load(params)
+                table = table_fn(p, opt_list, clone=False)
+                return table, [score_fn(p, table, batch)
+                               for _ in range(GRAPH_TABLE_BATCHES)]
+
+            row = graph_turns(
+                dev, f"table eval {decoder} {TABLE_ROWS} answers",
+                {"eager": eager_table, "graph": graph_table},
+                reps=1, units=GRAPH_TABLE_BATCHES * bs * cfg.num_rounds)
+            rows.append({**row, "captures": table_fn.captures
+                         + score_fn.captures, "unit": "rounds, the table "
+                         f"build and {GRAPH_TABLE_BATCHES} batches a call"})
+        del params, batch, fn
+        _release()
+    for decoder in ("disc", "gen"):
+        cfg = flagship_config(decoder=decoder)
+        split, vocab = make_random_split(cfg, num_dialogs=HARNESS_DIALOGS,
+                                         num_unique_answers=HARNESS_ANSWERS,
+                                         seed=0)
+        cfg = cfg.replace(vocab_size=vocab.size)
+        params = model_init(cfg, seed=cfg.seed, device=dev)
+        fns = (make_disc_table_eval_fns if decoder == "disc"
+               else make_gen_bucket_eval_fns)(cfg)
+        key = "table_fns" if decoder == "disc" else "gen_fns"
+        for resident in (False, True):
+            def run(f, resident=resident):
+                _, ranks, cand = evaluate_split(
+                    params, split, vocab, cfg, dev, return_ranks=True,
+                    collect_rankings=True, resident=resident, **{key: f})
+                return ranks, cand
+
+            path = "resident" if resident else "stream"
+            # the split's device tables and resident stacks are built
+            # before the memory measure, which is of the eval alone
+            run(tuple(f.fn for f in fns))
+            row = graph_turns(
+                dev, f"evaluate_split {decoder} {path}",
+                {"eager": partial(run, tuple(f.fn for f in fns)),
+                 "graph": partial(run, fns)},
+                reps=1, units=HARNESS_DIALOGS * cfg.num_rounds)
+            if resident:
+                res = next(iter(split._torch_resident_eval.values()))
+                (entry,) = res.graphs.values()
+                row.update(captures=res.captures, batches=len(res.keep),
+                           replays=entry.graph.replays)
+                # four graphed runs: the capture's (batch 0 its warm-up),
+                # the peak measure's and two turns
+                check(res.captures == 1 and entry.graph.replays
+                      == 4 * len(res.keep) - 1,
+                      f"evaluate_split {decoder} resident: {res.captures} "
+                      f"captures, {entry.graph.replays} replays over 4 runs "
+                      f"of {len(res.keep)} batches")
+            else:
+                # the factories' graphs replayed a batch: one capture each
+                # (gen: one row graph a width bucket)
+                widths = (len(_GenBucketPlan.cached(split, cfg.batch_size)
+                              .active) if decoder == "gen" else 1)
+                row.update(captures=[f.captures for f in fns],
+                           replays=[f.replays for f in fns])
+                check([f.captures for f in fns] == [1, widths],
+                      f"evaluate_split {decoder} stream: "
+                      f"{[f.captures for f in fns]} captures")
+            rows.append({**row, "unit": "rounds"})
+        del params, fns, split
+        _release()
+    return rows
+
+
+def graph_generate_points(dev) -> list[dict]:
+    """generate's decode (one graph over the params it closes over, as the
+    CLI builds it) against its eager body over GEN_DIALOGS dialogs of a
+    random split at the bench's gen point in bf16 (batch 32): greedy, beam
+    5 and sampled (temperature 0.8, each pass from a generator seeded
+    GRAPH_SAMPLE_SEED, the graph's registered)."""
+    from visdial_tpu_torch.bench import flagship_config
+    from visdial_tpu_torch.data.loader import EvalLoader
+    from visdial_tpu_torch.data.synthetic import make_random_split
+    from visdial_tpu_torch.generate import _decode
+    from visdial_tpu_torch.models.model import batch_to_device, model_init
+    from visdial_tpu_torch.parallel.graph import InferenceGraphed
+
+    cfg = flagship_config(decoder="gen").replace(dropout=0.0)
+    split, vocab = make_random_split(cfg, num_dialogs=GEN_DIALOGS, seed=2)
+    cfg = cfg.replace(vocab_size=vocab.size)
+    params = model_init(cfg, seed=cfg.seed, device=dev)
+    batches = [batch_to_device(b.as_dict(), dev) for b in EvalLoader(
+        split, vocab, cfg, option_tokens=False)]
+    body = partial(_decode, params, cfg)
+    rows = []
+    for mode, greedy, beam in (("greedy", True, 0), ("beam5", True, 5),
+                               ("sample", False, 0)):
+        graph = InferenceGraphed(body)
+        gen = (torch.Generator(device=dev) if not greedy else None)
+
+        def decode(graphed):
+            if gen is not None:
+                gen.manual_seed(GRAPH_SAMPLE_SEED)
+            args = (vocab.start, vocab.end, greedy, 0.8, beam, gen)
+            if graphed:
+                return [graph(b, *args, generators=[gen] if gen else [])
+                        for b in batches]
+            with torch.inference_mode():
+                return [body(b, *args) for b in batches]
+
+        row = graph_turns(dev, f"generate {mode}",
+                          {"eager": partial(decode, False),
+                           "graph": partial(decode, True)},
+                          reps=GRAPH_EVAL_REPS, units=GEN_DIALOGS)
+        rows.append({**row, "captures": graph.captures,
+                     "replays": graph.replays, "batches": len(batches),
+                     "unit": "dialogs"})
+        check(graph.captures == 1, f"generate {mode}: {graph.captures} "
+              "captures")
+        del graph
+    del params, batches, body
+    _release()
+    return rows
+
+
+def graph_vgg_points(dev) -> list[dict]:
+    """prepro_img's VGG-16 forward (one graph over the params it closes
+    over) against vgg16.apply at batch 64, f32 (TF32 off) and bf16, on
+    seeded images and He-scaled random weights: fc7 and pool5 bit for
+    bit."""
+    from visdial_tpu_torch.models import vgg16
+    from visdial_tpu_torch.parallel.graph import Graphed
+
+    x = torch.from_numpy(vgg16.preprocess(np.random.default_rng(3).integers(
+        0, 256, (64, 224, 224, 3), dtype=np.uint8), origin="torchvision"))
+    x = x.to(dev)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        params = vgg16.init_params(torch.Generator().manual_seed(0), he=True,
+                                   dtype=dtype, device=dev)
+        forward = Graphed(partial(vgg16.apply, params))
+        row = graph_turns(dev, f"vgg16 {dtype}",
+                          {"eager": partial(vgg16.apply, params, x),
+                           "graph": partial(forward, x)},
+                          reps=GRAPH_VGG_REPS, units=64)
+        rows.append({**row, "captures": forward.captures,
+                     "replays": forward.replays, "unit": "images"})
+        check(forward.captures == 1, f"vgg16 {dtype}: {forward.captures} "
+              "captures")
+        del params, forward
+        _release()
+    return rows
+
+
 def graphs(dev) -> dict:
     """The compiled dispatch (parallel/graph.py): the train graphs against
     the eager steps at the bench's points (disc batch 32, gen batch 64; bf16
-    and f32), then serving (disc top 5, gen greedy and beam 5) graphed
-    against eager."""
+    and f32), serving (disc top 5, gen greedy and beam 5), the eval
+    factories and evaluate_split (streaming and resident), generate's
+    decode and VGG-16's forward, each graphed against eager."""
     t0 = time.perf_counter()
     train = [graph_train_point(dev, decoder, batch, dtype)
              for decoder, batch in (("disc", 32), ("gen", 64))
              for dtype in ("bfloat16", "float32")]
     serve = [graph_serve_point(dev, "disc"), graph_serve_point(dev, "gen"),
              graph_serve_point(dev, "gen", beam=5)]
-    row = {"phase": "graphs", "train": train, "serve": serve,
-           "seconds": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    evals = graph_eval_points(dev)
+    t2 = time.perf_counter()
+    generated = graph_generate_points(dev)
+    t3 = time.perf_counter()
+    vgg = graph_vgg_points(dev)
+    row = {"phase": "graphs", "train": train, "serve": serve, "eval": evals,
+           "generate": generated, "vgg16": vgg,
+           "seconds": {"train_serve": t1 - t0, "eval": t2 - t1,
+                       "generate": t3 - t2, "vgg16": time.perf_counter() - t3},
+           "total_seconds": time.perf_counter() - t0}
     emit(row)
     return row
 
@@ -3488,6 +3797,8 @@ def main() -> None:
         by_path[f"graphs:{r['decoder']}:{r['dtype']}"] = r["launches_a_replay"]
     for r in graphed["serve"]:
         by_path[f"graphs:serve_{r['decoder']}{r['beam'] or ''}"] = r["launches"]
+    for r in graphed["eval"] + graphed["generate"]:
+        by_path[f"graphs:{r['point']}"] = r["launches"]
     for key, m in pipe["models"].items():
         for stage, n in m["launches"].items():
             by_path[f"pipeline:{key}:{stage}"] = n

@@ -951,3 +951,229 @@ def test_served_answers_equal_the_eager_path(dev, decoder):
                     assert torch.equal(got, want)
     served = eng.serve_disc if decoder == "disc" else eng.serve_gen
     assert served.captures == (1 if decoder == "disc" else 2)
+
+
+# ---------------------------------------------------------------------------
+# The eval dispatch as CUDA graphs (the eval factories, evaluate_split's
+# batch graphs, generate's decode, VGG-16's forward)
+# ---------------------------------------------------------------------------
+
+def _assert_equal(graphed, eager, what):
+    from torch.utils import _pytree as pytree
+
+    a, b = pytree.tree_leaves(graphed), pytree.tree_leaves(eager)
+    assert len(a) == len(b), what
+    for x, y in zip(a, b):
+        assert torch.equal(x, y), what
+
+
+def _assert_repeats(fn, what):
+    """Two eager runs of fn give equal tensors: at the smoke's shapes these
+    paths repeat themselves (its `graphs` phase holds every call to the
+    first eager call's outputs), so the graphed path is held to eager bit
+    for bit; a narrow train step need not (scripts/graph_determinism.py)."""
+    _assert_equal(fn(), fn(), f"{what}: eager does not repeat itself")
+
+
+def _eval_case(dev, decoder, dtype="bfloat16", batch_size=None):
+    """The bench's eval point (flagship widths, random weights from a
+    seed; disc at batch 32, gen at bench.GEN_BATCH) and one random batch on
+    the card."""
+    from visdial_tpu_torch.bench import GEN_BATCH, flagship_config
+    from visdial_tpu_torch.data.synthetic import random_batch
+    from visdial_tpu_torch.models.model import batch_to_device, model_init
+
+    batch_size = batch_size or (32 if decoder == "disc" else GEN_BATCH)
+    cfg = flagship_config(decoder=decoder, batch_size=batch_size,
+                          compute_dtype=dtype).replace(dropout=0.0)
+    params = model_init(cfg, seed=1, device=dev)
+    return cfg, params, batch_to_device(random_batch(cfg, seed=2), dev)
+
+
+@pytest.mark.parametrize("decoder", ["disc", "gen"])
+def test_eval_fn_graph_equals_eager(dev, decoder):
+    """make_eval_fn's graph against its eager function at the bench's
+    point in bf16: three calls (the capture's warm-up, two replays), the
+    scores bit for bit (eager repeats itself at this point), one capture,
+    the kernels' launches of a replay an eager call's."""
+    from visdial_tpu_torch.bench import kernel_launches
+    from visdial_tpu_torch.parallel.train_step import make_eval_fn
+
+    cfg, params, batch = _eval_case(dev, decoder)
+    fn = make_eval_fn(cfg)
+    with torch.inference_mode():
+        _assert_repeats(lambda: fn.fn(params, batch), decoder)
+    for _ in range(3):
+        before = kernel_launches()
+        got = fn(params, batch)
+        mid = kernel_launches()
+        with torch.inference_mode():
+            want = fn.fn(params, batch)
+        after = kernel_launches()
+        assert {k: mid[k] - before[k] for k in mid} == \
+            {k: after[k] - mid[k] for k in mid}
+        _assert_equal(got, want, decoder)
+    assert fn.captures == 1 and mid["lstm_layer"] > before["lstm_layer"]
+
+
+def test_disc_table_graphs_equal_eager(dev):
+    """make_disc_table_eval_fns' two graphs against their eager functions
+    at the bench's point in bf16 over its TABLE_ROWS-answer option list,
+    called as the bench calls them (the factories' params copy, the table
+    read where its graph wrote it, score_fn in the table graph's pool) and
+    with the caller's params and a clone of the table: the table and the
+    scores bit for bit, one capture each."""
+    from visdial_tpu_torch.bench import TABLE_ROWS
+    from visdial_tpu_torch.parallel.train_step import make_disc_table_eval_fns
+
+    cfg, params, batch = _eval_case(dev, "disc")
+    g = torch.Generator().manual_seed(3)
+    opt_list = torch.randint(1, cfg.vocab_size - 3, (TABLE_ROWS,
+                                                     cfg.max_ans_len),
+                             generator=g).to(dev)
+    table_fn, score_fn = make_disc_table_eval_fns(cfg)
+    with torch.inference_mode():
+        _assert_repeats(lambda: table_fn.fn(params, opt_list), "table")
+        want_table = table_fn.fn(params, opt_list)
+        want = score_fn.fn(params, want_table, batch)
+    p = table_fn.held.load(params)
+    for _ in range(2):
+        table = table_fn(p, opt_list, clone=False)
+        _assert_equal(table, want_table, "table in place")
+        _assert_equal(score_fn(p, table, batch), want, "scores in place")
+        table = table_fn(params, opt_list)
+        _assert_equal(table, want_table, "table")
+        _assert_equal(score_fn(params, table, batch), want, "scores")
+    assert table_fn.captures == 1 and score_fn.captures == 2
+
+
+@pytest.mark.parametrize("resident", [False, True], ids=["stream", "resident"])
+@pytest.mark.parametrize("decoder", ["disc", "gen"])
+def test_evaluate_split_graphs_equal_eager(dev, decoder, resident):
+    """evaluate_split at the bench's eval point in bf16 over 96 dialogs
+    (disc 3 batches of 32, gen 2 of 64), through the factories' graphs
+    and through their eager functions, in turns: ranks and candidate
+    rankings bit for bit (eager repeats itself at this point), the launches
+    equal, one capture
+    a factory's graph (gen: one row graph a width bucket), one batch graph
+    a resident variant.  Memory is the smoke's to hold (graph_turns: a
+    graph's pool is invisible to max_memory_allocated)."""
+    from visdial_tpu_torch.bench import kernel_launches
+    from visdial_tpu_torch.data.synthetic import make_random_split
+    from visdial_tpu_torch.eval_harness import _GenBucketPlan, evaluate_split
+    from visdial_tpu_torch.models.model import model_init
+    from visdial_tpu_torch.parallel.train_step import (
+        make_disc_table_eval_fns, make_gen_bucket_eval_fns)
+
+    cfg, _, _ = _eval_case(dev, decoder)
+    split, vocab = make_random_split(cfg, num_dialogs=96,
+                                     num_unique_answers=5000, seed=0)
+    cfg = cfg.replace(vocab_size=vocab.size)
+    params = model_init(cfg, seed=1, device=dev)
+    make = (make_disc_table_eval_fns if decoder == "disc"
+            else make_gen_bucket_eval_fns)
+    key = "table_fns" if decoder == "disc" else "gen_fns"
+    graphs = make(cfg)
+    paths = {"graph": graphs, "eager": tuple(f.fn for f in graphs)}
+    import numpy as np
+
+    outs, launches = {}, {}
+    for path in ("eager", "graph", "graph", "eager"):
+        before = kernel_launches()
+        _, ranks, cand = evaluate_split(
+            params, split, vocab, cfg, dev, return_ranks=True,
+            collect_rankings=True, resident=resident, **{key: paths[path]})
+        launches[path] = {k: n - before[k] for k, n in
+                          kernel_launches().items()}
+        outs.setdefault(path, []).append((ranks, cand))
+    want = outs["eager"][0]
+    for got in (outs["eager"][1], *outs["graph"]):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    assert launches["graph"] == launches["eager"]
+    assert launches["graph"]["lstm_layer"] > 0
+    if resident:
+        res = next(iter(split._torch_resident_eval.values()))
+        assert res.captures == 1 and len(res.keep) == -(-96 // cfg.batch_size)
+    else:
+        buckets = (len(_GenBucketPlan.cached(split, cfg.batch_size).active)
+                   if decoder == "gen" else 1)
+        assert [f.captures for f in graphs] == [1, buckets]
+
+
+def test_sampled_draw_is_torch_multinomial_on_the_card(dev):
+    """gen_decode's written-out draw against torch.multinomial on the card:
+    the same classes from two generators of one seed, which end in the
+    same state."""
+    probs = torch.softmax(torch.randn(320, 8848, device=dev) * 3, dim=-1)
+    a = torch.Generator(device=dev).manual_seed(7)
+    b = torch.Generator(device=dev).manual_seed(7)
+    for _ in range(4):
+        want = torch.multinomial(probs, 1, generator=a)[:, 0]
+        e = torch.empty_like(probs).exponential_(1, generator=b)
+        assert torch.equal((probs / e).argmax(dim=-1), want)
+    assert torch.equal(a.get_state(), b.get_state())
+
+
+@pytest.mark.parametrize("mode", ["greedy", "beam5", "sample"])
+def test_generate_graph_equals_eager(dev, mode):
+    """generate's decode (one graph over the params it closes over) against
+    its eager body over three batches of 32 dialogs (the smoke's) in bf16:
+    tokens and log-probs bit for bit (eager repeats itself there);
+    sampled, each path draws from its own generator of one seed (the
+    graph's registered), and the two end in the same state."""
+    from functools import partial
+
+    from visdial_tpu_torch.data.synthetic import random_batch
+    from visdial_tpu_torch.generate import _decode
+    from visdial_tpu_torch.models.model import batch_to_device
+    from visdial_tpu_torch.parallel.graph import InferenceGraphed
+
+    cfg, params, _ = _eval_case(dev, "gen", batch_size=32)
+    batches = [batch_to_device(random_batch(cfg, seed=s), dev)
+               for s in range(3)]
+    body = partial(_decode, params, cfg)
+    graph = InferenceGraphed(body)
+    sample, beam = mode == "sample", 5 if mode == "beam5" else 0
+    gens = [torch.Generator(device=dev).manual_seed(4) if sample else None
+            for _ in range(3)]
+    static = (1, 2, not sample, 0.8, beam)
+    with torch.inference_mode():
+        if sample:
+            _assert_repeats(lambda: body(batches[0], *static, torch.Generator(
+                device=dev).manual_seed(9)), mode)
+        else:
+            _assert_repeats(lambda: body(batches[0], *static, None), mode)
+    for b in batches:
+        got = graph(b, *static, gens[0],
+                    generators=[gens[0]] if sample else [])
+        with torch.inference_mode():
+            want = body(b, *static, gens[1])
+        _assert_equal(got, want, mode)
+    assert graph.captures == 1
+    if sample:
+        assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vgg16_graph_equals_eager(dev, dtype):
+    """prepro_img's forward graph (VGG-16 over the params it closes over)
+    against vgg16.apply on three batches of 64 seeded images (the smoke's
+    batch): fc7 and pool5 bit for bit, one capture."""
+    from functools import partial
+
+    from visdial_tpu_torch.models import vgg16
+    from visdial_tpu_torch.parallel.graph import Graphed
+
+    params = vgg16.init_params(torch.Generator().manual_seed(0), he=True,
+                               dtype=dtype, device=dev)
+    g = torch.Generator().manual_seed(1)
+    images = [torch.randn(64, 224, 224, 3, generator=g).to(dev)
+              for _ in range(3)]
+    forward = Graphed(partial(vgg16.apply, params))
+    _assert_repeats(lambda: vgg16.apply(params, images[0]), str(dtype))
+    for x in images:
+        got = forward(x)
+        want = vgg16.apply(params, x)
+        _assert_equal(got, want, str(dtype))
+    assert forward.captures == 1

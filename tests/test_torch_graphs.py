@@ -307,12 +307,13 @@ def test_engine_packs_gen_answers_as_the_jax_engine(tmp_path, beam):
 
 
 class _FakeGraph:
-    """Stands in for torch.cuda.CUDAGraph: records its generators and
-    counts its replays."""
+    """Stands in for torch.cuda.CUDAGraph: records its generators and the
+    pool it was captured in (another graph's, or its own) and counts its
+    replays."""
     made = []
 
     def __init__(self):
-        self.generators, self.replays = [], 0
+        self.generators, self.replays, self.captured_in = [], 0, None
         _FakeGraph.made.append(self)
 
     def register_generator_state(self, g):
@@ -320,6 +321,14 @@ class _FakeGraph:
 
     def replay(self):
         self.replays += 1
+
+    def pool(self):
+        return self.captured_in or ("pool", id(self))
+
+
+def _fake_capture(g, capture_error_mode, pool=None):
+    g.captured_in = pool
+    return contextlib.nullcontext()
 
 
 class _FakeStream:
@@ -338,8 +347,7 @@ def fake_card(monkeypatch):
     _FakeGraph.made = []
     monkeypatch.setattr(graph, "_device", lambda leaves: torch.device("cpu"))
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph",
-                        lambda g, capture_error_mode: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
     monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
     monkeypatch.setattr(torch.cuda, "current_stream", _FakeStream)
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())

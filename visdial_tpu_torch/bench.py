@@ -17,8 +17,11 @@ checks (every kernel against its plain version on this card); a failed gate
 prints the gate block alone and exits 1.  Then, in the JAX bench's order:
 training (8 steps a dispatch, one CUDA graph, through
 parallel/train_step.py::make_multistep_train_fn, as the JAX bench's one
-jitted lax.scan), the direct and option-table evals, evaluate_split
-streaming and resident for both decoders, serving latency through
+jitted lax.scan), the direct and option-table evals through the eval
+factories (make_eval_fn, make_disc_table_eval_fns), evaluate_split
+streaming and resident for both decoders with the factories passed (each
+one CUDA graph a batch, or a batch graph replayed per batch), serving
+latency through
 InferenceEngine, the gen decoder's rows at batch 64, the candidate-dedup
 rows over TrainLoader batches and the realistic-lengths block.  Per chip
 means per card; the bench runs on one.
@@ -56,11 +59,11 @@ from .data.loader import TrainLoader
 from .data.synthetic import make_random_split, random_batch, zipf_redraw_options
 from .eval_harness import evaluate_split
 from .infer import InferenceEngine
-from .models.model import (batch_to_device, model_init, model_option_table,
-                           model_scores, model_scores_with_table)
+from .models.model import batch_to_device, model_init
 from .ops import kernel_wrappers
-from .parallel.train_step import (init_train_state, make_multistep_train_fn,
-                                  train_step)
+from .parallel.train_step import (init_train_state, make_disc_table_eval_fns,
+                                  make_eval_fn, make_gen_bucket_eval_fns,
+                                  make_multistep_train_fn, train_step)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX bench's cache (read only) and the port's own
@@ -256,54 +259,60 @@ def bench_train(cfg: Config, device, steps: int = 16, warmup: int = 3,
 
 def bench_eval(cfg: Config, params, batch: dict, steps: int = 8,
                with_table: bool = True) -> dict:
-    """Ranking-eval throughput of `params` on one device batch: the direct
-    eval (model_scores) and, for disc, the option table over TABLE_ROWS
-    answers then scoring by gather."""
+    """Ranking-eval throughput of `params` on one device batch, through the
+    eval factories as the JAX bench jits them (one CUDA graph a call): the
+    direct eval (make_eval_fn) and, for disc, the option table over
+    TABLE_ROWS answers (make_disc_table_eval_fns' table_fn) then scoring by
+    gather (its score_fn).  As the JAX bench passes its device params to
+    the jitted functions, the calls pass the factories' own params copy
+    (`.held`, loaded once) and score_fn reads the table where table_fn's
+    graph wrote it (clone=False): a call copies only its batch in."""
     device = batch["ques"].device
     rounds = steps * cfg.batch_size * cfg.num_rounds
     out = {}
-    with torch.inference_mode():
-        _read(model_scores(params, batch, cfg))
+    eval_fn = make_eval_fn(cfg)
+    params = eval_fn.held.load(params)
+    _read(eval_fn(params, batch))
 
-        def window():
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                s = model_scores(params, batch, cfg)
-            _read(s)
-            return rounds / (time.perf_counter() - t0)
-
-        eps = median_rate(window)
-        key = ("eval_100cand_per_sec" if cfg.decoder == "disc"
-               else "gen_eval_100cand_per_sec")
-        log(f"[bench] {cfg.decoder} eval: {eps:.1f} 100-cand evals/s")
-        out[key] = eps
-        out[key + "_per_chip"] = eps
-        if cfg.decoder != "disc" or not with_table:
-            return out
-
-        rng = np.random.default_rng(0)
-        opt_list = rng.integers(1, cfg.vocab_size - 3,
-                                size=(TABLE_ROWS, cfg.max_ans_len))
-        _read(model_option_table(params, torch.from_numpy(opt_list).to(device),
-                                 cfg))
-        _sync(device)
-        k1 = kernel_launches()["lstm_layer"]
+    def window():
         t0 = time.perf_counter()
-        table = model_option_table(params, torch.from_numpy(opt_list).to(device),
-                                   cfg)
-        _read(table)
-        t_table = time.perf_counter() - t0
-        k1 = kernel_launches()["lstm_layer"] - k1
-        _read(model_scores_with_table(params, batch, table, cfg))
+        for _ in range(steps):
+            s = eval_fn(params, batch)
+        _read(s)
+        return rounds / (time.perf_counter() - t0)
 
-        def table_window():
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                s = model_scores_with_table(params, batch, table, cfg)
-            _read(s)
-            return rounds / (time.perf_counter() - t0)
+    eps = median_rate(window)
+    key = ("eval_100cand_per_sec" if cfg.decoder == "disc"
+           else "gen_eval_100cand_per_sec")
+    log(f"[bench] {cfg.decoder} eval: {eps:.1f} 100-cand evals/s")
+    out[key] = eps
+    out[key + "_per_chip"] = eps
+    if cfg.decoder != "disc" or not with_table:
+        return out
 
-        table_eps = median_rate(table_window)
+    rng = np.random.default_rng(0)
+    opt_list = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size - 3, size=(TABLE_ROWS, cfg.max_ans_len))).to(device)
+    table_fn, score_fn = make_disc_table_eval_fns(cfg)
+    params = table_fn.held.load(params)
+    _read(table_fn(params, opt_list, clone=False))       # capture
+    _sync(device)
+    k1 = kernel_launches()["lstm_layer"]
+    t0 = time.perf_counter()
+    table = table_fn(params, opt_list, clone=False)
+    _read(table)
+    t_table = time.perf_counter() - t0
+    k1 = kernel_launches()["lstm_layer"] - k1
+    _read(score_fn(params, table, batch))
+
+    def table_window():
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            s = score_fn(params, table, batch)
+        _read(s)
+        return rounds / (time.perf_counter() - t0)
+
+    table_eps = median_rate(table_window)
     log(f"[bench] disc table eval: {table_eps:.1f} evals/s per batch "
         f"(+{t_table:.2f}s one-time {TABLE_ROWS}-row table, {k1} K1 "
         f"launches)")
@@ -350,16 +359,20 @@ def bench_harness_e2e(cfg: Config, device, decoders=("disc", "gen")) -> dict:
     for decoder in decoders:
         dcfg = cfg.replace(decoder=decoder, vocab_size=vocab.size)
         params = model_init(dcfg, seed=dcfg.seed, device=device)
-        evaluate_split(params, split, vocab, dcfg, device)       # warm
+        fns = (dict(table_fns=make_disc_table_eval_fns(dcfg))
+               if decoder == "disc"
+               else dict(gen_fns=make_gen_bucket_eval_fns(dcfg)))
+        evaluate_split(params, split, vocab, dcfg, device, **fns)  # capture
         e2e = median_rate(lambda: evaluate_split(
-            params, split, vocab, dcfg, device)["evals_per_sec"])
+            params, split, vocab, dcfg, device, **fns)["evals_per_sec"])
         out[f"{decoder}_eval_e2e_per_sec_per_chip"] = e2e
         log(f"[bench] {decoder} eval end-to-end (harness): "
             f"{e2e:.0f} evals/s (median of 3 passes)")
         m2 = evaluate_split(params, split, vocab, dcfg, device,
-                            resident=True)                       # build + warm
+                            resident=True, **fns)                # build + warm
         res = median_rate(lambda: evaluate_split(
-            params, split, vocab, dcfg, device, resident=True)["evals_per_sec"])
+            params, split, vocab, dcfg, device, resident=True,
+            **fns)["evals_per_sec"])
         out[f"{decoder}_eval_resident_per_sec_per_chip"] = res
         out[f"{decoder}_eval_resident_cache_seconds"] = \
             m2["resident_cache_seconds"]

@@ -17,7 +17,9 @@ Weights: --weights vgg16.npz in the JAX layout (models/vgg16.py); one file
 serves both packages.  Convert a torchvision checkpoint with
 `python -c "import torch; from visdial_tpu_torch.models.vgg16 import
 convert_torch_state_dict as c; c(torch.load('vgg16.pth'), 'vgg16.npz')"`.
---dtype float32 (the default, TF32 off) or bfloat16.
+--dtype float32 (the default, TF32 off) or bfloat16.  On the card the
+forward is one CUDA graph a batch (parallel/graph.py), captured once: the
+tail batch is padded to --batch_size.
 
 Usage:
     python -m visdial_tpu_torch.data.prepro_img --split_npz \\
@@ -29,11 +31,13 @@ from __future__ import annotations
 
 import argparse
 import os
+from functools import partial
 
 import numpy as np
 import torch
 
 from ..models import vgg16
+from ..parallel.graph import Graphed
 
 
 def load_and_crop(path: str) -> np.ndarray:
@@ -123,6 +127,9 @@ def main(argv=None) -> dict:
                                                  img_ids[i], index))
 
     bs = args.batch_size
+    # the forward as one CUDA graph over the padded batch, as the JAX CLI
+    # jits vgg16.apply; the params are closed over, not copied a batch
+    forward = Graphed(partial(vgg16.apply, params))
     fc7_out = np.zeros((N, 4096), np.float32)
     pool5_out = np.zeros((N, 7, 7, 512), np.float32) if args.save_pool5 else None
     for s in range(0, N, bs):
@@ -134,7 +141,7 @@ def main(argv=None) -> dict:
         x = torch.from_numpy(batch)
         if device.type == "cuda":
             x = x.pin_memory().to(device, non_blocking=True)
-        feats = vgg16.apply(params, x)
+        feats = forward(x)
         fc7_out[idx] = feats["fc7"][: len(idx)].cpu().numpy()
         if pool5_out is not None:
             pool5_out[idx] = feats["pool5"][: len(idx)].float().cpu().numpy()

@@ -23,6 +23,17 @@ Two ways to feed the device:
     option table) and scores every batch on the device with no host sync,
     then reads the ranks back once.  Over the byte cap it streams.
 
+The scoring goes through parallel/train_step.py's eval factories, as the
+JAX harness's goes through its jitted ones.  On one card a streamed batch
+replays the factories' graphs, then the harness's own rank graphs
+(_RANKED, _COMBINED: the JAX harness's _rank_fn, _cand_rank_fn and
+_combine_fn); the resident eval replays one graph of a batch's whole body
+for every batch (no CUDA graph loops, so it is not one graph over the
+split as JAX's lax.scan is one program).  Either way the graphs read the
+params from the factories' one shared copy, loaded once a call, and disc's
+option table where its graph wrote it.  The factories' eager functions (a
+mesh of more than one rank, impl="plain") run batch by batch.
+
 Either way the scores are ranked on the device, and the ranks of the rounds
 with dialog_valid and round_valid set give MRR / R@1 / R@5 / R@10 / mean
 rank.  With collect_rankings every candidate is ranked on the device too
@@ -42,9 +53,11 @@ rank's shard, passed down as an argument (parallel/mesh.py::VocabShard).
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -53,11 +66,11 @@ from .config import Config
 from .data.dataset import VisDialSplit, Vocabulary
 from .data.loader import EvalLoader
 
-from .models.encoders import encoder_apply
-from .models.model import (_impl, batch_to_device, model_option_table,
-                           model_scores, model_scores_with_table)
-from .parallel.mesh import Mesh, VocabShard, slice_dialogs
-from .parallel.train_step import gen_rows_score
+from .models.model import _impl, batch_to_device
+from .parallel.graph import Graphed, InferenceGraphed, read_in_place
+from .parallel.mesh import Mesh, slice_dialogs
+from .parallel.train_step import (make_disc_table_eval_fns, make_eval_fn,
+                                  make_gen_bucket_eval_fns)
 from .utils.metrics import (candidate_rankings, ranks_from_scores,
                             retrieval_metrics)
 
@@ -237,37 +250,115 @@ class _GenBucketPlan:
         return out
 
 
-def _disc_scorer(params, opt_list, cfg: Config, impl: str,
-                 shard: VocabShard | None):
-    """score(dev) -> (B, R, K) disc scores through the option table, which
-    is built here (it depends on the params)."""
-    table = model_option_table(params, opt_list, cfg, impl=impl, shard=shard)
-    return lambda dev: model_scores_with_table(params, dev, table, cfg,
-                                               impl=impl, shard=shard)
+@functools.lru_cache(maxsize=16)
+def _cached_eval_fn(cfg: Config, mesh: Mesh | None, impl: str | None):
+    """One make_eval_fn per (cfg, mesh, impl), as the JAX harness's
+    _cached_* factories: repeated evaluate_split calls without explicit
+    functions (finetune's NDCG, the evaluate CLI, sweeps) replay their
+    graphs instead of capturing anew."""
+    return make_eval_fn(cfg, mesh, impl)
 
 
-def _gen_scorer(params, opt_list, opt_len, widths: list, vocab: Vocabulary,
-                cfg: Config, impl: str, shard: VocabShard | None):
-    """score(dev) -> (B, R, K) gen scores: the encoder, every active
-    bucket's rows scored at its width (the batch's rows{i} / ridx{i} /
-    scat{i}) and scattered into a (B*R*K + 1,) buffer whose last slot takes
-    the padded rows."""
-    R, K = cfg.num_rounds, cfg.num_options
+@functools.lru_cache(maxsize=16)
+def _cached_disc_table_fns(cfg: Config, mesh: Mesh | None, impl: str | None):
+    return make_disc_table_eval_fns(cfg, mesh, impl)
 
-    def score(dev):
-        joint = encoder_apply(params["encoder"], params["embed"], dev, cfg,
-                              impl=impl, shard=shard)             # (N, H)
-        B = dev["gt_ind"].shape[0]
-        brk = B * R * K
-        flat = torch.zeros(brk + 1, dtype=torch.float32, device=joint.device)
-        for i, width in enumerate(widths):
-            flat[dev[f"scat{i}"]] = gen_rows_score(
-                params, joint, opt_list, opt_len, dev[f"rows{i}"],
-                dev[f"ridx{i}"], width, vocab.start, vocab.end, cfg,
-                impl=impl, shard=shard).float()
-        return flat[:brk].reshape(B, R, K)
 
-    return score
+@functools.lru_cache(maxsize=16)
+def _cached_gen_bucket_fns(cfg: Config, mesh: Mesh | None, impl: str | None):
+    return make_gen_bucket_eval_fns(cfg, mesh, impl)
+
+
+def _graphed(fns: tuple) -> bool:
+    """Whether the factories' functions are graphs that share a params copy
+    (InferenceGraphed with a Held); else (a mesh of more than one rank,
+    impl="plain", a caller's own functions) every piece of a batch runs
+    eagerly."""
+    return all(isinstance(f, Graphed) and f.held is not None for f in fns)
+
+
+def _ranked(scores, gt_ind, ties: str, collect_rankings: bool) -> tuple:
+    """One batch's outputs: its ranks and, with collect_rankings, every
+    candidate's ranking (the JAX harness's _rank_fn and _cand_rank_fn)."""
+    ranks = ranks_from_scores(scores, gt_ind, ties)
+    if collect_rankings:
+        return ranks, candidate_rankings(scores)
+    return (ranks,)
+
+
+def _combined(rows: list, scats: list, gt_ind, K: int, ties: str,
+              collect_rankings: bool) -> tuple:
+    """The gen buckets' row scores scattered into one batch's (B, R, K)
+    scores (a (B*R*K + 1,) buffer whose last slot takes the padded rows),
+    then _ranked (the JAX harness's _combine_fn, then its rank functions)."""
+    B, R = gt_ind.shape
+    brk = B * R * K
+    flat = torch.zeros(brk + 1, dtype=torch.float32, device=gt_ind.device)
+    for scat, row in zip(scats, rows):
+        flat[scat] = row.float()
+    return _ranked(flat[:brk].reshape(B, R, K), gt_ind, ties, collect_rankings)
+
+
+# the harness's own jitted helpers, as the JAX harness's module-level
+# _rank_fn / _cand_rank_fn / _combine_fn: one graph a signature each
+_RANKED = InferenceGraphed(_ranked)
+_COMBINED = InferenceGraphed(_combined)
+
+
+def _batch_outputs(path: str, fns: tuple, p, table, tables, dev: dict,
+                   widths: list, vocab: Vocabulary, K: int, ties: str,
+                   collect_rankings: bool, graphed: bool) -> tuple:
+    """One batch's _ranked outputs from its device tensors `dev` through
+    the factories' functions, with the params `p` (and the option tables):
+
+      direct   fns (eval_fn,): model_scores of the batch's option tokens;
+      table    fns (table_fn, score_fn): the encoder and a gather from
+               `table`, the (M, H) option table;
+      buckets  fns (encoder_fn, row_score_fn): the encoder, every active
+               bucket's rows scored at its width (the batch's rows{i} /
+               ridx{i} / scat{i}, the <START>/<END> rows built from
+               tables["opt_list"] / tables["opt_len"]), then _combined.
+
+    graphed: fns are the factories' graphs, replayed one by one, and the
+    ranks (and the gen scatter) the harness's _RANKED / _COMBINED graphs;
+    else every piece runs eagerly (the eager functions, or the factories'
+    bodies inside the resident eval's batch graph)."""
+    rank = _RANKED if graphed else _ranked
+    gt = dev["gt_ind"]
+    if path == "direct":
+        return rank(fns[0](p, dev), gt, ties, collect_rankings)
+    if path == "table":
+        return rank(fns[1](p, table, dev), gt, ties, collect_rankings)
+    encoder_fn, row_fn = fns
+    joint = encoder_fn(p, {k: dev[k] for k in _ENCODER_KEYS if k in dev},
+                       **({"clone": False} if graphed else {}))
+    rows = [row_fn(p, joint, tables["opt_list"], tables["opt_len"],
+                   dev[f"rows{i}"], dev[f"ridx{i}"], width, vocab.start,
+                   vocab.end) for i, width in enumerate(widths)]
+    scats = [dev[f"scat{i}"] for i in range(len(widths))]
+    return (_COMBINED if graphed else _combined)(rows, scats, gt, K, ties,
+                                                 collect_rankings)
+
+
+def _params(fns: tuple, params):
+    """The params the factories' functions read: with graphs, their shared
+    device copy (Held), loaded here once a call so that no batch copies
+    them again; else the params as given."""
+    return fns[0].held.load(params) if _graphed(fns) else params
+
+
+def _device_tables(data: VisDialSplit, cfg: Config, device) -> dict:
+    """The split's params-free option tables on the device (opt_list, and
+    for gen opt_len), uploaded once and kept on the split object; the
+    graphs read them in place (graph.py::read_in_place), so a graph
+    captured over one split's tables never copies or overwrites them, and
+    another split's capture their own."""
+    cache = data.__dict__.setdefault("_torch_device_tables", {})
+    key = (cfg.decoder, str(device))
+    if key not in cache:
+        cache[key] = read_in_place(batch_to_device(_option_tables(data, cfg),
+                                                   device))
+    return cache[key]
 
 
 def _batch_arrays(batch, keys: tuple, plan: _GenBucketPlan | None,
@@ -320,6 +411,12 @@ def _float32(cfg: Config) -> Config:
     return cfg.replace(compute_dtype="float32")
 
 
+class _ResidentGraph(NamedTuple):
+    graph: InferenceGraphed
+    outs: tuple                   # (nb, bs, R) ranks [, (nb, bs, R, K)]
+    index: torch.Tensor           # (nb,): batch i's index, a 0-dim view each
+
+
 class _ResidentEvalBase:
     """The split's eval batches resident on the device
     (eval_harness.py::_ResidentEvalBase): assembled once into (nb, bs, ...)
@@ -329,10 +426,21 @@ class _ResidentEvalBase:
     rankings dump.  `run` scores every batch on the device with no host
     sync: ranks go into one preallocated (nb, bs, R) device tensor (and the
     (nb, bs, R, K) candidate rankings with collect_rankings), read back
-    once.  Subclasses give the batch keys, the bucket plan and the
-    scorer."""
+    once.
+
+    With graphed factories (the JAX resident eval's one-dispatch lax.scan)
+    one batch's body is one CUDA graph, captured once per variant
+    (collect_rankings, the factories): it takes the batch index as a 0-dim
+    device tensor, gathers that batch from the stacks in place (no copy of
+    them), scores it and writes its outputs into the preallocated buffers;
+    `run` replays it nb times with no sync between, then reads back once.
+    The body reads the params from the factories' shared copy (loaded once
+    a run) and disc's option table where the table graph wrote it, in the
+    table graph's memory pool.  Subclasses give the batch keys, the bucket
+    plan and the scoring path."""
 
     extra_keys: tuple = ()
+    path = ""
 
     @classmethod
     def cached(cls, data, vocab, cfg, batch_size, ties, max_bytes, device,
@@ -352,7 +460,6 @@ class _ResidentEvalBase:
         self.vocab, self.cfg, self.ties = vocab, cfg, ties
         self.device = torch.device(device)
         self.mesh, self.sl = mesh, _data_slice(mesh, batch_size)
-        self.shard = None if mesh is None else mesh.vocab_shard(cfg.vocab_size)
         self.plan = self._plan(data, batch_size)
         loader = EvalLoader(data, vocab, _float32(cfg), batch_size=batch_size,
                             option_tokens=False)
@@ -374,56 +481,113 @@ class _ResidentEvalBase:
         if not self.ok:
             return
         self.stacks = {k: v.to(self.device) for k, v in stacks.items()}
-        self.tables = {k: v.to(self.device) for k, v in tables.items()}
+        self.tables = _device_tables(data, cfg, self.device)
         if self.device.type == "cuda":   # the upload counts as build time
             torch.cuda.synchronize(self.device)
         self.build_seconds = time.time() - t0
         # runs per (impl, collect_rankings): the first of each pays the
-        # kernel build and first launches, and is tagged cold_compile
+        # kernel build and first launches (graphed: the warm-up and the
+        # capture), and is tagged cold_compile
         self.runs: dict = {}
+        self.graphs: dict = {}       # (collect_rankings, fns) -> _ResidentGraph
 
     def _plan(self, data, batch_size):
         return None
 
-    def _scorer(self, params, impl: str):
-        raise NotImplementedError
-
-    def run(self, params, impl: str, collect_rankings: bool):
+    def run(self, params, fns: tuple, collect_rankings: bool):
         """(ranks (nb, bs, R), candidate rankings (nb, bs, R, K) or None) as
         numpy arrays; over a data axis each rank scores its slices, then one
         gather and one readback."""
-        score = self._scorer(params, impl)
-        nb = len(self.keep)
-        ranks = cand = None
-        for i in range(nb):
-            dev = {k: v[i] for k, v in self.stacks.items()}
-            scores = score(dev)
-            r = ranks_from_scores(scores, dev["gt_ind"], self.ties)
-            if ranks is None:
-                ranks = r.new_empty((nb, *r.shape))
-            ranks[i] = r
-            if collect_rankings:
-                c = candidate_rankings(scores)
-                if cand is None:
-                    cand = c.new_empty((nb, *c.shape))
-                cand[i] = c
+        graphed = _graphed(fns)
+        p = _params(fns, params)
+        table = None
+        if self.path == "table":
+            table = fns[0](p, self.tables["opt_list"],
+                           **({"clone": False} if graphed else {}))
+        if graphed:
+            ranks, cand = self._replay(p, table, fns, collect_rankings)
+        else:
+            ranks, cand = self._loop(p, table, fns, collect_rankings)
         if self.sl is not None:
             ranks = _gather_stacked(ranks, self.mesh)
             cand = _gather_stacked(cand, self.mesh) if collect_rankings else None
         return (ranks.cpu().numpy(),
                 cand.cpu().numpy() if collect_rankings else None)
 
+    def _loop(self, p, table, fns, collect_rankings):
+        """The eager functions, batch by batch from Python."""
+        nb = len(self.keep)
+        ranks = cand = None
+        for i in range(nb):
+            got = _batch_outputs(
+                self.path, fns, p, table, self.tables,
+                {k: v[i] for k, v in self.stacks.items()}, self._widths(),
+                self.vocab, self.cfg.num_options, self.ties, collect_rankings,
+                graphed=False)
+            if ranks is None:
+                ranks = got[0].new_empty((nb, *got[0].shape))
+            ranks[i] = got[0]
+            if collect_rankings:
+                if cand is None:
+                    cand = got[1].new_empty((nb, *got[1].shape))
+                cand[i] = got[1]
+        return ranks, cand
+
+    def _replay(self, p, table, fns, collect_rankings):
+        """The batch graph replayed nb times (the class docstring)."""
+        key = (collect_rankings, fns)
+        entry = self.graphs.get(key)
+        if entry is None:
+            entry = self.graphs[key] = self._batch_graph(fns, collect_rankings)
+        for i in entry.index:
+            entry.graph(p, i, table)
+        return entry.outs if collect_rankings else (entry.outs[0], None)
+
+    def _batch_graph(self, fns, collect_rankings) -> _ResidentGraph:
+        """One batch's body over the factories' eager functions, as a graph
+        that shares their params copy: the batch at a 0-dim device index
+        gathered from the stacks in place, its outputs written into (nb,
+        ...) buffers allocated here, outside the graph's pool.  The body
+        holds no reference to this object."""
+        gt = self.stacks["gt_ind"]                        # (nb, bs, R)
+        outs = (torch.empty(gt.shape, device=self.device, dtype=(
+            torch.float32 if self.ties == "mean" else torch.int32)),)
+        if collect_rankings:
+            outs += (torch.empty((*gt.shape, self.cfg.num_options),
+                                 dtype=torch.int32, device=self.device),)
+        stacks, tables, widths = self.stacks, self.tables, self._widths()
+        path, vocab, K, ties = self.path, self.vocab, self.cfg.num_options, \
+            self.ties
+        bodies = tuple(f.fn for f in fns)
+
+        def body(p, i, table):
+            at = i.view(1)
+            dev = {k: v.index_select(0, at)[0] for k, v in stacks.items()}
+            got = _batch_outputs(path, bodies, p, table, tables, dev, widths,
+                                 vocab, K, ties, collect_rankings,
+                                 graphed=False)
+            for out, x in zip(outs, got):
+                out.index_copy_(0, at, x[None])
+
+        return _ResidentGraph(InferenceGraphed(body, held=fns[0].held), outs,
+                              torch.arange(len(gt), device=self.device))
+
+    def _widths(self) -> list:
+        return self.plan.active if self.plan is not None else []
+
+    @property
+    def captures(self) -> int:
+        """Batch graphs captured over this cache's life."""
+        return sum(e.graph.captures for e in self.graphs.values())
+
 
 class _ResidentDiscEval(_ResidentEvalBase):
     """Disc: opt_list is uploaded once; each call rebuilds the option table
-    (it depends on the params), then every batch is the encoder, a table
-    gather and the ranks."""
+    (it depends on the params) through table_fn, then every batch is the
+    encoder, a table gather and the ranks."""
 
     extra_keys = ("opt_inds", "gt_ind")
-
-    def _scorer(self, params, impl):
-        return _disc_scorer(params, self.tables["opt_list"], self.cfg, impl,
-                            self.shard)
+    path = "table"
 
 
 class _ResidentGenEval(_ResidentEvalBase):
@@ -432,17 +596,13 @@ class _ResidentGenEval(_ResidentEvalBase):
     call ships nothing to the device."""
 
     extra_keys = ("gt_ind",)
+    path = "buckets"
 
     def _plan(self, data, batch_size):
         return _GenBucketPlan.cached(data, batch_size)
 
-    def _scorer(self, params, impl):
-        return _gen_scorer(params, self.tables["opt_list"],
-                           self.tables["opt_len"], self.plan.active,
-                           self.vocab, self.cfg, impl, self.shard)
 
-
-def _resident_eval(res: _ResidentEvalBase, params, data: VisDialSplit,
+def _resident_eval(res: _ResidentEvalBase, params, fns: tuple, data,
                    cfg: Config, impl: str, return_ranks: bool,
                    collect_rankings: bool):
     """evaluate_split's resident branch; t0 comes before the option table's
@@ -451,7 +611,7 @@ def _resident_eval(res: _ResidentEvalBase, params, data: VisDialSplit,
         torch.cuda.synchronize(res.device)
     t0 = time.time()
     with torch.inference_mode():
-        ranks, cand = res.run(params, impl, collect_rankings)
+        ranks, cand = res.run(params, fns, collect_rankings)
     elapsed = time.time() - t0                  # both readbacks included
     kept = ranks[res.keep]
     metrics = retrieval_metrics(kept)
@@ -472,15 +632,28 @@ def _resident_eval(res: _ResidentEvalBase, params, data: VisDialSplit,
 
 
 def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
-                   device, *, batch_size: int | None = None,
+                   device, *, eval_fn=None, table_fns=None, gen_fns=None,
+                   batch_size: int | None = None,
                    ties: str = "optimistic", impl: str | None = None,
                    return_ranks: bool = False, collect_rankings: bool = False,
                    resident: bool = False, resident_max_bytes: int = 4 << 30,
                    mesh: Mesh | None = None):
     """Score every candidate of every round of `data` and return the
     retrieval metrics plus 'evals_per_sec' (rounds ranked per second) and
-    'eval_seconds'.  gen takes the bucketed path when
-    cfg.gen_eval_bucketed, else the direct one (the same scores).
+    'eval_seconds'.
+
+    The scoring functions are the JAX harness's (eval_harness.py::
+    evaluate_split): disc takes the option-table path through table_fns
+    (make_disc_table_eval_fns), gen with cfg.gen_eval_bucketed the
+    length-bucketed path through gen_fns (make_gen_bucket_eval_fns), else
+    the direct path through eval_fn (make_eval_fn; the same scores).  None
+    uses the factories cached per (cfg, mesh, impl); pass the factories'
+    returns to reuse them across evals, False (or an explicit eval_fn) to
+    force the direct path, which streams.  With graphed factories (one
+    card) each streamed batch replays their graphs and the harness's rank
+    graphs, and the resident eval replays one batch graph nb times
+    (_ResidentEvalBase); eager ones (a mesh of more than one rank,
+    impl="plain", a caller's own functions) run batch by batch.
 
     resident=True keeps the split's batches on the device (cached on the
     split per class, batch size, cfg, ties, byte cap, device and mesh) and
@@ -488,8 +661,8 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
     of each (impl, collect_rankings) variant, 'cold_compile'; its
     evals_per_sec includes the disc option table's build, the streaming
     one excludes it, as in the JAX harness.  It streams when the stacks
-    exceed resident_max_bytes or when gen is unbucketed (no resident_*
-    keys then).
+    exceed resident_max_bytes or on the direct path (no resident_* keys
+    then).
 
     With return_ranks the return is (metrics, ranks): the gt rank of every
     ranked round, in loader order.  With collect_rankings it is (metrics,
@@ -502,51 +675,63 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
     With a mesh every rank must call, with the params it holds (the vocab
     leaves its shard); each returns the same metrics (rank 0's) and the
     whole split's ranks and rankings."""
-    out = _evaluate(params, data, vocab, cfg, device, batch_size, ties, impl,
-                    return_ranks, collect_rankings, resident,
-                    resident_max_bytes, mesh)
+    out = _evaluate(params, data, vocab, cfg, device, eval_fn, table_fns,
+                    gen_fns, batch_size, ties, impl, return_ranks,
+                    collect_rankings, resident, resident_max_bytes, mesh)
     if isinstance(out, tuple):
         return (_rank0_metrics(out[0], mesh), *out[1:])
     return _rank0_metrics(out, mesh)
 
 
-def _evaluate(params, data, vocab, cfg, device, batch_size, ties, impl,
-              return_ranks, collect_rankings, resident, resident_max_bytes,
-              mesh):
+def _evaluate(params, data, vocab, cfg, device, eval_fn, table_fns, gen_fns,
+              batch_size, ties, impl, return_ranks, collect_rankings,
+              resident, resident_max_bytes, mesh):
     device = torch.device(device)
-    impl = impl or _impl(cfg, device)
-    shard = None if mesh is None else mesh.vocab_shard(cfg.vocab_size)
-    direct = cfg.decoder == "gen" and not cfg.gen_eval_bucketed
     bs = batch_size or cfg.batch_size
-    if resident and not direct:
-        cls = _ResidentDiscEval if cfg.decoder == "disc" else _ResidentGenEval
+    # the JAX harness's choice of path: an explicit eval_fn wins, False
+    # forces the direct path
+    if (cfg.decoder == "disc" and table_fns is not False
+            and (table_fns is not None or eval_fn is None)):
+        path, fns = "table", table_fns or _cached_disc_table_fns(cfg, mesh,
+                                                                 impl)
+    elif (cfg.decoder == "gen" and cfg.gen_eval_bucketed
+          and gen_fns is not False
+          and (gen_fns is not None or eval_fn is None)):
+        path, fns = "buckets", gen_fns or _cached_gen_bucket_fns(cfg, mesh,
+                                                                 impl)
+    else:
+        path, fns = "direct", (eval_fn or _cached_eval_fn(cfg, mesh, impl),)
+    if resident and path != "direct" and eval_fn is None:
+        cls = _ResidentDiscEval if path == "table" else _ResidentGenEval
         res = cls.cached(data, vocab, cfg, bs, ties, resident_max_bytes,
                          device, mesh)
         if res.ok:
-            return _resident_eval(res, params, data, cfg, impl, return_ranks,
+            return _resident_eval(res, params, fns, data, cfg,
+                                  impl or _impl(cfg, device), return_ranks,
                                   collect_rankings)
 
     loader = EvalLoader(data, vocab, _float32(cfg), batch_size=bs,
-                        option_tokens=direct)
-    keys = _ENCODER_KEYS + ("gt_ind",)
-    plan = None
+                        option_tokens=path == "direct")
+    keys = _ENCODER_KEYS + ("gt_ind",) + {
+        "table": ("opt_inds",), "buckets": (),
+        "direct": ("opt",) if cfg.decoder == "disc" else ("opt_in", "opt_out"),
+    }[path]
+    plan = _GenBucketPlan.cached(data, bs) if path == "buckets" else None
     K = cfg.num_options
+    graphed = _graphed(fns)
     with torch.inference_mode():
-        if direct:
-            keys += ("opt_in", "opt_out")
-            score = lambda dev: model_scores(params, dev, cfg, impl=impl,  # noqa: E731
-                                             shard=shard)
-        else:
-            tables = batch_to_device(_option_tables(data, cfg), device)
-            if cfg.decoder == "disc":
-                keys += ("opt_inds",)
-                score = _disc_scorer(params, tables["opt_list"], cfg, impl,
-                                     shard)
-            else:
-                plan = _GenBucketPlan.cached(data, bs)
-                score = _gen_scorer(params, tables["opt_list"],
-                                    tables["opt_len"], plan.active, vocab,
-                                    cfg, impl, shard)
+        p = _params(fns, params)
+        tables = (_device_tables(data, cfg, device) if path != "direct"
+                  else None)
+        table = None
+        if path == "table":             # the graph's table is read in place
+            table = fns[0](p, tables["opt_list"],
+                           **({"clone": False} if graphed else {}))
+    widths = plan.active if plan else []
+
+    def step(dev):
+        return _batch_outputs(path, fns, p, table, tables, dev, widths, vocab,
+                              K, ties, collect_rankings, graphed)
     xfer = _Transfer(device)
     sl = _data_slice(mesh, bs)
     all_ranks, held = [], []
@@ -591,11 +776,7 @@ def _evaluate(params, data, vocab, cfg, device, batch_size, ties, impl,
     with torch.inference_mode():
         for bi, ((dev, copied), masks) in enumerate(_staged(loader, stage)):
             xfer.wait(copied)
-            scores = score(dev)
-            outs = [ranks_from_scores(scores, dev["gt_ind"], ties)]
-            if collect_rankings:
-                outs.append(candidate_rankings(scores))
-            fetched = xfer.readback(outs)
+            fetched = xfer.readback(step(dev))
             if pending is not None:
                 n_rounds += read(pending)
             pending = (fetched, masks, bi * bs)

@@ -20,9 +20,11 @@ Usage:
         [--device cuda | --device cpu]
 
 --device cuda (the default) runs the kernels; --device cpu the plain
-versions.  --resident (the default) keeps the split's batches on the device
-and scores them with one readback (eval_harness._ResidentDiscEval /
-_ResidentGenEval; the JSON line gains resident_cache_seconds,
+versions.  The scoring goes through the eval factories the harness caches
+(parallel/train_step.py; on one card one CUDA graph a batch).  --resident
+(the default) keeps the split's batches on the device and scores them with
+one readback (eval_harness._ResidentDiscEval / _ResidentGenEval: one batch
+graph replayed for every batch; the JSON line gains resident_cache_seconds,
 resident_cache_bytes and cold_compile); --no-resident streams them through
 the staging thread.  Under torchrun, --mesh_data / --mesh_model lay the
 processes out as the train CLI does (parallel/mesh.py): each data rank

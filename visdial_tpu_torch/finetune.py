@@ -9,7 +9,8 @@ models/model.py::model_dense_loss, each step one CUDA graph on one card
 --learning_rate without decay; the optimizer state is fresh and the
 dropout generator is seeded from --seed.  Progress is JSONL: `ndcg` on the
 annotated rounds at step 0, every --eval_every steps and at the end (the
-resident eval's candidate rankings), `finetune` per step (read back every
+resident eval's candidate rankings, through the harness's cached eval
+factories: one batch graph on one card), `finetune` per step (read back every
 --log_every steps), then `checkpoint`.
 
 Usage:

@@ -4,7 +4,8 @@ visdial_tpu/generate.py).
 Loads a gen-decoder checkpoint of either package, decodes an answer for
 every round of the first --num_dialogs dialogs of a split through
 models/model.py::model_generate (greedy; --sample --temperature, drawn from
-a torch.Generator on the device seeded with --seed; or --beam_size),
+a torch.Generator on the device seeded with --seed; or --beam_size), one
+CUDA graph a batch shape on one card (parallel/graph.py),
 detokenizes with the vocabulary and writes the JSON that `vis/index.html`
 renders: {"model", "split", "dialogs": [{"image_id", "caption", "rounds":
 [{"question", "gt_answer", "generated", "log_prob"}, ...]}, ...]}.
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from functools import partial
 
 import torch
 
@@ -42,9 +44,19 @@ from .data.dataset import load_split
 from .data.loader import EvalLoader
 from .data.synthetic import make_synthetic_split
 from .models.model import batch_to_device, model_generate
+from .parallel.graph import InferenceGraphed
 from .parallel.mesh import (add_mesh_args, broadcast_tree, make_mesh,
                             slice_dialogs)
 from .utils.checkpoint import load_checkpoint
+
+
+def _decode(params, cfg, batch, start_token, end_token, greedy, temperature,
+            beam_size, gen):
+    """model_generate with every argument positional: the static ones are
+    leaves of the graph's signature."""
+    return model_generate(params, batch, cfg, start_token=start_token,
+                          end_token=end_token, greedy=greedy, gen=gen,
+                          temperature=temperature, beam_size=beam_size)
 
 
 def main(argv=None) -> list:
@@ -91,18 +103,25 @@ def main(argv=None) -> list:
     gen = (torch.Generator(device=device).manual_seed(args.seed + mesh.d)
            if args.sample else None)
     sl = mesh.dialog_slice(bs)
+    # the decode, as JAX's jitted model_generate: one CUDA graph a batch
+    # signature, over the params it closes over; the sampling generator is
+    # registered with it, so a replay draws from its state and advances it
+    # as an eager call does.  Eager on a mesh of more than one rank.
+    body = partial(_decode, params, cfg)
+    if mesh.world > 1:
+        decode = torch.inference_mode()(body)
+    else:
+        decode = partial(InferenceGraphed(body),
+                         generators=[gen] if gen is not None else [])
     loader = EvalLoader(data, vocab, cfg, batch_size=bs, option_tokens=False)
     records = []
     for batch_idx, batch in enumerate(loader):
         arrays = batch.as_dict()
         if sl is not None:
             arrays = slice_dialogs(arrays, *sl)
-        with torch.inference_mode():
-            toks, logp = model_generate(
-                params, batch_to_device(arrays, device), cfg,
-                start_token=vocab.start, end_token=vocab.end,
-                greedy=not args.sample, gen=gen, temperature=args.temperature,
-                beam_size=args.beam_size)
+        toks, logp = decode(batch_to_device(arrays, device), vocab.start,
+                            vocab.end, not args.sample, args.temperature,
+                            args.beam_size, gen)
         if sl is not None:      # the ranks' dialogs back in batch order
             toks, logp = (mesh.gather_data(t).flatten(0, 1) for t in (toks, logp))
         toks, logp = toks.cpu().numpy(), logp.cpu().numpy()

@@ -202,7 +202,12 @@ def gen_decode(params, embed_params, joint, cfg: Config, *, start_token: int,
             nxt = logits.argmax(dim=-1)
         else:
             probs = torch.softmax(logits / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            # torch.multinomial(probs, 1)'s draw, as its one-sample path
+            # takes it (one exponential a class, the argmax of probs / e),
+            # without its check of probs on the host, which a CUDA graph's
+            # capture refuses
+            e = torch.empty_like(probs).exponential_(1, generator=gen)
+            nxt = (probs / e).argmax(dim=-1)
         tok_lp = logp.gather(1, nxt[:, None])[:, 0]
         # emitting <END> or pad (0, never a training target) ends the row
         stop = (nxt == end_token) | (nxt == 0)

@@ -24,6 +24,11 @@ package's compiled dispatch: on one card each call is one CUDA graph
 (parallel/graph.py), G steps of multistep included, as jax.jit of the step
 or of its lax.scan is one device program there.  train_step and
 multi_train_step stay eager; they are the reference the graphs are held to.
+The eval factories (make_eval_fn, make_disc_table_eval_fns,
+make_gen_bucket_eval_fns) are the same for scoring: each function they
+return is one CUDA graph a signature under inference mode
+(graph.py::InferenceGraphed), its `.fn` the eager function, and a
+factory's functions share one device copy of the params (`.held`).
 """
 
 from __future__ import annotations
@@ -37,9 +42,12 @@ from ..config import Config
 
 from ..models.core import StepGenerators, split_seeds
 from ..models.decoders import gen_score_rows
-from ..models.model import model_dense_loss, model_init, model_loss
+from ..models.encoders import encoder_apply
+from ..models.model import (_impl, model_dense_loss, model_init, model_loss,
+                            model_option_table, model_scores,
+                            model_scores_with_table)
 from ..utils.params import flatten, unflatten
-from .graph import Graphed
+from .graph import Graphed, Held, InferenceGraphed, copy_into
 from .mesh import (Mesh, all_reduce_grads, broadcast_tree, gather_tree,
                    param_layouts, shard_tree, sum_sharded_squares)
 from .optim import (OptState, apply_updates, init_opt_state, lr_at_step,
@@ -189,11 +197,7 @@ class _TrainSteps:
                 scales=(scalars[g, 1], scalars[g, 2]))
             losses.append(loss)
             gnorms.append(gnorm)
-        for dst, src in zip(self.buffers, (params, opt.m, opt.v)):
-            dst, src = flatten(dst), flatten(src)
-            for k, t in dst.items():
-                if src[k] is not t:
-                    t.copy_(src[k])
+        copy_into(self.buffers, (params, opt.m, opt.v))
         return torch.stack(losses), torch.stack(gnorms)
 
 
@@ -254,16 +258,8 @@ class GraphedTrainStep:
         trees = (state.params, state.opt.m, state.opt.v)
         if self.steps.buffers is None:
             self.steps.buffers = trees
-            return
-        for mine, theirs in zip(self.steps.buffers, trees):
-            dst, src = flatten(mine), flatten(theirs)
-            if dst.keys() != src.keys() or any(
-                    dst[k].shape != src[k].shape for k in dst):
-                raise ValueError("the state does not fit the graphed step's: "
-                                 "another model or optimizer")
-            for k, t in src.items():
-                if t is not dst[k]:
-                    dst[k].copy_(t)
+        else:
+            copy_into(self.steps.buffers, trees)
 
 
 def _factory(cfg: Config, mesh: Mesh | None, impl, loss_fn, stacked: bool):
@@ -298,6 +294,90 @@ def make_dense_train_fn(cfg: Config, mesh: Mesh | None = None,
     (train_step.py::make_dense_train_fn, models/model.py::
     model_dense_loss)."""
     return _factory(cfg, mesh, impl, model_dense_loss, stacked=False)
+
+
+def _eval_graphs(mesh: Mesh | None, impl: str | None, *fns) -> tuple:
+    """Each fn as one CUDA graph a signature (InferenceGraphed), all of them
+    reading the params from one shared device copy (graph.py::Held, their
+    `.held`: loaded on each call unless the params passed are those
+    buffers); or, where the caller chose the eager path up front, each fn
+    itself under inference mode: on a mesh of more than one rank (a vocab
+    shard's scoring all-reduces, and graphs over NCCL are not captured) and
+    with impl="plain" (the kernels' reference)."""
+    if (mesh is not None and mesh.world > 1) or impl == "plain":
+        return tuple(torch.inference_mode()(fn) for fn in fns)
+    held = Held()
+    return tuple(InferenceGraphed(fn, held=held) for fn in fns)
+
+
+def _shard(cfg: Config, mesh: Mesh | None):
+    return None if mesh is None else mesh.vocab_shard(cfg.vocab_size)
+
+
+def make_eval_fn(cfg: Config, mesh: Mesh | None = None,
+                 impl: str | None = None):
+    """model_scores as one CUDA graph a batch signature
+    (train_step.py::make_eval_fn): score(params, batch) -> (B, R, K).  The
+    params are graph arguments, copied into the graph's buffers on each
+    call unless they are those buffers (`score.held.tree`).  On a mesh
+    (this rank's vocab shard) and with impl="plain" it is the eager
+    function (_eval_graphs)."""
+    shard = _shard(cfg, mesh)
+
+    def score(params, batch):
+        return model_scores(params, batch, cfg, impl=impl, shard=shard)
+
+    return _eval_graphs(mesh, impl, score)[0]
+
+
+def make_disc_table_eval_fns(cfg: Config, mesh: Mesh | None = None,
+                             impl: str | None = None):
+    """The disc eval's table path (train_step.py::make_disc_table_eval_fns):
+    (table_fn, score_fn), table_fn(params, opt_list) -> (M, H) the
+    deduplicated option list embedded once (model_option_table),
+    score_fn(params, table, batch) -> (B, R, K) the encoder and a table
+    gather (model_scores_with_table); each one CUDA graph a signature, as
+    make_eval_fn, the two sharing one params copy.  score_fn over the table
+    table_fn returns with clone=False reads it in place, in the table
+    graph's memory pool (graph.py)."""
+    shard = _shard(cfg, mesh)
+
+    def table(params, opt_list):
+        return model_option_table(params, opt_list, cfg, impl=impl,
+                                  shard=shard)
+
+    def score(params, table, batch):
+        return model_scores_with_table(params, batch, table, cfg, impl=impl,
+                                       shard=shard)
+
+    return _eval_graphs(mesh, impl, table, score)
+
+
+def make_gen_bucket_eval_fns(cfg: Config, mesh: Mesh | None = None,
+                             impl: str | None = None):
+    """The gen eval's length-bucketed path
+    (train_step.py::make_gen_bucket_eval_fns): (encoder_fn, row_score_fn),
+    encoder_fn(params, batch) -> (N, H) and row_score_fn(params, joint,
+    opt_list, opt_list_len, opt_rows, row_idx, width, start_token,
+    end_token) -> (C,) (gen_rows_score; width and the two tokens are
+    static, part of the signature, as JAX's static_argnums=(6, 7, 8)); each
+    one CUDA graph a signature, as make_disc_table_eval_fns: row_score_fn
+    over the joint encoder_fn returns with clone=False reads it in place."""
+    shard = _shard(cfg, mesh)
+
+    def encode(params, batch):
+        return encoder_apply(params["encoder"], params["embed"], batch, cfg,
+                             impl=impl or _impl(cfg, batch["ques"].device),
+                             shard=shard)
+
+    def score(params, joint, opt_list, opt_list_len, opt_rows, row_idx,
+              width, start_token, end_token):
+        return gen_rows_score(params, joint, opt_list, opt_list_len, opt_rows,
+                              row_idx, width, start_token, end_token, cfg,
+                              impl=impl or _impl(cfg, joint.device),
+                              shard=shard)
+
+    return _eval_graphs(mesh, impl, encode, score)
 
 
 def gen_rows_score(params, joint, opt_list, opt_list_len, opt_rows, row_idx,

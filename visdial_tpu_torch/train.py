@@ -28,7 +28,9 @@ encoder (with or without img_spatial) trains with either decoder.
 The steps go through parallel/train_step.py's factories, as the JAX CLI's
 go through its jitted ones: on one card each call is one CUDA graph
 (make_train_fn, and make_multistep_train_fn for --steps_per_dispatch > 1),
-captured once for the run's batch shape.  --debug_nans runs the eager steps
+captured once for the run's batch shape, and its periodic evals through
+the eval factories (make_disc_table_eval_fns, make_gen_bucket_eval_fns or
+make_eval_fn), built once beside them.  --debug_nans runs the eager steps
 (train_step, multi_train_step): anomaly detection reads every backward
 output on the host, which a graph cannot.
 """
@@ -54,6 +56,8 @@ from .eval_harness import evaluate_split
 from .models.model import batch_to_device
 from .parallel.mesh import make_mesh
 from .parallel.train_step import (gather_train_state, init_train_state,
+                                  make_disc_table_eval_fns, make_eval_fn,
+                                  make_gen_bucket_eval_fns,
                                   make_multistep_train_fn, make_train_fn,
                                   multi_train_step, shard_train_state,
                                   train_step)
@@ -181,6 +185,15 @@ def main(argv=None) -> dict:
     else:
         train_fn = make_train_fn(cfg, mesh)
         multi_fn = make_multistep_train_fn(cfg, mesh) if group > 1 else None
+    # each decoder's eval path, built once and reused across evals: disc
+    # the option table, gen the length buckets (or the direct path)
+    eval_fn = table_fns = gen_fns = None
+    if cfg.decoder == "disc":
+        table_fns = make_disc_table_eval_fns(cfg, mesh)
+    elif cfg.gen_eval_bucketed:
+        gen_fns = make_gen_bucket_eval_fns(cfg, mesh)
+    else:
+        eval_fn, table_fns, gen_fns = make_eval_fn(cfg, mesh), False, False
 
     step = state.opt.step
     t_last, s_last = time.time(), step
@@ -285,7 +298,9 @@ def main(argv=None) -> dict:
             if crossed(eval_every, prev) or step >= max_steps:
                 flush_losses()
                 metrics = evaluate_split(state.params, val_data, vocab, cfg,
-                                         device, resident=args.eval_resident,
+                                         device, eval_fn=eval_fn,
+                                         table_fns=table_fns, gen_fns=gen_fns,
+                                         resident=args.eval_resident,
                                          resident_max_bytes=2 << 30, mesh=mesh)
                 last_eval = metrics
                 log.log({"event": "eval", "step": step, **metrics})
