@@ -52,8 +52,14 @@ as CUDA graphs (make_multistep_train_fn) against the eager multi_train_step
 at the bench's points, bit for bit, serving through the engine's graphs
 against their eager bodies, the eval factories, evaluate_split streaming
 and resident, generate's decode and VGG-16's forward graphed against
-their eager functions, with both paths' rates, latencies and memory.
-Last the bench (visdial_tpu_torch.bench.bench_port at its default
+their eager functions, with both paths' rates, latencies and memory; and
+the same dispatch over a mesh in a world-1 NCCL group (the collectives
+captured in the graphs): the train factories at those points in bf16 and
+f32 with remat off and on, the dense factory, a disc batch without
+round_valid, remat's memory at LF's 256-step history, the evals, the
+generate CLI and the train CLI with --remat true, each against the eager
+mesh path bit for bit (with two cards (2, 1) and (1, 2) NCCL ranks, with
+four (2, 2)).  Last the bench (visdial_tpu_torch.bench.bench_port at its default
 flagship configuration, the Torch-CPU baseline left out): its
 line's keys the JAX bench's plus the port's, every rate finite and
 positive, both MFUs in (0, 1] and every kernel launched by its rows.  Each
@@ -71,6 +77,7 @@ once.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import math
 import os
@@ -319,6 +326,11 @@ GRAPH_SERVE_ROUNDS = 4
 GRAPH_EVAL_REPS, GRAPH_TABLE_BATCHES, GRAPH_VGG_REPS = 4, 8, 2
 GRAPH_SAMPLE_SEED = 5
 GRAPH_PEAK_RATIO = 1.3
+# mesh_graphs: steps a dispatch and timed dispatches a turn of its train
+# points, make_train_fn's calls a check, and the multi-card evals' dialogs
+# and answers
+MESH_GROUP, MESH_DISPATCHES, MESH_CALLS = 4, 1, 3
+MESH_EVAL_DIALOGS, MESH_EVAL_ANSWERS = 128, 20_000
 REQUESTS = [
     ("is it sunny ?", "a park photo", []),
     ("what color is it ?", "w101 w202 w303", [("is there a dog ?", "yes")]),
@@ -2660,94 +2672,103 @@ def _timed_dispatches(fn, state, stack, n: int):
     return state, ms, time.perf_counter() - t0
 
 
-def graph_train_point(dev, decoder: str, batch_size: int, dtype: str) -> dict:
+def graph_train_point(dev, decoder: str, batch_size: int, dtype: str,
+                      mesh=None, remat: bool = False,
+                      group: int | None = None,
+                      dispatches: int = GRAPH_DISPATCHES) -> dict:
     """One bench point (bench.flagship_config: dropout 0.5, full-length
-    random batches, 8 steps a dispatch) trained eagerly (multi_train_step)
-    and through make_multistep_train_fn's graph from one init, in turns
-    (eager, graph, graph, eager; GRAPH_DISPATCHES dispatches a window after
-    a first dispatch each): every dispatch's losses, grad norms and lr, the
-    params, moments and CPU generator at the end bit for bit; one capture;
-    a replay's launches equal an eager dispatch's; rounds/s a path (the
-    mean of its two windows) and peak memory a path (both states resident)."""
+    random batches, `group` steps a dispatch, by default the bench's
+    TRAIN_DISPATCH_GROUP) trained eagerly
+    (multi_train_step, over `mesh` when one is given) and through
+    make_multistep_train_fn's graph (over the same mesh) from one init, in
+    turns (eager, graph, graph, eager; `dispatches` dispatches a turn after
+    a first dispatch each): every dispatch's losses, grad norms, lr and
+    step, the params, moments and CPU generator at the end bit for bit;
+    one capture; a dispatch's kernel launches and collectives equal on both
+    paths (over a mesh, at least one collective); rounds/s a path (the
+    mean of its two turns) and peak memory a path (both states resident).
+    Over a mesh, `batch_size` dialogs a rank, each data rank on batches
+    of its own."""
     from visdial_tpu_torch.bench import TRAIN_DISPATCH_GROUP, flagship_config
     from visdial_tpu_torch.data.synthetic import random_batch
     from visdial_tpu_torch.models.model import batch_to_device
     from visdial_tpu_torch.parallel.train_step import (init_train_state,
                                                        make_multistep_train_fn,
-                                                       multi_train_step)
-    from visdial_tpu_torch.utils.params import flatten
+                                                       multi_train_step,
+                                                       shard_train_state)
 
+    group = group or TRAIN_DISPATCH_GROUP
     cfg = flagship_config(decoder=decoder, batch_size=batch_size,
-                          compute_dtype=dtype)
-    host = [random_batch(cfg, seed=s) for s in range(TRAIN_DISPATCH_GROUP)]
+                          compute_dtype=dtype).replace(remat=remat)
+    d = mesh.d if mesh is not None else 0
+    host = [random_batch(cfg, seed=100 * d + s) for s in range(group)]
     stack = batch_to_device({k: np.stack([b[k] for b in host])
                              for k in host[0]}, dev)
-    eager_fn = partial(multi_train_step, cfg=cfg)
-    graph_fn = make_multistep_train_fn(cfg)
-    states = {"eager": init_train_state(cfg, device=dev, seed=0),
-              "graph": init_train_state(cfg, device=dev, seed=0)}
-    fns = {"eager": eager_fn, "graph": graph_fn}
+    graph_fn = make_multistep_train_fn(cfg, mesh)
+    fns = {"eager": partial(multi_train_step, cfg=cfg, mesh=mesh),
+           "graph": graph_fn}
+    states = {}
+    for path in fns:
+        states[path] = init_train_state(cfg, device=dev, seed=0)
+        if mesh is not None:
+            states[path] = shard_train_state(states[path], cfg, mesh)
     metrics = {"eager": [], "graph": []}
     seconds = {"eager": 0.0, "graph": 0.0}
-    peak, launches = {}, {}
-    for path in ("eager", "graph"):
+    peak, counts = {}, {}
+    for path in fns:
         torch.cuda.reset_peak_memory_stats(dev)
-        reset_launches()
+        reset_counts()
         states[path], ms, first_s = _timed_dispatches(fns[path], states[path],
                                                       stack, 1)
         metrics[path] += ms
-        launches[path] = kernel_launches()
+        counts[path] = mesh_counts()
         peak[path] = torch.cuda.max_memory_allocated(dev)
         seconds[f"{path}_first"] = first_s
+    what = (f"{decoder} batch {batch_size} {dtype}" + (" remat" if remat
+                                                        else ""))
+    if mesh is not None:
+        what = f"mesh {mesh.data}x{mesh.model} {what}"
     for path in ("eager", "graph", "graph", "eager"):
         torch.cuda.reset_peak_memory_stats(dev)
-        reset_launches()
+        reset_counts()
         states[path], ms, sec = _timed_dispatches(fns[path], states[path],
-                                                  stack, GRAPH_DISPATCHES)
+                                                  stack, dispatches)
         seconds[path] += sec
         metrics[path] += ms
         peak[path] = max(peak[path], torch.cuda.max_memory_allocated(dev))
-        per = {k: n // GRAPH_DISPATCHES for k, n in kernel_launches().items()}
-        check(per == launches[path], f"graphs {decoder} {dtype}: {path} "
-              f"launches a dispatch {per} against the first's {launches[path]}")
-    what = f"graphs {decoder} batch {batch_size} {dtype}"
+        per = {k: n // dispatches for k, n in mesh_counts().items()}
+        check(per == counts[path], f"{what}: {path} counts a dispatch {per} "
+              f"against the first's {counts[path]}")
     check(graph_fn.captures == 1, f"{what}: {graph_fn.captures} captures")
-    check(launches["graph"] == launches["eager"],
-          f"{what}: graph launches {launches['graph']} against eager "
-          f"{launches['eager']}")
-    check_launches(launches["graph"], cfg, True, what)
+    check(counts["graph"] == counts["eager"], f"{what}: graph counts "
+          f"{counts['graph']} against eager {counts['eager']}")
+    check(mesh is None or counts["graph"]["collectives"] > 0,
+          f"{what}: no collective issued")
+    check_launches(counts["graph"], cfg, True, what)
     for me, mg in zip(metrics["eager"], metrics["graph"]):
         for k in ("loss", "grad_norm", "lr", "step"):
             check(torch.equal(me[k], mg[k]), f"{what}: {k} {mg[k].tolist()} "
                   f"against eager {me[k].tolist()}")
-    e, g = states["eager"], states["graph"]
-    for name, a, b in (("params", e.params, g.params), ("m", e.opt.m, g.opt.m),
-                       ("v", e.opt.v, g.opt.v)):
-        fa, fb = flatten(a), flatten(b)
-        bad = [k for k in fa if not torch.equal(fa[k], fb[k])]
-        check(not bad, f"{what}: {name} differ from eager's at {bad[:5]}")
-    check(torch.equal(e.gen.get_state(), g.gen.get_state()),
-          f"{what}: the CPU generators differ")
+    _states_equal(states["eager"], states["graph"], what)
     check(all(math.isfinite(x) for m in metrics["graph"]
               for x in m["loss"].tolist()), f"{what}: non-finite losses")
-    rounds = 2 * GRAPH_DISPATCHES * TRAIN_DISPATCH_GROUP * batch_size * \
-        cfg.num_rounds
-    row = {"decoder": decoder, "batch_dialogs": batch_size, "dtype": dtype,
-           "dropout": cfg.dropout, "steps_a_dispatch": TRAIN_DISPATCH_GROUP,
-           "dispatches_timed": 2 * GRAPH_DISPATCHES,
-           "captures": graph_fn.captures,
-           "launches_a_replay": launches["graph"],
+    rounds = 2 * dispatches * group * batch_size * cfg.num_rounds
+    row = {"point": what, "decoder": decoder, "batch_dialogs": batch_size,
+           "dtype": dtype, "remat": remat, "dropout": cfg.dropout,
+           "steps_a_dispatch": group, "dispatches_timed": 2 * dispatches,
+           "captures": graph_fn.captures, "counts_a_dispatch": counts["graph"],
            "loss_last": metrics["graph"][-1]["loss"].tolist()[-1],
            "bit_equal": True}
+    if mesh is not None:
+        row["mesh"] = [mesh.data, mesh.model]
     for path in ("eager", "graph"):
         row[f"{path}_rounds_per_s"] = rounds / seconds[path]
         row[f"{path}_step_ms"] = seconds[path] / (
-            2 * GRAPH_DISPATCHES * TRAIN_DISPATCH_GROUP) * 1e3
+            2 * dispatches * group) * 1e3
         row[f"{path}_first_dispatch_s"] = seconds[f"{path}_first"]
         row[f"{path}_peak_mem_gb"] = peak[path] / 2 ** 30
-    del states, fns, graph_fn, stack, e, g
-    gc.collect()                 # the graph (a cycle through its body) and pool
-    torch.cuda.empty_cache()
+    del states, fns, graph_fn, stack
+    _release()                   # the graph (a cycle through its body) and pool
     return row
 
 
@@ -3127,6 +3148,550 @@ def graphs(dev) -> dict:
            "total_seconds": time.perf_counter() - t0}
     emit(row)
     return row
+
+
+def reset_counts() -> None:
+    """Every kernel's launches and the mesh's collectives to 0."""
+    from visdial_tpu_torch.parallel import mesh as mesh_mod
+
+    reset_launches()
+    mesh_mod.collectives = 0
+
+
+def mesh_counts() -> dict:
+    """The kernels' launches and the mesh's collectives since reset_counts."""
+    from visdial_tpu_torch.parallel import mesh as mesh_mod
+
+    return {**kernel_launches(), "collectives": mesh_mod.collectives}
+
+
+def _states_equal(a, b, what: str) -> None:
+    from visdial_tpu_torch.utils.params import flatten
+
+    for name, x, y in (("params", a.params, b.params), ("m", a.opt.m, b.opt.m),
+                       ("v", a.opt.v, b.opt.v)):
+        fx, fy = flatten(x), flatten(y)
+        bad = [k for k in fx if not torch.equal(fx[k], fy[k])]
+        check(not bad, f"{what}: {name} differ at {bad[:5]}")
+    check(a.opt.step == b.opt.step
+          and torch.equal(a.gen.get_state(), b.gen.get_state()),
+          f"{what}: the steps or the CPU generators differ")
+
+
+def _copy_state(state):
+    """A TrainState of fresh tensors and a generator in the same state (a
+    factory writes the state it is given in place)."""
+    from visdial_tpu_torch.parallel.train_step import TrainState
+    from visdial_tpu_torch.utils.params import flatten, unflatten
+
+    def tree(t):
+        return unflatten({k: v.clone() for k, v in flatten(t).items()})
+
+    gen = torch.Generator()
+    gen.set_state(state.gen.get_state())
+    return TrainState(tree(state.params), state.opt._replace(
+        m=tree(state.opt.m), v=tree(state.opt.v)), gen)
+
+
+def _calls_equal(what: str, cfg, fn, eager, state0, batches) -> dict:
+    """fn (a factory's GraphedTrainStep) and eager over the same calls from
+    copies of state0: metrics, params, moments and CPU generators bit for
+    bit, counts equal call by call, one capture; (the graph's counts a
+    call)."""
+    sg, se = _copy_state(state0), _copy_state(state0)
+    per = {}
+    for i, b in enumerate(batches):
+        for path in ("graph", "eager"):
+            reset_counts()
+            if path == "graph":
+                sg, mg = fn(sg, b)
+            else:
+                se, me = eager(se, b, cfg)
+            torch.cuda.synchronize()
+            per[path] = mesh_counts()
+        check(per["graph"] == per["eager"], f"{what}: call {i} counts "
+              f"{per['graph']} against eager {per['eager']}")
+        for k in ("loss", "grad_norm"):
+            check(torch.equal(torch.as_tensor(mg[k]), torch.as_tensor(me[k])),
+                  f"{what}: call {i} {k} {float(mg[k])} against eager "
+                  f"{float(me[k])}")
+    _states_equal(sg, se, what)
+    check(fn.captures == 1, f"{what}: {fn.captures} captures")
+    return {"counts_a_call": per["graph"], "loss": float(mg["loss"]),
+            "bit_equal": True}
+
+
+def mesh_step_checks(dev, mesh) -> dict:
+    """make_train_fn (MN-QIH-disc, bf16, dropout 0.5, with remat),
+    make_dense_train_fn (dense batches of the flagship model) and
+    make_train_fn over disc batches without round_valid (the loss's count
+    made on the device: a host copy there fails the capture), each over
+    the mesh against the eager mesh step, MESH_CALLS calls."""
+    from visdial_tpu_torch.bench import flagship_config
+    from visdial_tpu_torch.data.loader import DenseLoader
+    from visdial_tpu_torch.data.synthetic import make_random_split, random_batch
+    from visdial_tpu_torch.models.model import batch_to_device, model_dense_loss
+    from visdial_tpu_torch.parallel.train_step import (init_train_state,
+                                                       make_dense_train_fn,
+                                                       make_train_fn,
+                                                       shard_train_state,
+                                                       train_step)
+
+    out = {}
+    cfg = flagship_config().replace(remat=True)
+    batches = [batch_to_device(random_batch(cfg, seed=s), dev)
+               for s in range(MESH_CALLS)]
+    state0 = shard_train_state(init_train_state(cfg, device=dev, seed=0), cfg,
+                               mesh)
+    check(batches[0]["round_valid"].shape[0] == cfg.batch_size,
+          "mesh steps: the batches carry round_valid")
+    out["make_train_fn_remat"] = _calls_equal(
+        "mesh make_train_fn remat", cfg, make_train_fn(cfg, mesh),
+        partial(train_step, mesh=mesh), state0, batches)
+    no_rv = [{k: v for k, v in b.items() if k != "round_valid"}
+             for b in batches]
+    cfg = cfg.replace(remat=False)
+    out["make_train_fn_no_round_valid"] = _calls_equal(
+        "mesh make_train_fn without round_valid", cfg,
+        make_train_fn(cfg, mesh), partial(train_step, mesh=mesh), state0,
+        no_rv)
+    cfg = flagship_config(compute_dtype="float32")
+    split, vocab = make_random_split(cfg, num_dialogs=2 * cfg.batch_size,
+                                     num_unique_answers=20_000, seed=0)
+    cfg = cfg.replace(vocab_size=vocab.size)
+    dense = [batch_to_device(b, dev) for b in DenseLoader(
+        split, vocab, cfg, dense_entries(split, cfg)).epoch(seed=0)]
+    state0 = shard_train_state(init_train_state(cfg, device=dev, seed=0), cfg,
+                               mesh)
+    out["make_dense_train_fn"] = _calls_equal(
+        "mesh make_dense_train_fn", cfg, make_dense_train_fn(cfg, mesh),
+        partial(train_step, mesh=mesh, loss_fn=model_dense_loss), state0,
+        dense)
+    del state0, batches, no_rv, dense
+    _release()
+    return out
+
+
+def _digest(tree) -> str:
+    """A sha256 of a pytree's tensors' bytes, leaf by leaf in path order."""
+    from visdial_tpu_torch.utils.params import flatten
+
+    h = hashlib.sha256()
+    for k, v in sorted(flatten(tree).items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _remat_memory_rank(rank: int, remat: bool) -> dict:
+    """One world-1 NCCL process of remat_memory: LF-QIH-disc at batch 32
+    (dropout 0.5, f32) with cfg.remat = `remat`, make_train_fn's graph over
+    the mesh as the process's first capture, then the eager mesh step from
+    the same init.  Device memory reserved over what was reserved before,
+    from an emptied cache: the graph's peak over its first call (warm-up
+    and capture), what it keeps after it (the warm-up's blocks released)
+    and its peak over a replayed call; eager's peak over two steps (its
+    backward allocates on the autograd engine's thread, which a MemPool of
+    this thread would not see).  The graph's state equal to eager's bit
+    for bit; (the row, the loss and a digest of the graph's params)."""
+    from visdial_tpu_torch.parallel.mesh import make_mesh
+    from visdial_tpu_torch.parallel.train_step import (make_train_fn,
+                                                       shard_train_state,
+                                                       train_step)
+    from visdial_tpu_torch.profile_train import flagship_setup
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(1, 1, "cuda")
+    dev = mesh.device
+    cfg, batches, state0 = flagship_setup(dev, 2, dropout=0.5,
+                                          encoder="lf-ques-im-hist")
+    cfg = cfg.replace(remat=remat)
+    row = {"history": list(batches[0]["hist_flat"].shape)}
+    out = {}
+    for path in ("graph", "eager"):
+        state = shard_train_state(_copy_state(state0), cfg, mesh)
+        _release()
+        reserved = torch.cuda.memory_reserved(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if path == "graph":
+            fn = make_train_fn(cfg, mesh)
+            state, m = fn(state, batches[0])            # the capture
+            torch.cuda.synchronize(dev)
+            row["graph_first_call_peak_gb"] = (
+                torch.cuda.max_memory_reserved(dev) - reserved) / 2 ** 30
+            _release()
+            row["graph_kept_gb"] = (torch.cuda.memory_reserved(dev)
+                                    - reserved) / 2 ** 30
+            torch.cuda.reset_peak_memory_stats(dev)
+            state, m = fn(state, batches[1])            # a replay
+        else:
+            for b in batches:
+                state, m = train_step(state, b, cfg, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        row[f"{path}_peak_gb"] = (torch.cuda.max_memory_reserved(dev)
+                                  - reserved) / 2 ** 30
+        row[f"{path}_two_steps_s"] = time.perf_counter() - t0
+        out[path] = (float(m["loss"]), state)
+        if path == "graph":
+            check(fn.captures == 1, f"remat memory: {fn.captures} captures")
+            del fn
+        del state, m
+        _release()
+    check(out["graph"][0] == out["eager"][0],
+          f"remat memory remat={remat}: the graph's loss {out['graph'][0]} "
+          f"against eager {out['eager'][0]}")
+    _states_equal(out["graph"][1], out["eager"][1],
+                  f"remat memory remat={remat}: the graph against eager")
+    return {"row": row, "loss": out["graph"][0],
+            "params": _digest(out["graph"][1].params)}
+
+
+def remat_memory() -> dict:
+    """LF-QIH-disc at batch 32 with its 32 x 256 history (dropout 0.5, f32):
+    make_train_fn's graph with remat against the graph without, each in a
+    world-1 NCCL process of its own (_remat_memory_rank), so that each
+    graph is its process's first capture, as in a user's train process:
+    the remat graph's reserved peak over a replayed call not above the
+    other's; both graphs equal their eager steps, and each other, bit for
+    bit (remat recomputes the same encoder, the same masks)."""
+    from visdial_tpu_torch.parallel.launch import run_ranks
+
+    got = {remat: run_ranks(_remat_memory_rank, 1, remat, timeout=600)[0]
+           for remat in (False, True)}
+    check(got[True]["loss"] == got[False]["loss"]
+          and got[True]["params"] == got[False]["params"],
+          f"remat memory: the remat graph's loss {got[True]['loss']} or "
+          f"params differ from the graph's without remat "
+          f"({got[False]['loss']})")
+    row = {"point": "remat memory lf-ques-im-hist disc batch 32",
+           "history": got[True]["row"]["history"], "loss": got[True]["loss"]}
+    for remat, key in ((False, "no_remat"), (True, "remat")):
+        row.update({f"{key}_{k}": v for k, v in got[remat]["row"].items()
+                    if k != "history"})
+    row["remat_over_no_remat_peak"] = (row["remat_graph_peak_gb"]
+                                       / row["no_remat_graph_peak_gb"])
+    check(row["remat_graph_peak_gb"] <= row["no_remat_graph_peak_gb"],
+          f"remat memory: the remat graph's reserved peak "
+          f"{row['remat_graph_peak_gb']:.4f} GB (kept "
+          f"{row['remat_graph_kept_gb']:.4f}), over the "
+          f"{row['no_remat_graph_peak_gb']:.4f} GB (kept "
+          f"{row['no_remat_graph_kept_gb']:.4f}) of the graph without")
+    return row
+
+
+def mesh_eval_points(dev, mesh) -> list[dict]:
+    """evaluate_split over the mesh through the eval factories made for it
+    (their graphs) against their eager functions, streaming and resident,
+    disc and gen, bf16, at the bench's harness point (HARNESS_DIALOGS
+    dialogs over HARNESS_ANSWERS answers): ranks and rankings bit for bit,
+    launches equal, rates and memory (graph_turns)."""
+    from visdial_tpu_torch.bench import (HARNESS_ANSWERS, HARNESS_DIALOGS,
+                                         flagship_config)
+    from visdial_tpu_torch.data.synthetic import make_random_split
+    from visdial_tpu_torch.eval_harness import _GenBucketPlan, evaluate_split
+    from visdial_tpu_torch.models.model import model_init
+    from visdial_tpu_torch.parallel.train_step import (make_disc_table_eval_fns,
+                                                       make_gen_bucket_eval_fns)
+
+    rows = []
+    for decoder in ("disc", "gen"):
+        cfg = flagship_config(decoder=decoder)
+        split, vocab = make_random_split(cfg, num_dialogs=HARNESS_DIALOGS,
+                                         num_unique_answers=HARNESS_ANSWERS,
+                                         seed=0)
+        cfg = cfg.replace(vocab_size=vocab.size)
+        params = model_init(cfg, seed=cfg.seed, device=dev)
+        fns = (make_disc_table_eval_fns if decoder == "disc"
+               else make_gen_bucket_eval_fns)(cfg, mesh)
+        key = "table_fns" if decoder == "disc" else "gen_fns"
+        for resident in (False, True):
+            def run(f, resident=resident):
+                _, ranks, cand = evaluate_split(
+                    params, split, vocab, cfg, dev, return_ranks=True,
+                    collect_rankings=True, resident=resident, mesh=mesh,
+                    **{key: f})
+                return ranks, cand
+
+            run(tuple(f.fn for f in fns))     # the split's tables and stacks
+            path = "resident" if resident else "stream"
+            row = graph_turns(
+                dev, f"mesh evaluate_split {decoder} {path}",
+                {"eager": partial(run, tuple(f.fn for f in fns)),
+                 "graph": partial(run, fns)},
+                reps=1, units=HARNESS_DIALOGS * cfg.num_rounds)
+            # as on one device: one resident batch graph; a streamed
+            # batch's factories' graphs, gen's one row graph a width bucket
+            widths = (len(_GenBucketPlan.cached(split, cfg.batch_size).active)
+                      if decoder == "gen" else 1)
+            caps = _eval_captures(split, fns, resident)
+            check(caps == ([1] if resident else [1, widths]),
+                  f"mesh evaluate_split {decoder} {path}: {caps} captures "
+                  "over four graphed runs")
+            rows.append({**row, "captures": caps, "unit": "rounds"})
+        del params, fns, split
+        _release()
+    return rows
+
+
+def _eval_captures(split, fns, resident: bool) -> list:
+    """The captures of the graphs evaluate_split ran for `split` through
+    the factories' functions `fns`: the resident batch graphs' (kept on
+    the split), or each factory function's (a streamed batch)."""
+    if resident:
+        return [sum(r.captures for r in split.__dict__.get(
+            "_torch_resident_eval", {}).values())]
+    return [f.captures for f in fns]
+
+
+class _EagerDecode:
+    """generate's graph replaced by its body, run under inference mode:
+    the eager path the CLI's graph is held to."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args, generators=(), clone=True):
+        with torch.inference_mode():
+            return self.fn(*args)
+
+
+def mesh_generate(dev) -> dict:
+    """The generate CLI in this process under the world-1 group (its own
+    mesh, the decode one graph a batch): greedy, beam 5 and sampled (--seed
+    3) on a seeded flagship MN-QIH-gen checkpoint over GEN_DIALOGS
+    synthetic dialogs, each JSON equal to the same CLI's with the graph
+    replaced by its eager body, launches equal."""
+    from visdial_tpu_torch import generate as generate_mod
+    from visdial_tpu_torch.config import Config
+    from visdial_tpu_torch.data.synthetic import make_synthetic_split
+    from visdial_tpu_torch.parallel.train_step import init_train_state
+    from visdial_tpu_torch.utils.checkpoint import save_checkpoint
+
+    base = Config(encoder="mn-ques-im-hist", decoder="gen", dropout=0.0)
+    _, vocab = make_synthetic_split(base, num_dialogs=GEN_DIALOGS,
+                                    seed=base.seed + 1)
+    cfg = base.replace(vocab_size=vocab.size)
+    ckpt = save_checkpoint(os.path.join(SMOKE_DIR, "smoke_mesh_gen"),
+                           init_train_state(cfg, device=dev), cfg)
+    row = {"dialogs": GEN_DIALOGS}
+    graphed = generate_mod.InferenceGraphed
+    for mode, extra in (("greedy", []), ("beam5", ["--beam_size", "5"]),
+                        ("sample", ["--sample", "--seed", "3",
+                                    "--temperature", "0.8"])):
+        outs, counts, secs = {}, {}, {}
+        for path in ("graph", "eager"):
+            out = os.path.join(SMOKE_DIR, f"mesh_generated_{mode}_{path}.json")
+            generate_mod.InferenceGraphed = (graphed if path == "graph"
+                                             else _EagerDecode)
+            try:
+                reset_counts()
+                t0 = time.perf_counter()
+                run_cli(generate_mod.main, [
+                    "--load_path", ckpt, "--synthetic", str(GEN_DIALOGS),
+                    "--num_dialogs", "0", "--out_path", out, "--mesh_data",
+                    "1", *extra])
+                secs[path] = time.perf_counter() - t0
+                counts[path] = mesh_counts()
+            finally:
+                generate_mod.InferenceGraphed = graphed
+            with open(out) as f:
+                outs[path] = json.load(f)
+        check(outs["graph"] == outs["eager"],
+              f"mesh generate {mode}: the graphed CLI's JSON differs from "
+              "the eager decode's")
+        check(counts["graph"] == counts["eager"]
+              and counts["graph"]["lstm_layer"] > 0,
+              f"mesh generate {mode}: counts {counts}")
+        rounds = sum(len(d["rounds"]) for d in outs["graph"]["dialogs"])
+        row[mode] = {"equal": True, "rounds": rounds,
+                     "launches": counts["graph"],
+                     "graph_cli_s": secs["graph"], "eager_cli_s": secs["eager"]}
+    return row
+
+
+def mesh_train_cli() -> dict:
+    """The train CLI with --mesh_data 1 --remat true under the world-1
+    group: its steps through the factories' graphs (the encoder's
+    recomputation inside), an eval and a checkpoint."""
+    from visdial_tpu_torch import train as train_cli_mod
+
+    save = os.path.join(SMOKE_DIR, "smoke_mesh_remat")
+    shutil.rmtree(save, ignore_errors=True)
+    reset_counts()
+    _, events = run_cli(train_cli_mod.main, [
+        "--synthetic", "64", "--encoder", "mn-ques-im-hist", "--mesh_data",
+        "1", "--remat", "true", "--max_steps", "2", "--eval_every", "2",
+        "--save_every", "2", "--log_every", "1", "--save_path", save,
+        "--run_name", "remat"])
+    counts = mesh_counts()
+    kinds = [e["event"] for e in events]
+    config = next(e for e in events if e["event"] == "config")
+    trains = [e for e in events if e["event"] == "train"]
+    check(config["remat"] is True and config["mesh_data"] == 1
+          and {"train", "eval", "checkpoint", "done"} <= set(kinds)
+          and all(math.isfinite(e["loss"]) for e in trains)
+          and counts["collectives"] > 0 and counts["lstm_layer_bwd"] > 0,
+          f"mesh train CLI --remat true: events {kinds}, counts {counts}")
+    return {"losses": [e["loss"] for e in trains],
+            "mrr": next(e for e in events if e["event"] == "eval")["mrr"],
+            "counts": counts}
+
+
+def _mesh_graph_rank(rank: int, shape: tuple, points: list,
+                     evals: list) -> dict:
+    """One rank of a NCCL world (run_ranks) laid out as `shape`: each train
+    point (graph_train_point over the mesh, each rank on its own batches,
+    batch the point's global batch over the data axis) and each eval point
+    (decoder, resident: evaluate_split eagerly through the factories'
+    functions, then twice through their graphs: ranks and rankings bit for
+    bit, counts equal, the graphs captured on the first graphed run, at
+    least one each, and only replayed on the second)."""
+    from visdial_tpu_torch.bench import flagship_config
+    from visdial_tpu_torch.data.synthetic import make_random_split
+    from visdial_tpu_torch.eval_harness import evaluate_split
+    from visdial_tpu_torch.models.model import model_init
+    from visdial_tpu_torch.parallel.mesh import make_mesh
+    from visdial_tpu_torch.parallel.train_step import (make_disc_table_eval_fns,
+                                                       make_gen_bucket_eval_fns,
+                                                       shard_train_state,
+                                                       TrainState)
+    from visdial_tpu_torch.parallel.optim import init_opt_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(*shape, "cuda")
+    dev = mesh.device
+    rows = [graph_train_point(dev, d, bs // mesh.data, dt, mesh=mesh,
+                              remat=remat, group=MESH_GROUP,
+                              dispatches=MESH_DISPATCHES)
+            for d, bs, dt, remat in points]
+    for decoder, resident in evals:
+        cfg = flagship_config(decoder=decoder)
+        split, vocab = make_random_split(cfg, num_dialogs=MESH_EVAL_DIALOGS,
+                                         num_unique_answers=MESH_EVAL_ANSWERS,
+                                         seed=0)
+        cfg = cfg.replace(vocab_size=vocab.size)
+        params = model_init(cfg, seed=cfg.seed, device=dev)
+        params = shard_train_state(TrainState(
+            params, init_opt_state(params, cfg), torch.Generator()), cfg,
+            mesh).params
+        fns = (make_disc_table_eval_fns if decoder == "disc"
+               else make_gen_bucket_eval_fns)(cfg, mesh)
+        key = "table_fns" if decoder == "disc" else "gen_fns"
+        got, counts, caps = {}, {}, {}
+        for path, f in (("eager", tuple(x.fn for x in fns)), ("graph", fns),
+                        ("graph again", fns)):
+            reset_counts()
+            got[path] = evaluate_split(
+                params, split, vocab, cfg, dev, return_ranks=True,
+                collect_rankings=True, resident=resident, mesh=mesh,
+                **{key: f})
+            counts[path] = mesh_counts()
+            caps[path] = _eval_captures(split, fns, resident)
+        what = (f"mesh {shape[0]}x{shape[1]} evaluate_split {decoder} "
+                + ("resident" if resident else "stream"))
+        check(not any(caps["eager"]) and all(caps["graph"])
+              and caps["graph again"] == caps["graph"],
+              f"{what}: captures {caps} (eager, graphed, graphed again)")
+        for path in ("graph", "graph again"):
+            check(_equal(got[path][1:], got["eager"][1:]),
+                  f"{what}: {path} ranks differ from eager's")
+            check(counts[path] == counts["eager"],
+                  f"{what}: {path} counts {counts[path]} against eager "
+                  f"{counts['eager']}")
+        rows.append({"point": what, "mrr": got["graph"][0]["mrr"],
+                     "counts": counts["graph"], "bit_equal": True,
+                     "captures": caps["graph"]})
+        del params, fns, got
+        _release()
+    mesh.barrier()
+    return {"rank": rank, "rows": rows}
+
+
+def mesh_graphs(dev) -> dict:
+    """The compiled dispatch over a mesh (parallel/train_step.py's factories
+    with their NCCL collectives captured) in a world-1 NCCL group made in
+    this process, every point against the eager mesh path it replaces:
+    the train points (MN-QIH-disc batch 32, -gen batch 64; bf16 and f32;
+    remat off and on), make_train_fn under remat, make_dense_train_fn, a
+    disc batch without round_valid, evaluate_split streaming and resident
+    through the eval factories, the generate CLI and the train CLI with
+    --remat true.  Then, each in a world-1 NCCL process of its own, the
+    remat memory point; with two cards, (2, 1) NCCL ranks (disc and gen,
+    the disc evals) and (1, 2) with a vocab shard and remat (the gen
+    evals); with four, (2, 2)."""
+    import torch.distributed as dist
+
+    from visdial_tpu_torch.parallel.launch import free_port
+    from visdial_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    os.environ.update({"MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(free_port())})
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    row = {"phase": "mesh_graphs"}
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        row["train"] = [
+            graph_train_point(dev, decoder, batch, dtype, mesh=mesh,
+                              remat=remat, group=MESH_GROUP,
+                              dispatches=MESH_DISPATCHES)
+            for decoder, batch in (("disc", 32), ("gen", 64))
+            for dtype in ("bfloat16", "float32") for remat in (False, True)]
+        t1 = time.perf_counter()
+        row["steps"] = mesh_step_checks(dev, mesh)
+        t2 = time.perf_counter()
+        row["eval"] = mesh_eval_points(dev, mesh)
+        t3 = time.perf_counter()
+        row["generate"] = mesh_generate(dev)
+        row["train_cli"] = mesh_train_cli()
+        t4 = time.perf_counter()
+    finally:
+        dist.destroy_process_group()
+    row["remat_memory"] = remat_memory()
+    t5 = time.perf_counter()
+    row["seconds"] = {"train": t1 - t0, "steps": t2 - t1, "eval": t3 - t2,
+                      "generate_cli": t4 - t3, "remat_memory": t5 - t4}
+    row["multi_card"], reason = mesh_multi_card()
+    if reason:
+        row["multi_card_reason"] = reason
+    row["total_seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def mesh_multi_card() -> tuple[list, str]:
+    """The mesh's NCCL worlds across cards (_mesh_graph_rank), as many as
+    the machine has cards for: (2, 1) disc and gen and the disc evals,
+    (1, 2) gen with remat on a vocab shard and its evals, with four cards
+    (2, 2); (rank 0's rows a world, the reason none ran or '')."""
+    from visdial_tpu_torch.parallel.launch import run_ranks
+
+    cards = torch.cuda.device_count()
+    worlds = []
+    if cards >= 2:
+        worlds += [((2, 1), [("disc", 32, "bfloat16", False),
+                             ("gen", 64, "bfloat16", False)],
+                    [("disc", False), ("disc", True)]),
+                   ((1, 2), [("gen", 64, "bfloat16", True)],
+                    [("gen", False), ("gen", True)])]
+    if cards >= 4:
+        worlds.append(((2, 2), [("disc", 32, "bfloat16", False),
+                                ("gen", 64, "bfloat16", False)],
+                       [("gen", True)]))
+    out = []
+    for shape, points, evals in worlds:
+        t = time.perf_counter()
+        got = run_ranks(_mesh_graph_rank, shape[0] * shape[1], shape, points,
+                        evals, timeout=900)
+        out.append({"mesh": list(shape), "rows": got[0]["rows"],
+                    "seconds": time.perf_counter() - t})
+    reason = "" if worlds else (f"{cards} CUDA device: the (2, 1) and (1, 2) "
+                                "meshes need two cards, (2, 2) four")
+    return out, reason
 
 
 def vgg16_phase(dev) -> dict:
@@ -3758,6 +4323,7 @@ def main() -> None:
     timed("generate_model_axis", generate_model_axis, dev, pipe)
     timed("two_cards", two_cards, dev)
     graphed = timed("graphs", graphs, dev)
+    mesh_graphed = timed("mesh_graphs", mesh_graphs, dev)
     benched = timed("bench", bench_phase)
     emit({"phase": "wall_seconds", **walls, "total": sum(walls.values())})
 
@@ -3794,7 +4360,7 @@ def main() -> None:
                     "verify": verified["launches"],
                     "bench": benched["launches"]})
     for r in graphed["train"]:
-        by_path[f"graphs:{r['decoder']}:{r['dtype']}"] = r["launches_a_replay"]
+        by_path[f"graphs:{r['decoder']}:{r['dtype']}"] = r["counts_a_dispatch"]
     for r in graphed["serve"]:
         by_path[f"graphs:serve_{r['decoder']}{r['beam'] or ''}"] = r["launches"]
     for r in graphed["eval"] + graphed["generate"]:
@@ -3802,6 +4368,19 @@ def main() -> None:
     for key, m in pipe["models"].items():
         for stage, n in m["launches"].items():
             by_path[f"pipeline:{key}:{stage}"] = n
+    mesh_rows = mesh_graphed["train"] + [
+        r for w in mesh_graphed["multi_card"] for r in w["rows"]
+        if "counts_a_dispatch" in r]
+    for r in mesh_rows:
+        by_path[f"mesh_graphs:{r['point']}"] = r["counts_a_dispatch"]
+    for name, r in mesh_graphed["steps"].items():
+        by_path[f"mesh_graphs:{name}"] = r["counts_a_call"]
+    for r in mesh_graphed["eval"]:
+        by_path[f"mesh_graphs:{r['point']}"] = r["launches"]
+    for mode in ("greedy", "beam5", "sample"):
+        by_path[f"mesh_graphs:generate {mode}"] = \
+            mesh_graphed["generate"][mode]["launches"]
+    by_path["mesh_graphs:train_cli remat"] = mesh_graphed["train_cli"]["counts"]
 
     def head_row(rows, shape, dtype="float32", **match):
         return next(r for r in rows if r["shape"] == shape

@@ -901,15 +901,171 @@ def test_train_graph_captures_once_a_signature(dev):
     assert fn.captures == 2 and out.opt.step == 2
 
 
-def test_train_graph_refuses_remat(dev):
-    """cfg.remat is refused at the factory: the recompute would draw new
-    masks from the graph's generators (ROADMAP queues remat under a
-    graph)."""
-    from visdial_tpu_torch.parallel.train_step import make_train_fn
+def _bench_batches(dev, decoder, n, remat=False, dropout=0.5, **kw):
+    """(cfg, n random batches on the card) at the bench's train point in
+    bf16 (flagship widths; disc at batch 32, gen at 64)."""
+    from visdial_tpu_torch.bench import flagship_config
+    from visdial_tpu_torch.data.synthetic import random_batch
+    from visdial_tpu_torch.models.model import batch_to_device
 
-    cfg, _ = _small_graph_case(dev)
-    with pytest.raises(ValueError, match="remat"):
-        make_train_fn(cfg.replace(remat=True))
+    cfg = flagship_config(decoder=decoder,
+                          batch_size=32 if decoder == "disc" else 64)
+    cfg = cfg.replace(remat=remat, dropout=dropout, **kw)
+    return cfg, [batch_to_device(random_batch(cfg, seed=s), dev)
+                 for s in range(n)]
+
+
+def _assert_states(got, want, what):
+    from visdial_tpu_torch.utils.params import flatten
+
+    for tree in ("params", "m", "v"):
+        get = (lambda s: s.params) if tree == "params" else (
+            lambda s: getattr(s.opt, tree))
+        for k, v in flatten(get(want)).items():
+            assert torch.equal(flatten(get(got))[k], v), (what, tree, k)
+    assert torch.equal(got.gen.get_state(), want.gen.get_state()), what
+
+
+def test_train_graph_with_remat_equals_eager_remat(dev):
+    """make_train_fn under cfg.remat at the bench's disc point (bf16,
+    dropout 0.5): three calls against train_step's remat steps bit for bit
+    (the recomputation draws from its own registered generator, seeded as
+    the encoder's), one capture; at dropout 0 the remat graph equals the
+    graph without remat bit for bit."""
+    from visdial_tpu_torch.parallel.train_step import (init_train_state,
+                                                       make_train_fn,
+                                                       train_step)
+
+    cfg, batches = _bench_batches(dev, "disc", 3, remat=True)
+    fn = make_train_fn(cfg)
+    graphed = init_train_state(cfg, device=dev, seed=0)
+    eager = init_train_state(cfg, device=dev, seed=0)
+    for b in batches:
+        graphed, mg = fn(graphed, b)
+        eager, me = train_step(eager, b, cfg)
+        assert torch.equal(mg["loss"], me["loss"])
+        assert torch.equal(mg["grad_norm"], me["grad_norm"])
+    assert fn.captures == 1
+    _assert_states(graphed, eager, "remat")
+    cfg0 = cfg.replace(dropout=0.0)
+    states = []
+    for remat in (True, False):
+        f = make_train_fn(cfg0.replace(remat=remat))
+        s = init_train_state(cfg0, device=dev, seed=0)
+        for b in batches:
+            s, _ = f(s, b)
+        states.append(s)
+    _assert_states(*states, "remat against no remat at dropout 0")
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A NCCL process group of one rank in this process and its (1, 1)
+    mesh: every collective a real NCCL call that acts as the identity;
+    torn down after the test."""
+    import torch.distributed as dist
+
+    from visdial_tpu_torch.parallel.launch import free_port
+    from visdial_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        yield make_mesh(1, 1, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _counts():
+    from visdial_tpu_torch.bench import kernel_launches
+    from visdial_tpu_torch.parallel import mesh as mesh_mod
+
+    return {**kernel_launches(), "collectives": mesh_mod.collectives}
+
+
+def _delta(a, b):
+    return {k: b[k] - a[k] for k in a}
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+@pytest.mark.parametrize("decoder", ["disc", "gen"])
+def test_mesh_graph_equals_eager_mesh_steps(dev, nccl_mesh, decoder, remat):
+    """make_multistep_train_fn over a world-1 NCCL mesh (the step's
+    all-reduces captured in the graph) against multi_train_step(...,
+    mesh=) at the bench's point in bf16, dropout 0.5, 2 steps a dispatch:
+    three dispatches' metrics, then the params, moments and CPU generator
+    bit for bit; a replay's launches and collectives an eager dispatch's;
+    one capture."""
+    from visdial_tpu_torch.parallel.train_step import (init_train_state,
+                                                       make_multistep_train_fn,
+                                                       multi_train_step,
+                                                       shard_train_state)
+
+    mesh = nccl_mesh
+    cfg, batches = _bench_batches(dev, decoder, 2, remat=remat)
+    stack = _stacked(batches)
+    fn = make_multistep_train_fn(cfg, mesh)
+    graphed, eager = (shard_train_state(init_train_state(cfg, device=dev,
+                                                         seed=0), cfg, mesh)
+                      for _ in range(2))
+    for _ in range(3):
+        before = _counts()
+        graphed, mg = fn(graphed, stack)
+        mid = _counts()
+        eager, me = multi_train_step(eager, stack, cfg, mesh=mesh)
+        after = _counts()
+        assert _delta(before, mid) == _delta(mid, after)
+        assert _delta(mid, after)["collectives"] > 0
+        for k in ("loss", "grad_norm", "lr", "step"):
+            assert torch.equal(mg[k], me[k]), k
+    assert fn.captures == 1
+    _assert_states(graphed, eager, f"mesh {decoder}")
+
+
+def test_mesh_step_without_round_valid_captures(dev, nccl_mesh):
+    """A disc batch with no round_valid key over the world-1 NCCL mesh: the
+    loss's count is made on the device (a copy from the host would fail
+    the capture), and make_train_fn's graph equals train_step(...,
+    mesh=) bit for bit over three calls."""
+    from visdial_tpu_torch.parallel.train_step import (init_train_state,
+                                                       make_train_fn,
+                                                       shard_train_state,
+                                                       train_step)
+
+    mesh = nccl_mesh
+    cfg, batches = _bench_batches(dev, "disc", 3)
+    batches = [{k: v for k, v in b.items() if k != "round_valid"}
+               for b in batches]
+    fn = make_train_fn(cfg, mesh)
+    graphed, eager = (shard_train_state(init_train_state(cfg, device=dev,
+                                                         seed=0), cfg, mesh)
+                      for _ in range(2))
+    for b in batches:
+        graphed, mg = fn(graphed, b)
+        eager, me = train_step(eager, b, cfg, mesh=mesh)
+        assert torch.equal(mg["loss"], me["loss"])
+    assert fn.captures == 1
+    _assert_states(graphed, eager, "without round_valid")
+
+
+@pytest.mark.parametrize("mesh_shape,decoder,remat", [
+    ((2, 1), "disc", False), ((2, 1), "gen", False), ((1, 2), "gen", True)],
+    ids=["2x1-disc", "2x1-gen", "1x2-gen-remat"])
+def test_two_rank_mesh_graphs_equal_eager(mesh_shape, decoder, remat):
+    """Two NCCL ranks on two cards (parallel/launch.py::run_ranks): each
+    rank's make_multistep_train_fn graph equals its eager mesh steps bit
+    for bit (metrics, collectives, params, moments, generator), one
+    capture; on (1, 2) the vocab shard's reductions and remat's
+    recomputation inside the graph."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import torch_dist_workers as workers
+    from visdial_tpu_torch.parallel.launch import run_ranks
+
+    got = run_ranks(workers.cuda_mesh_graph_steps, 2, mesh_shape, decoder,
+                    remat, timeout=600)
+    assert got == [(True, 1), (True, 1)]
 
 
 @pytest.mark.parametrize("decoder", ["disc", "gen"])
@@ -1099,6 +1255,147 @@ def test_evaluate_split_graphs_equal_eager(dev, decoder, resident):
         buckets = (len(_GenBucketPlan.cached(split, cfg.batch_size).active)
                    if decoder == "gen" else 1)
         assert [f.captures for f in graphs] == [1, buckets]
+
+
+@pytest.mark.parametrize("resident", [False, True], ids=["stream", "resident"])
+@pytest.mark.parametrize("decoder", ["disc", "gen"])
+def test_mesh_evaluate_split_graphs_equal_eager(dev, nccl_mesh, decoder,
+                                                resident):
+    """evaluate_split over the world-1 NCCL mesh through the eval factories
+    made for it (their graphs) against their eager functions, 96 dialogs
+    at the bench's eval point in bf16: ranks and candidate rankings bit
+    for bit, launches and collectives equal, the factories captured once
+    (gen: a row graph a width bucket)."""
+    import numpy as np
+
+    from visdial_tpu_torch.data.synthetic import make_random_split
+    from visdial_tpu_torch.eval_harness import _GenBucketPlan, evaluate_split
+    from visdial_tpu_torch.models.model import model_init
+    from visdial_tpu_torch.parallel.graph import Graphed
+    from visdial_tpu_torch.parallel.train_step import (
+        make_disc_table_eval_fns, make_gen_bucket_eval_fns)
+
+    mesh = nccl_mesh
+    cfg, _, _ = _eval_case(dev, decoder)
+    split, vocab = make_random_split(cfg, num_dialogs=96,
+                                     num_unique_answers=5000, seed=0)
+    cfg = cfg.replace(vocab_size=vocab.size)
+    params = model_init(cfg, seed=1, device=dev)
+    graphs = (make_disc_table_eval_fns if decoder == "disc"
+              else make_gen_bucket_eval_fns)(cfg, mesh)
+    assert all(isinstance(f, Graphed) for f in graphs)
+    key = "table_fns" if decoder == "disc" else "gen_fns"
+    paths = {"graph": graphs, "eager": tuple(f.fn for f in graphs)}
+    outs, counts = {}, {}
+    for path in ("eager", "graph", "graph"):
+        before = _counts()
+        _, ranks, cand = evaluate_split(
+            params, split, vocab, cfg, dev, return_ranks=True,
+            collect_rankings=True, resident=resident, mesh=mesh,
+            **{key: paths[path]})
+        counts[path] = _delta(before, _counts())
+        outs.setdefault(path, []).append((ranks, cand))
+    for got in outs["graph"]:
+        for a, b in zip(got, outs["eager"][0]):
+            np.testing.assert_array_equal(a, b)
+    assert counts["graph"] == counts["eager"]
+    assert counts["graph"]["lstm_layer"] > 0
+    if resident:
+        res = next(iter(split._torch_resident_eval.values()))
+        assert res.captures == 1
+    else:
+        buckets = (len(_GenBucketPlan.cached(split, cfg.batch_size).active)
+                   if decoder == "gen" else 1)
+        assert [f.captures for f in graphs] == [1, buckets]
+
+
+class _EagerDecode:
+    """generate's graph replaced by its body under inference mode."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args, generators=(), clone=True):
+        with torch.inference_mode():
+            return self.fn(*args)
+
+
+@pytest.mark.parametrize("mode", ["greedy", "sample"])
+def test_mesh_generate_cli_equals_eager(dev, nccl_mesh, tmp_path,
+                                        monkeypatch, mode):
+    """The generate CLI in this process under the world-1 NCCL group (its
+    own mesh; the decode one graph a batch, the ranks' gather after it),
+    flagship MN-QIH-gen from a seeded init over 64 synthetic dialogs, in
+    bf16: the JSON equal to the same CLI's with the graph replaced by its
+    eager body."""
+    import json
+
+    from visdial_tpu_torch import generate
+    from visdial_tpu_torch.config import Config
+    from visdial_tpu_torch.data.synthetic import make_synthetic_split
+    from visdial_tpu_torch.parallel.train_step import init_train_state
+    from visdial_tpu_torch.utils.checkpoint import save_checkpoint
+
+    base = Config(encoder="mn-ques-im-hist", decoder="gen", dropout=0.0,
+                  compute_dtype="bfloat16")
+    _, vocab = make_synthetic_split(base, num_dialogs=64, seed=base.seed + 1)
+    cfg = base.replace(vocab_size=vocab.size)
+    ckpt = save_checkpoint(str(tmp_path / "g"),
+                           init_train_state(cfg, device=dev), cfg)
+    extra = ["--sample", "--seed", "3"] if mode == "sample" else []
+    outs = []
+    for eager in (False, True):
+        if eager:
+            monkeypatch.setattr(generate, "InferenceGraphed", _EagerDecode)
+        out = str(tmp_path / f"{eager}.json")
+        generate.main(["--load_path", ckpt, "--synthetic", "64",
+                       "--num_dialogs", "0", "--mesh_data", "1",
+                       "--out_path", out, *extra])
+        with open(out) as f:
+            outs.append(json.load(f))
+    assert outs[0] == outs[1]
+    assert sum(len(d["rounds"]) for d in outs[0]["dialogs"]) > 0
+
+
+def test_staged_eval_copies_on_no_capture_stream(dev):
+    """The streamed eval's copy stream is never a stream a CUDA graph
+    captures on: after the default-priority pool has wrapped round twice
+    (64 streams drawn) it is none of them, nor torch.cuda.graph's capture
+    stream.  A copy the staging thread queued on the stream the main
+    thread captures would join that graph (the capture's thread_local mode
+    does not refuse it), and its event would then fail outside it."""
+    from visdial_tpu_torch.eval_harness import _Transfer
+
+    drawn = {torch.cuda.Stream(dev).cuda_stream for _ in range(64)}
+    capture = torch.cuda.graph(torch.cuda.CUDAGraph()).capture_stream
+    copy = _Transfer(torch.device("cuda", 0)).copy
+    assert copy.cuda_stream not in drawn | {capture.cuda_stream}
+
+
+def test_staged_upload_waits_for_a_capture(dev):
+    """The staging thread's upload takes graph.CAPTURING, which every
+    capture holds: an upload started while it is held finishes only after
+    its release, with the batch on the card.  The copy stream is one a
+    card, however the card is named."""
+    import threading
+
+    from visdial_tpu_torch.eval_harness import _Transfer
+    from visdial_tpu_torch.parallel.graph import CAPTURING
+
+    t = _Transfer(torch.device("cuda", 0))
+    assert _Transfer(torch.device("cuda")).copy.cuda_stream == \
+        t.copy.cuda_stream
+    got = []
+    with CAPTURING:
+        th = threading.Thread(
+            target=lambda: got.append(t.upload({"x": [[1, 2, 3], [4, 5, 6]]})))
+        th.start()
+        th.join(timeout=0.5)
+        assert th.is_alive() and not got
+    th.join(timeout=30)
+    (arrays, done), = got
+    t.wait(done)
+    assert torch.equal(arrays["x"].cpu(), torch.arange(1, 7).view(2, 3))
 
 
 def test_sampled_draw_is_torch_multinomial_on_the_card(dev):

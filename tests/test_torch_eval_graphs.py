@@ -20,7 +20,7 @@ tensors, where each graph's function runs eagerly:
   last given; the streaming path's replays of the factories' graphs and of
   the harness's rank graph; each split's own row graphs; a factory's replay
   outside inference mode; generate's sampling generator registered; and
-  every factory eager on a mesh of more than one rank or with impl="plain".
+  every factory eager with impl="plain", graphed on a mesh as on none.
 """
 
 import jax
@@ -462,16 +462,16 @@ def test_generate_registers_the_sampling_generator(fake_card, tmp_path,
 
 
 def test_eval_factories_are_eager_where_chosen():
-    """On a mesh of two ranks and with impl="plain" every factory returns
-    the eager function (no Graphed); a mesh of one rank, or none, the
-    graphs; the harness's cached factories are reused per (cfg, mesh,
-    impl)."""
+    """With impl="plain" every factory returns the eager function (no
+    Graphed); on a mesh of two ranks, of one, or none, the graphs (a vocab
+    shard's reductions inside them); the harness's cached factories are
+    reused per (cfg, mesh, impl)."""
     cfg = small_config(vocab_size=40)
     two = Mesh(data=2, model=1, d=0, m=0, device=torch.device("cpu"))
     one = Mesh(data=1, model=1, d=0, m=0, device=torch.device("cpu"))
     for make in (make_eval_fn, make_disc_table_eval_fns,
                  make_gen_bucket_eval_fns):
-        for mesh, impl, graphed in ((two, None, False), (None, "plain", False),
+        for mesh, impl, graphed in ((two, None, True), (None, "plain", False),
                                     (one, None, True), (None, None, True),
                                     (None, "cuda", True)):
             out = make(cfg, mesh, impl)

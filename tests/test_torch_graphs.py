@@ -17,7 +17,7 @@ infer.py) on CPU tensors, where each runs its captured function eagerly:
   API: one capture a signature, static leaves in the signature, copy-in,
   cloned outputs, launch counts taken out of the capture and added on each
   replay, generators registered; and the factories' copy-in of a foreign
-  state, remat refused, the eager step on a mesh of more than one rank.
+  state, remat accepted, the graph on a mesh of more than one rank.
 """
 
 import contextlib
@@ -245,22 +245,26 @@ def test_foreign_state_is_copied_in():
 
 
 def test_remat_is_refused_and_a_mesh_steps_eagerly():
-    """cfg.remat raises at the factory (the recompute would draw new masks);
-    on a mesh of two ranks the factories are the eager mesh steps."""
+    """Once refused, both now take the graph: every factory accepts
+    cfg.remat (a third generator a step, the recomputation's), and on a
+    mesh of two ranks with a process group each factory is a
+    GraphedTrainStep over that mesh (its collectives in the graph); a mesh
+    made without a process group is the one-device step."""
     cfg = small_config(vocab_size=40, remat=True)
+    cpu = torch.device("cpu")
     for make in (make_train_fn, make_multistep_train_fn, make_dense_train_fn):
-        with pytest.raises(ValueError, match="remat"):
-            make(cfg)
-    mesh = Mesh(data=2, model=1, d=0, m=0, device=torch.device("cpu"))
-    cfg = cfg.replace(remat=False)
-    for make, eager in ((make_train_fn, train_step),
-                        (make_multistep_train_fn, multi_train_step),
-                        (make_dense_train_fn, train_step)):
-        fn = make(cfg, mesh)
-        assert isinstance(fn, partial) and fn.func is eager
-        assert fn.keywords["mesh"] is mesh
-    assert isinstance(make_train_fn(cfg, Mesh(1, 1, 0, 0, torch.device("cpu"))),
-                      GraphedTrainStep)
+        fn = make(cfg)
+        assert isinstance(fn, GraphedTrainStep) and fn.steps.mesh is None
+        gens = fn.steps.generators(2, cpu)
+        assert len(gens) == 2 and all(g.recompute is not None for g in gens)
+    group = object()             # a process group's stand-in: never called
+    two = Mesh(data=2, model=1, d=1, m=0, device=cpu, data_group=group)
+    for make in (make_train_fn, make_multistep_train_fn, make_dense_train_fn):
+        fn = make(cfg.replace(remat=False), two)
+        assert isinstance(fn, GraphedTrainStep) and fn.steps.mesh is two
+        assert all(g.recompute is None for g in fn.steps.generators(1, cpu))
+    alone = make_train_fn(cfg, Mesh(1, 1, 0, 0, cpu))
+    assert isinstance(alone, GraphedTrainStep) and alone.steps.mesh is None
 
 
 def test_engine_packs_disc_answers_as_the_jax_engine(tmp_path):
@@ -391,6 +395,23 @@ def test_helper_captures_once_a_signature_and_counts_replays(fake_card,
     g({"x": x1}, 2)
     assert g.captures == 4 and fake_card[0].replays == 2
     assert lstm_layer.launches == 4 + 3 * 2 + 2
+
+
+def test_a_capture_holds_the_capture_lock(fake_card):
+    """Graphed holds graph.CAPTURING over a capture and over nothing else:
+    not the warm-up, not a replay (the streamed eval's staging thread takes
+    it around its uploads, so none runs during a capture)."""
+    held = []
+
+    def fn(x):
+        held.append(graph.CAPTURING.locked())
+        return x + 1
+
+    g = graph.Graphed(fn)
+    g(torch.zeros(2))
+    g(torch.ones(2))
+    assert held == [False, True] and g.captures == 1
+    assert fake_card[0].replays == 1 and not graph.CAPTURING.locked()
 
 
 def test_helper_restores_the_counters_when_a_capture_fails(fake_card,

@@ -24,15 +24,15 @@ Two ways to feed the device:
     then reads the ranks back once.  Over the byte cap it streams.
 
 The scoring goes through parallel/train_step.py's eval factories, as the
-JAX harness's goes through its jitted ones.  On one card a streamed batch
+JAX harness's goes through its jitted ones.  On the card a streamed batch
 replays the factories' graphs, then the harness's own rank graphs
 (_RANKED, _COMBINED: the JAX harness's _rank_fn, _cand_rank_fn and
 _combine_fn); the resident eval replays one graph of a batch's whole body
 for every batch (no CUDA graph loops, so it is not one graph over the
 split as JAX's lax.scan is one program).  Either way the graphs read the
 params from the factories' one shared copy, loaded once a call, and disc's
-option table where its graph wrote it.  The factories' eager functions (a
-mesh of more than one rank, impl="plain") run batch by batch.
+option table where its graph wrote it.  The factories' eager functions
+(impl="plain") run batch by batch.
 
 Either way the scores are ranked on the device, and the ranks of the rounds
 with dialog_valid and round_valid set give MRR / R@1 / R@5 / R@10 / mean
@@ -48,7 +48,11 @@ the metrics from them and returns rank 0's dict.  A batch the data axis
 does not divide is replicated instead: every rank scores all of it and no
 gather runs (JAX's mesh.py::shard_batch policy).  The disc option table is
 built whole on every rank; the vocab-dimensioned leaves are read as the
-rank's shard, passed down as an argument (parallel/mesh.py::VocabShard).
+rank's shard, passed down as an argument (parallel/mesh.py::VocabShard),
+and the shard's reductions over the model group run inside the graphs.
+The ranks of a model group hold the same dialogs, so they capture and
+replay the same signatures (the gen buckets' capacities are the split's);
+the data gather and the metrics' broadcast stay outside the graphs.
 """
 
 from __future__ import annotations
@@ -67,7 +71,8 @@ from .data.dataset import VisDialSplit, Vocabulary
 from .data.loader import EvalLoader
 
 from .models.model import _impl, batch_to_device
-from .parallel.graph import Graphed, InferenceGraphed, read_in_place
+from .parallel.graph import (CAPTURING, Graphed, InferenceGraphed,
+                             read_in_place)
 from .parallel.mesh import Mesh, slice_dialogs
 from .parallel.train_step import (make_disc_table_eval_fns, make_eval_fn,
                                   make_gen_bucket_eval_fns)
@@ -132,14 +137,20 @@ class _Transfer:
     compute stream still reads it); a readback goes into pinned host
     memory with non_blocking, and its event alone is waited on, so reading
     batch i-1's ranks does not wait for batch i.  On the CPU both are plain
-    moves with no events."""
+    moves with no events.
+
+    The main thread may capture a graph (a factory's first batch) while the
+    staging thread uploads the next.  torch hands its streams out from
+    pools, round robin, so the copy stream may be the one being captured:
+    an upload holds graph.CAPTURING, which every capture holds, and so
+    never runs during one.  The copy stream is taken once a device."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.cuda = device.type == "cuda"
         if self.cuda:
             self.compute = torch.cuda.current_stream(device)
-            self.copy = torch.cuda.Stream(device)
+            self.copy = _copy_stream(torch.cuda.device(device).idx)
 
     def upload(self, arrays: dict):
         """(tensors on the device, the copy's event or None); called from
@@ -147,13 +158,13 @@ class _Transfer:
         host = batch_to_device(arrays, "cpu")
         if not self.cuda:
             return host, None
-        with torch.cuda.stream(self.copy):
+        with CAPTURING, torch.cuda.stream(self.copy):
             dev = {k: v.pin_memory().to(self.device, non_blocking=True)
                    for k, v in host.items()}
             done = torch.cuda.Event()
             done.record(self.copy)
-        for v in dev.values():
-            v.record_stream(self.compute)
+            for v in dev.values():
+                v.record_stream(self.compute)
         return dev, done
 
     def wait(self, done) -> None:
@@ -180,6 +191,14 @@ class _Transfer:
         if done is not None:
             done.synchronize()
         return [h.numpy() for h in host]
+
+
+@functools.lru_cache(maxsize=None)
+def _copy_stream(index: int) -> torch.cuda.Stream:
+    """The streamed eval's copy stream on card `index`, one for the process
+    (high priority: not a stream of the default-priority pool that
+    torch.cuda.graph and the NCCL groups draw from)."""
+    return torch.cuda.Stream(index, priority=-1)
 
 
 class _GenBucketPlan:
@@ -271,9 +290,8 @@ def _cached_gen_bucket_fns(cfg: Config, mesh: Mesh | None, impl: str | None):
 
 def _graphed(fns: tuple) -> bool:
     """Whether the factories' functions are graphs that share a params copy
-    (InferenceGraphed with a Held); else (a mesh of more than one rank,
-    impl="plain", a caller's own functions) every piece of a batch runs
-    eagerly."""
+    (InferenceGraphed with a Held); else (impl="plain", a caller's own
+    functions) every piece of a batch runs eagerly."""
     return all(isinstance(f, Graphed) and f.held is not None for f in fns)
 
 
@@ -649,11 +667,11 @@ def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,
     the direct path through eval_fn (make_eval_fn; the same scores).  None
     uses the factories cached per (cfg, mesh, impl); pass the factories'
     returns to reuse them across evals, False (or an explicit eval_fn) to
-    force the direct path, which streams.  With graphed factories (one
-    card) each streamed batch replays their graphs and the harness's rank
-    graphs, and the resident eval replays one batch graph nb times
-    (_ResidentEvalBase); eager ones (a mesh of more than one rank,
-    impl="plain", a caller's own functions) run batch by batch.
+    force the direct path, which streams.  With graphed factories (on the
+    card, over a mesh too) each streamed batch replays their graphs and the
+    harness's rank graphs, and the resident eval replays one batch graph nb
+    times (_ResidentEvalBase); eager ones (impl="plain", a caller's own
+    functions) run batch by batch.
 
     resident=True keeps the split's batches on the device (cached on the
     split per class, batch size, cfg, ties, byte cap, device and mesh) and

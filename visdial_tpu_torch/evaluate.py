@@ -21,7 +21,8 @@ Usage:
 
 --device cuda (the default) runs the kernels; --device cpu the plain
 versions.  The scoring goes through the eval factories the harness caches
-(parallel/train_step.py; on one card one CUDA graph a batch).  --resident
+(parallel/train_step.py; on the card one CUDA graph a batch, on one card
+or a mesh).  --resident
 (the default) keeps the split's batches on the device and scores them with
 one readback (eval_harness._ResidentDiscEval / _ResidentGenEval: one batch
 graph replayed for every batch; the JSON line gains resident_cache_seconds,

@@ -4,13 +4,14 @@ visdial_tpu/finetune.py), the VisDial v1.0 NDCG phase.
 Loads a trained disc checkpoint of either package and fine-tunes it so its
 candidate-score softmax matches the dense human gt_relevance annotations
 (the `visdial_1.0_val_dense_annotations.json` schema) with
-models/model.py::model_dense_loss, each step one CUDA graph on one card
-(parallel/train_step.py::make_dense_train_fn).  The learning rate is
+models/model.py::model_dense_loss, each step one CUDA graph on the card
+(parallel/train_step.py::make_dense_train_fn; over a mesh its collectives
+inside).  The learning rate is
 --learning_rate without decay; the optimizer state is fresh and the
 dropout generator is seeded from --seed.  Progress is JSONL: `ndcg` on the
 annotated rounds at step 0, every --eval_every steps and at the end (the
 resident eval's candidate rankings, through the harness's cached eval
-factories: one batch graph on one card), `finetune` per step (read back every
+factories: one batch graph on the card), `finetune` per step (read back every
 --log_every steps), then `checkpoint`.
 
 Usage:

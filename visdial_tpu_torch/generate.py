@@ -5,7 +5,7 @@ Loads a gen-decoder checkpoint of either package, decodes an answer for
 every round of the first --num_dialogs dialogs of a split through
 models/model.py::model_generate (greedy; --sample --temperature, drawn from
 a torch.Generator on the device seeded with --seed; or --beam_size), one
-CUDA graph a batch shape on one card (parallel/graph.py),
+CUDA graph a batch shape on the card (parallel/graph.py),
 detokenizes with the vocabulary and writes the JSON that `vis/index.html`
 renders: {"model", "split", "dialogs": [{"image_id", "caption", "rounds":
 [{"question", "gt_answer", "generated", "log_prob"}, ...]}, ...]}.
@@ -104,15 +104,12 @@ def main(argv=None) -> list:
            if args.sample else None)
     sl = mesh.dialog_slice(bs)
     # the decode, as JAX's jitted model_generate: one CUDA graph a batch
-    # signature, over the params it closes over; the sampling generator is
-    # registered with it, so a replay draws from its state and advances it
-    # as an eager call does.  Eager on a mesh of more than one rank.
-    body = partial(_decode, params, cfg)
-    if mesh.world > 1:
-        decode = torch.inference_mode()(body)
-    else:
-        decode = partial(InferenceGraphed(body),
-                         generators=[gen] if gen is not None else [])
+    # signature, over the params it closes over (whole on every rank, so
+    # no collective runs inside); the sampling generator is registered
+    # with it, so a replay draws from its state and advances it as an
+    # eager call does.  The ranks' dialogs are gathered after it.
+    decode = partial(InferenceGraphed(partial(_decode, params, cfg)),
+                     generators=[gen] if gen is not None else [])
     loader = EvalLoader(data, vocab, cfg, batch_size=bs, option_tokens=False)
     records = []
     for batch_idx, batch in enumerate(loader):

@@ -88,10 +88,13 @@ def seeded(seed: int | None, device) -> torch.Generator | None:
 
 
 class StepGenerators(NamedTuple):
-    """A train step's two dropout generators on the device, made and seeded
+    """A train step's dropout generators on the device, made and seeded
     already, which models/model.py::model_loss takes in place of the CPU
-    generator whose seeds would make them (`seeded`).  A captured step
+    generator whose seeds would make them (`seeded`).  Under cfg.remat the
+    encoder's recomputation draws from `recompute`, seeded with the
+    encoder's seed, so it redraws the forward's masks.  A captured step
     (parallel/train_step.py) keeps them across replays and re-seeds them
     from the state's generator before each."""
     encoder: torch.Generator
     decoder: torch.Generator
+    recompute: torch.Generator | None = None

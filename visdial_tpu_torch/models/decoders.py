@@ -358,7 +358,10 @@ def disc_loss(params, embed_params, joint, batch, cfg: Config, *,
     if "round_valid" not in batch:
         if denominator is None:
             return nll.mean()
-        return nll.sum() / denominator(torch.tensor(float(N), device=nll.device))
+        # the count made on the device: a CUDA graph's capture refuses a
+        # copy from the host
+        return nll.sum() / denominator(
+            torch.full((), float(N), dtype=torch.float32, device=nll.device))
     v = batch["round_valid"].reshape(N).to(nll.dtype)
     count = v.sum() if denominator is None else denominator(v.sum())
     return (nll * v).sum() / count.clamp(min=1.0)

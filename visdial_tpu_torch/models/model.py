@@ -67,15 +67,17 @@ def model_loss(params, batch, cfg: Config, *, train: bool = True,
     torch.Generator (the train state's); in train mode two seeds are drawn
     from it, one for the encoder's dropout and one for the decoder's (the
     roles of jax.random.split(rng)), each seeding a generator on the
-    batch's device where it is used.  `gen` may instead be the step's two
+    batch's device where it is used.  `gen` may instead be the step's
     device generators, seeded already (core.py::StepGenerators: a captured
     step's, parallel/train_step.py).
 
     cfg.remat checkpoints the encoder (torch.utils.checkpoint, non-reentrant)
     and recomputes it in the backward.  The recomputation makes its
-    generator anew from the same seed, so it draws the forward's dropout
-    masks again: checkpoint's preserve_rng_state restores only the default
-    generators, never an explicit one, so it is not relied on (and off).
+    generator anew from the same seed (with StepGenerators it draws from
+    their `recompute` generator, seeded with the encoder's seed), so it
+    draws the forward's dropout masks again: checkpoint's
+    preserve_rng_state restores only the default generators, never an
+    explicit one, so it is not relied on (and off).
 
     On a data axis (parallel/train_step.py) the batch is this rank's shard
     of the global batch: the mean divides by `denominator`(the shard's
@@ -99,25 +101,31 @@ def _train_encode(params, batch, cfg: Config, train: bool,
     """The encoder of a training loss: (joint (N, H), the decoder's dropout
     generator or None).  Two seeds come from `gen` in train mode, each
     offset by seed_offset; with cfg.remat the encoder is checkpointed and
-    recomputed from its seed.  StepGenerators are used as they are (they
-    carry no seed to recompute from: the factories that make them refuse
-    cfg.remat).  The closure holds the seed and `shard`
-    itself, so the recomputation reads the forward's vocab shard on
-    whatever thread the autograd engine runs it."""
+    recomputed from its seed.  StepGenerators are used as they are, seeded
+    already: the forward draws from `encoder` and a recomputation from
+    `recompute`, which holds the encoder's seed.  The closure holds the
+    seed (or the generators) and `shard` itself, so the recomputation
+    reads the forward's vocab shard on whatever thread the autograd engine
+    runs it."""
     device = batch["ques"].device
-    enc_seed = dec_seed = None
+    enc_seed = dec_seed = draws = None
     if isinstance(gen, StepGenerators):
-        enc_gen, dec_gen = gen if train else (None, None)
+        if cfg.remat and train and gen.recompute is None:
+            raise ValueError("cfg.remat: the step's generators need a "
+                             "`recompute` generator seeded as `encoder`")
+        # the forward's generator, then the recomputation's
+        draws = [gen.encoder, gen.recompute] if train else [None, None]
+        dec_gen = gen.decoder if train else None
     else:
         if train and gen is not None:
             enc_seed, dec_seed = (s + seed_offset for s in split_seeds(gen))
-        enc_gen, dec_gen = None, seeded(dec_seed, device)
+        dec_gen = seeded(dec_seed, device)
 
     def encode(enc_params, embed_params):
         return encoder_apply(enc_params, embed_params, batch, cfg,
                              train=train,
-                             gen=(seeded(enc_seed, device) if enc_gen is None
-                                  else enc_gen),
+                             gen=(seeded(enc_seed, device) if draws is None
+                                  else draws.pop(0)),
                              impl=impl, shard=shard)
 
     if cfg.remat and train:

@@ -43,29 +43,48 @@ Two kinds of tensor are read where they are, never copied:
     writes, so it returns clones only.
 
 The kernels' wrappers count their launches in Python (`.launches`, and the
-contraction helper's `.tensor_core`), and a replay runs no Python.  So a
-capture records each counter's change, takes it back out (capture executes
-nothing), and every replay adds it again.
+contraction helper's `.tensor_core`), as the mesh counts its collectives
+(parallel/mesh.py), and a replay runs no Python.  So a capture records each
+counter's change, takes it back out (capture executes nothing), and every
+replay adds it again.
+
+A graph may hold NCCL collectives (a step or an eval over a mesh): the
+warm-up issues them and the capture records them on the capturing stream,
+so every rank of a group must capture and replay the same signatures in
+the same order, as it would issue the eager calls.  The groups'
+communicators exist before any capture (parallel/mesh.py::make_mesh).
+
+A capture holds `CAPTURING`, and a thread that queues device work beside
+the capturing one (the streamed eval's staging thread) takes it around
+that work: in thread_local mode a capture does not refuse another
+thread's calls, and work queued on the stream being captured would join
+the graph.
 """
 
 from __future__ import annotations
 
 import gc
+import threading
 from typing import NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
 
 
+CAPTURING = threading.Lock()      # held by every capture (the docstring)
+
+
 def counters() -> list[tuple[object, str]]:
-    """(function, attribute) of every launch counter in the port: the six
-    kernels' wrappers' `.launches` and the bf16 contractions'
-    `.tensor_core`."""
+    """(object, attribute) of every launch counter in the port: the six
+    kernels' wrappers' `.launches`, the bf16 contractions' `.tensor_core`
+    and the mesh's `collectives` (parallel/mesh.py)."""
     from ..ops import kernel_wrappers
     from ..ops.contract import mm_f32, scores_f32
+    from . import mesh
 
     return [(fn, "launches") for fn in kernel_wrappers().values()] + [
-        (mm_f32, "tensor_core"), (scores_f32, "tensor_core")]
+        (mm_f32, "tensor_core"), (scores_f32, "tensor_core"),
+        (mesh, "collectives")]
 
 
 def _device(leaves) -> torch.device | None:
@@ -246,7 +265,7 @@ class Graphed:
             # thread_local: a CUDA call of another thread (the eval's
             # staging thread, a process group's watchdog) must not
             # invalidate this thread's capture
-            with torch.cuda.device(device), torch.cuda.graph(
+            with CAPTURING, torch.cuda.device(device), torch.cuda.graph(
                     graph, capture_error_mode="thread_local", **pool):
                 output = self.fn(*args)
             counts = [a - b for a, b in zip(_read(cs), before)]

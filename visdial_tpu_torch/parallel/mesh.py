@@ -23,6 +23,15 @@ batch_size / data dialogs of the global batch (the loaders' `shard`), so
 the deduplicated candidate rows (opt_uniq, opt_row) are built per shard and
 never sliced; slice_dialogs refuses them.
 
+Each collective of the steps and evals (Mesh.sum_data / count /
+gather_data, VocabShard.sum / gather, all_reduce_grads,
+sum_sharded_squares, gather_tree) adds one to the module's `collectives`
+count where it is issued; graph.py::counters registers it beside the
+kernels' launch counts, so a CUDA graph that captured some adds them again
+on each replay.  make_mesh makes each group's communicator with one small
+collective, since a NCCL communicator is made at a group's first
+collective and a capture cannot make one.
+
 A deliberate divergence: the JAX mesh may leave devices idle; a process
 group cannot leave a rank idle usefully, so a mesh smaller than the world
 exits.  Resume on fewer cards by launching fewer processes.
@@ -41,12 +50,27 @@ import torch.distributed as dist
 BUCKET_BYTES = 25 << 20
 # train batch keys that lead with the batch's candidate rows, not its dialogs
 NO_DIALOG_AXIS = ("opt_uniq", "opt_row")
+# the collectives this module has issued (module docstring)
+collectives = 0
+
+
+def _issued() -> None:
+    global collectives
+    collectives += 1
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """t summed over group, in place."""
+    dist.all_reduce(t, group=group)
+    _issued()
+    return t
 
 
 def _all_gather(t: torch.Tensor, group, n: int) -> torch.Tensor:
     """(n, *t.shape): every rank of group's t, in group rank order."""
     out = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(out, t.contiguous(), group=group)
+    _issued()
     return torch.stack(out)
 
 
@@ -75,8 +99,7 @@ class VocabShard:
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """t summed over the model group, in place."""
-        dist.all_reduce(t, group=self.group)
-        return t
+        return _all_reduce(t, self.group)
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """(model, *t.shape): every shard's t, in shard order."""
@@ -136,7 +159,7 @@ class Mesh:
     def sum_data(self, t: torch.Tensor) -> torch.Tensor:
         """t summed over the data group, in place."""
         if self.data_group is not None:
-            dist.all_reduce(t, group=self.data_group)
+            _all_reduce(t, self.data_group)
         return t
 
     def count(self, c: torch.Tensor) -> torch.Tensor:
@@ -229,6 +252,11 @@ def make_mesh(data: int = -1, model: int = 1, device="cuda") -> Mesh:
         for dd in range(data):
             g = dist.new_group([dd * model + mm for mm in range(model)])
             model_group = g if dd == d else model_group
+        # each group's communicator, made before any graph captures one of
+        # its collectives (every data group first, then every model group:
+        # no rank waits on a group whose members wait on it)
+        for g in (data_group, model_group):
+            dist.all_reduce(torch.zeros(1, device=dev), group=g)
     return Mesh(data, model, d, m, dev, data_group, model_group)
 
 
@@ -317,8 +345,8 @@ def all_reduce_grads(flat: dict, mesh: Mesh) -> dict:
     out, bucket, size = {}, [], 0
 
     def flush():
-        buf = torch.cat([flat[k].reshape(-1) for k in bucket])
-        dist.all_reduce(buf, group=mesh.data_group)
+        buf = _all_reduce(torch.cat([flat[k].reshape(-1) for k in bucket]),
+                          mesh.data_group)
         for k, piece in zip(bucket, buf.split([flat[k].numel() for k in bucket])):
             out[k] = piece.view_as(flat[k])
         bucket.clear()
@@ -341,8 +369,7 @@ def sum_sharded_squares(sq: dict, sharded, mesh: Mesh) -> dict:
     keys = [k for k in sorted(sq) if k in sharded]
     if not keys or mesh.model_group is None:
         return sq
-    buf = torch.stack([sq[k] for k in keys])
-    dist.all_reduce(buf, group=mesh.model_group)
+    buf = _all_reduce(torch.stack([sq[k] for k in keys]), mesh.model_group)
     return {**sq, **dict(zip(keys, buf.unbind()))}
 
 

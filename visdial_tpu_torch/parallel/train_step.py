@@ -20,11 +20,14 @@ masks and different rows draw their own: a mesh step equals the one-device
 step over the global batch at dropout 0 only.
 
 make_train_fn, make_multistep_train_fn and make_dense_train_fn are the JAX
-package's compiled dispatch: on one card each call is one CUDA graph
+package's compiled dispatch: on the card each call is one CUDA graph
 (parallel/graph.py), G steps of multistep included, as jax.jit of the step
-or of its lax.scan is one device program there.  train_step and
-multi_train_step stay eager; they are the reference the graphs are held to.
-The eval factories (make_eval_fn, make_disc_table_eval_fns,
+or of its lax.scan is one device program there; on a mesh the graph holds
+the step's NCCL collectives (the count's and loss's all-reduces, the
+gradient buckets, the model group's squared norms, the vocab shard's
+reductions), and under cfg.remat the encoder's recomputation.  train_step
+and multi_train_step stay eager; they are the reference the graphs are
+held to.  The eval factories (make_eval_fn, make_disc_table_eval_fns,
 make_gen_bucket_eval_fns) are the same for scoring: each function they
 return is one CUDA graph a signature under inference mode
 (graph.py::InferenceGraphed), its `.fn` the eager function, and a
@@ -123,11 +126,9 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
     tensors or floats) and step."""
     loss, grads = loss_and_grads(state.params, batch, cfg, state.gen, impl,
                                  loss_fn, mesh)
-    sq_sums = None if mesh is None or mesh.model == 1 else partial(
-        sum_sharded_squares, sharded=param_layouts(cfg, mesh), mesh=mesh)
     lr = lr_at_step(state.opt.step, cfg)
     params, opt, gnorm = apply_updates(state.params, grads, state.opt, lr, cfg,
-                                       sq_sums)
+                                       _sq_sums(cfg, mesh))
     metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm, "step": opt.step}
     return TrainState(params, opt, state.gen), metrics
 
@@ -154,6 +155,15 @@ def multi_train_step(state: TrainState, batches: dict, cfg: Config,
     return state, metrics
 
 
+def _sq_sums(cfg: Config, mesh: Mesh | None):
+    """The global norm's squared-norm sums over the model group
+    (apply_updates' sq_sums), or None without a model axis."""
+    if mesh is None or mesh.model == 1:
+        return None
+    return partial(sum_sharded_squares, sharded=param_layouts(cfg, mesh),
+                   mesh=mesh)
+
+
 def step_seeds(gen: torch.Generator, steps: int) -> list[tuple[int, int]]:
     """The (encoder, decoder) dropout seeds of `steps` train steps, drawn
     from the state's CPU generator as that many eager steps draw them
@@ -163,22 +173,27 @@ def step_seeds(gen: torch.Generator, steps: int) -> list[tuple[int, int]]:
 
 class _TrainSteps:
     """The graphs' body: G steps from the buffers (params, m, v), written
-    back into them at the end; it refers to nothing that holds its graphs,
-    so a dropped factory frees them (and their memory pools) at once."""
+    back into them at the end, over the mesh where given; it refers to
+    nothing that holds its graphs, so a dropped factory frees them (and
+    their memory pools) at once."""
 
-    def __init__(self, cfg: Config, impl: str | None, loss_fn, stacked: bool):
+    def __init__(self, cfg: Config, impl: str | None, loss_fn, stacked: bool,
+                 mesh: Mesh | None):
         self.cfg, self.impl, self.loss_fn, self.stacked = (cfg, impl, loss_fn,
                                                            stacked)
+        self.mesh, self.sq_sums = mesh, _sq_sums(cfg, mesh)
         self.buffers: tuple | None = None    # (params, m, v) the graphs use
         self._gens: dict = {}                # (G, device) -> [StepGenerators]
 
     def generators(self, G: int, device) -> list:
-        """The G steps' dropout generators on `device`, made once."""
+        """The G steps' dropout generators on `device`, made once (under
+        cfg.remat three a step: the recomputation's too)."""
         key = (G, torch.device(device))
         if key not in self._gens:
+            n = 3 if self.cfg.remat else 2
             self._gens[key] = [
-                StepGenerators(torch.Generator(device=device),
-                               torch.Generator(device=device))
+                StepGenerators(*(torch.Generator(device=device)
+                                 for _ in range(n)))
                 for _ in range(G)]
         return self._gens[key]
 
@@ -191,9 +206,9 @@ class _TrainSteps:
         for g, gens in enumerate(self.generators(G, scalars.device)):
             b = {k: x[g] for k, x in batch.items()} if self.stacked else batch
             loss, grads = loss_and_grads(params, b, self.cfg, gens, self.impl,
-                                         self.loss_fn)
+                                         self.loss_fn, self.mesh)
             params, opt, gnorm = apply_updates(
-                params, grads, opt, scalars[g, 0], self.cfg,
+                params, grads, opt, scalars[g, 0], self.cfg, self.sq_sums,
                 scales=(scalars[g, 1], scalars[g, 2]))
             losses.append(loss)
             gnorms.append(gnorm)
@@ -203,8 +218,9 @@ class _TrainSteps:
 
 class GraphedTrainStep:
     """G optimizer steps of loss_fn a call as one CUDA graph per batch
-    signature (parallel/graph.py::Graphed), on one device: what
-    make_train_fn, make_multistep_train_fn and make_dense_train_fn return.
+    signature (parallel/graph.py::Graphed), on one device or over a mesh
+    (its collectives captured in the graph): what make_train_fn,
+    make_multistep_train_fn and make_dense_train_fn return.
 
     The state's tensors are the graph's buffers: the first call adopts the
     state it is given, the steps write the new params and moments into them
@@ -212,19 +228,17 @@ class GraphedTrainStep:
     later call with a state whose tensors are not those copies it in first
     (a resume, a state from elsewhere).  The step count stays on the host;
     before each call the host writes the steps' lr and Adam scales into a
-    device buffer (optim.py::step_scalars) and seeds 2G device generators,
+    device buffer (optim.py::step_scalars) and seeds the device generators,
     registered with the graphs, from the state's CPU generator in the eager
-    order (step_seeds), so a replay computes the eager steps bit for bit,
-    dropout masks included.  On CPU tensors the same steps run eagerly."""
+    order (step_seeds) plus the rank's data coordinate (the eager step's
+    seed_offset), so a replay computes the eager steps bit for bit, dropout
+    masks included; under cfg.remat a third generator a step, seeded as the
+    encoder's, serves the recomputation.  On CPU tensors the same steps run
+    eagerly."""
 
-    def __init__(self, cfg: Config, impl: str | None, loss_fn, stacked: bool):
-        if cfg.remat:
-            raise ValueError(
-                "cfg.remat under a CUDA graph: the recomputed encoder would "
-                "draw new dropout masks from the graph's generators, not the "
-                "forward's (they hold no seed to rebuild them from); train "
-                "with remat off, or call train_step")
-        self.steps = _TrainSteps(cfg, impl, loss_fn, stacked)
+    def __init__(self, cfg: Config, impl: str | None, loss_fn, stacked: bool,
+                 mesh: Mesh | None = None):
+        self.steps = _TrainSteps(cfg, impl, loss_fn, stacked, mesh)
         self.graph = Graphed(self.steps)
 
     @property
@@ -236,13 +250,16 @@ class GraphedTrainStep:
         G = len(first) if self.steps.stacked else 1
         self._donate(state)
         gens = self.steps.generators(G, first.device)
+        offset = 0 if self.steps.mesh is None else self.steps.mesh.d
         for g, (enc, dec) in zip(gens, step_seeds(state.gen, G)):
-            g.encoder.manual_seed(enc)
-            g.decoder.manual_seed(dec)
+            g.encoder.manual_seed(enc + offset)
+            g.decoder.manual_seed(dec + offset)
+            if g.recompute is not None:
+                g.recompute.manual_seed(enc + offset)
         scalars = step_scalars(state.opt.step, G, self.steps.cfg)
         losses, gnorms = self.graph(
             batch, scalars.to(first.device),
-            generators=[x for g in gens for x in g])
+            generators=[x for g in gens for x in g if x is not None])
         step = state.opt.step + G
         params, m, v = self.steps.buffers
         new = TrainState(params, OptState(step, m, v), state.gen)
@@ -263,19 +280,22 @@ class GraphedTrainStep:
 
 
 def _factory(cfg: Config, mesh: Mesh | None, impl, loss_fn, stacked: bool):
-    if mesh is not None and mesh.world > 1:
-        return partial(multi_train_step if stacked else train_step, cfg=cfg,
-                       impl=impl, loss_fn=loss_fn, mesh=mesh)
-    return GraphedTrainStep(cfg, impl, loss_fn, stacked)
+    # a mesh made without a process group has no collective to issue: its
+    # step is the one-device step (the mean, not a sum over a count)
+    if mesh is not None and mesh.data_group is None \
+            and mesh.model_group is None:
+        mesh = None
+    return GraphedTrainStep(cfg, impl, loss_fn, stacked, mesh)
 
 
 def make_train_fn(cfg: Config, mesh: Mesh | None = None,
                   impl: str | None = None):
     """train_step as one CUDA graph a call (train_step.py::make_train_fn):
     fn(state, batch) -> (state, metrics) as train_step returns them, the
-    state donated (GraphedTrainStep).  On a mesh of more than one rank it
-    is the eager mesh step (graphs over NCCL are not captured); a world of
-    one is the one-device step."""
+    state donated (GraphedTrainStep).  Over a mesh with a process group it
+    is train_step(..., mesh=mesh), `batch` this rank's shard, the
+    collectives in the graph; a mesh without one is the one-device
+    step."""
     return _factory(cfg, mesh, impl, model_loss, stacked=False)
 
 
@@ -296,15 +316,14 @@ def make_dense_train_fn(cfg: Config, mesh: Mesh | None = None,
     return _factory(cfg, mesh, impl, model_dense_loss, stacked=False)
 
 
-def _eval_graphs(mesh: Mesh | None, impl: str | None, *fns) -> tuple:
+def _eval_graphs(impl: str | None, *fns) -> tuple:
     """Each fn as one CUDA graph a signature (InferenceGraphed), all of them
     reading the params from one shared device copy (graph.py::Held, their
     `.held`: loaded on each call unless the params passed are those
-    buffers); or, where the caller chose the eager path up front, each fn
-    itself under inference mode: on a mesh of more than one rank (a vocab
-    shard's scoring all-reduces, and graphs over NCCL are not captured) and
-    with impl="plain" (the kernels' reference)."""
-    if (mesh is not None and mesh.world > 1) or impl == "plain":
+    buffers), a vocab shard's reductions over the model group inside; or,
+    with impl="plain" (the kernels' reference, chosen up front), each fn
+    itself under inference mode."""
+    if impl == "plain":
         return tuple(torch.inference_mode()(fn) for fn in fns)
     held = Held()
     return tuple(InferenceGraphed(fn, held=held) for fn in fns)
@@ -319,15 +338,15 @@ def make_eval_fn(cfg: Config, mesh: Mesh | None = None,
     """model_scores as one CUDA graph a batch signature
     (train_step.py::make_eval_fn): score(params, batch) -> (B, R, K).  The
     params are graph arguments, copied into the graph's buffers on each
-    call unless they are those buffers (`score.held.tree`).  On a mesh
-    (this rank's vocab shard) and with impl="plain" it is the eager
+    call unless they are those buffers (`score.held.tree`).  On a mesh it
+    scores with this rank's vocab shard; with impl="plain" it is the eager
     function (_eval_graphs)."""
     shard = _shard(cfg, mesh)
 
     def score(params, batch):
         return model_scores(params, batch, cfg, impl=impl, shard=shard)
 
-    return _eval_graphs(mesh, impl, score)[0]
+    return _eval_graphs(impl, score)[0]
 
 
 def make_disc_table_eval_fns(cfg: Config, mesh: Mesh | None = None,
@@ -350,7 +369,7 @@ def make_disc_table_eval_fns(cfg: Config, mesh: Mesh | None = None,
         return model_scores_with_table(params, batch, table, cfg, impl=impl,
                                        shard=shard)
 
-    return _eval_graphs(mesh, impl, table, score)
+    return _eval_graphs(impl, table, score)
 
 
 def make_gen_bucket_eval_fns(cfg: Config, mesh: Mesh | None = None,
@@ -377,7 +396,7 @@ def make_gen_bucket_eval_fns(cfg: Config, mesh: Mesh | None = None,
                               impl=impl or _impl(cfg, joint.device),
                               shard=shard)
 
-    return _eval_graphs(mesh, impl, encode, score)
+    return _eval_graphs(impl, encode, score)
 
 
 def gen_rows_score(params, joint, opt_list, opt_list_len, opt_rows, row_idx,

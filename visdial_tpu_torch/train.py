@@ -26,10 +26,12 @@ step, dropout generator, config) in the JAX package's format.  Every
 encoder (with or without img_spatial) trains with either decoder.
 
 The steps go through parallel/train_step.py's factories, as the JAX CLI's
-go through its jitted ones: on one card each call is one CUDA graph
+go through its jitted ones: on the card each call is one CUDA graph
 (make_train_fn, and make_multistep_train_fn for --steps_per_dispatch > 1),
-captured once for the run's batch shape, and its periodic evals through
-the eval factories (make_disc_table_eval_fns, make_gen_bucket_eval_fns or
+captured once for the run's batch shape, on one card or under torchrun
+(the mesh's collectives inside the graph), with --remat true too (the
+encoder's recomputation inside it); and its periodic evals through the
+eval factories (make_disc_table_eval_fns, make_gen_bucket_eval_fns or
 make_eval_fn), built once beside them.  --debug_nans runs the eager steps
 (train_step, multi_train_step): anomaly detection reads every backward
 output on the host, which a graph cannot.
