@@ -901,6 +901,29 @@ def test_train_graph_captures_once_a_signature(dev):
     assert fn.captures == 2 and out.opt.step == 2
 
 
+def test_graph_spans_a_capture_a_signature_and_each_replay(dev):
+    """With the port's recorder on: one graph.capture span for each new
+    signature, graph.captures following it, and one graph.replay span for
+    each replay, graph.replays following it."""
+    from visdial_tpu_torch.parallel.graph import Graphed
+    from visdial_tpu_torch.utils import trace
+
+    g = Graphed(lambda x: x * 2 + 1)
+    trace.start()
+    try:
+        for n in (8, 8, 8, 16, 8):
+            out = g(torch.full((n,), float(n), device=dev))
+    finally:
+        record = trace.stop()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((8,), 17.0, device=dev))
+    names = [record["names"][s[0]] for s in record["spans"]]
+    assert names.count("graph.capture") == 2 == g.captures
+    assert record["counters"]["graph.captures"] == 2
+    assert names.count("graph.replay") == 3 == g.replays
+    assert record["counters"]["graph.replays"] == 3
+
+
 def _bench_batches(dev, decoder, n, remat=False, dropout=0.5, **kw):
     """(cfg, n random batches on the card) at the bench's train point in
     bf16 (flagship widths; disc at batch 32, gen at 64)."""

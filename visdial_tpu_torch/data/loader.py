@@ -42,6 +42,7 @@ from typing import Any, Iterator
 import numpy as np
 
 from ..config import Config, encoder_family, encoder_uses_history, encoder_uses_image
+from ..utils import trace
 from .dataset import VisDialSplit, Vocabulary
 
 
@@ -198,23 +199,25 @@ class BatchAssembler:
         self.need_hist = encoder_uses_history(config.encoder)
         self.need_concat = self.family == "lf" and self.need_hist
         self.need_facts = self.family in ("hre", "hrea", "mn") and self.need_hist
-        if config.img_norm:
-            feats = data.img_feat
-            if config.img_spatial:
-                # spatial map (N, S*C): L2-normalize each LOCATION's C-dim
-                # vector (the per-feature analog of fc7 imgNorm; a whole-map
-                # norm would only rescale attention logits uniformly)
-                S, C = config.img_spatial_slots, config.img_spatial_channels
-                loc = feats.reshape(len(feats), S, C)
-                norm = np.linalg.norm(loc, axis=2, keepdims=True)
-                feats = (loc / np.maximum(norm, 1e-8)).reshape(feats.shape)
-                self.img_feat = feats.astype(np.float32)
+        with trace.span("build.host"):
+            if config.img_norm:
+                feats = data.img_feat
+                if config.img_spatial:
+                    # spatial map (N, S*C): L2-normalize each LOCATION's
+                    # C-dim vector (the per-feature analog of fc7 imgNorm; a
+                    # whole-map norm would only rescale attention logits
+                    # uniformly)
+                    S, C = config.img_spatial_slots, config.img_spatial_channels
+                    loc = feats.reshape(len(feats), S, C)
+                    norm = np.linalg.norm(loc, axis=2, keepdims=True)
+                    feats = (loc / np.maximum(norm, 1e-8)).reshape(feats.shape)
+                    self.img_feat = feats.astype(np.float32)
+                else:
+                    norm = np.linalg.norm(feats, axis=1, keepdims=True)
+                    self.img_feat = (feats / np.maximum(norm, 1e-8)).astype(
+                        np.float32)
             else:
-                norm = np.linalg.norm(feats, axis=1, keepdims=True)
-                self.img_feat = (feats / np.maximum(norm, 1e-8)).astype(
-                    np.float32)
-        else:
-            self.img_feat = data.img_feat.astype(np.float32)
+                self.img_feat = data.img_feat.astype(np.float32)
         # float32 under any compute_dtype: the encoder casts on the device
 
     # -- history --------------------------------------------------------
@@ -439,9 +442,11 @@ class TrainLoader:
                     valid = np.arange(bs) < len(idx)
                     idx = np.concatenate(
                         [idx, np.repeat(idx[-1:], bs - len(idx))])
-                    batch = self.assembler.assemble(
-                        idx[lo:hi], with_options=need_opts,
-                        with_gen_options=need_gen_opts, dedup_options=dedup)
+                    with trace.span("loader.assemble"):
+                        batch = self.assembler.assemble(
+                            idx[lo:hi], with_options=need_opts,
+                            with_gen_options=need_gen_opts,
+                            dedup_options=dedup)
                     batch.dialog_valid = valid[lo:hi].astype(np.int32)
                     q.put(batch)
             finally:
@@ -451,9 +456,16 @@ class TrainLoader:
         t = threading.Thread(target=produce, args=(q,), daemon=True)
         t.start()
         while True:
-            item = q.get()
+            empty = q.empty()
+            if empty:
+                with trace.span("loader.wait"):
+                    item = q.get()
+            else:
+                item = q.get()
             if item is None:
                 return
+            trace.count("loader.gets")
+            trace.count("loader.empty_gets", empty)
             yield item
 
 

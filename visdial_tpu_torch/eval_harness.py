@@ -76,6 +76,7 @@ from .parallel.graph import (CAPTURING, Graphed, InferenceGraphed,
 from .parallel.mesh import Mesh, slice_dialogs
 from .parallel.train_step import (make_disc_table_eval_fns, make_eval_fn,
                                   make_gen_bucket_eval_fns)
+from .utils import trace
 from .utils.metrics import (candidate_rankings, ranks_from_scores,
                             retrieval_metrics)
 
@@ -478,21 +479,22 @@ class _ResidentEvalBase:
         self.vocab, self.cfg, self.ties = vocab, cfg, ties
         self.device = torch.device(device)
         self.mesh, self.sl = mesh, _data_slice(mesh, batch_size)
-        self.plan = self._plan(data, batch_size)
-        loader = EvalLoader(data, vocab, _float32(cfg), batch_size=batch_size,
-                            option_tokens=False)
-        host, keep, dump = [], [], []
-        for b in loader:
-            host.append(_batch_arrays(b, _ENCODER_KEYS + self.extra_keys,
-                                      self.plan, cfg.num_options, self.sl))
-            dv = b.dialog_valid.astype(bool)[:, None]
-            keep.append(dv & b.round_valid.astype(bool))
-            dump.append(dv & b.round_scoreable.astype(bool))
-        self.keep = np.stack(keep)                      # (nb, bs, R)
-        self.keep_dump = np.stack(dump)
-        stacks = batch_to_device({k: np.stack([h[k] for h in host])
-                                  for k in host[0]}, "cpu")
-        tables = batch_to_device(_option_tables(data, cfg), "cpu")
+        with trace.span("build.host"):
+            self.plan = self._plan(data, batch_size)
+            loader = EvalLoader(data, vocab, _float32(cfg),
+                                batch_size=batch_size, option_tokens=False)
+            host, keep, dump = [], [], []
+            for b in loader:
+                host.append(_batch_arrays(b, _ENCODER_KEYS + self.extra_keys,
+                                          self.plan, cfg.num_options, self.sl))
+                dv = b.dialog_valid.astype(bool)[:, None]
+                keep.append(dv & b.round_valid.astype(bool))
+                dump.append(dv & b.round_scoreable.astype(bool))
+            self.keep = np.stack(keep)                  # (nb, bs, R)
+            self.keep_dump = np.stack(dump)
+            stacks = batch_to_device({k: np.stack([h[k] for h in host])
+                                      for k in host[0]}, "cpu")
+            tables = batch_to_device(_option_tables(data, cfg), "cpu")
         self.nbytes = sum(t.nbytes for t in (*stacks.values(),
                                              *tables.values()))
         self.ok = self.nbytes <= max_bytes
@@ -517,20 +519,24 @@ class _ResidentEvalBase:
         numpy arrays; over a data axis each rank scores its slices, then one
         gather and one readback."""
         graphed = _graphed(fns)
-        p = _params(fns, params)
-        table = None
-        if self.path == "table":
-            table = fns[0](p, self.tables["opt_list"],
-                           **({"clone": False} if graphed else {}))
-        if graphed:
-            ranks, cand = self._replay(p, table, fns, collect_rankings)
-        else:
-            ranks, cand = self._loop(p, table, fns, collect_rankings)
-        if self.sl is not None:
-            ranks = _gather_stacked(ranks, self.mesh)
-            cand = _gather_stacked(cand, self.mesh) if collect_rankings else None
-        return (ranks.cpu().numpy(),
-                cand.cpu().numpy() if collect_rankings else None)
+        with trace.span("eval.table"):
+            p = _params(fns, params)
+            table = None
+            if self.path == "table":
+                table = fns[0](p, self.tables["opt_list"],
+                               **({"clone": False} if graphed else {}))
+        with trace.span("eval.batches"):
+            if graphed:
+                ranks, cand = self._replay(p, table, fns, collect_rankings)
+            else:
+                ranks, cand = self._loop(p, table, fns, collect_rankings)
+        with trace.span("eval.readback"):
+            if self.sl is not None:
+                ranks = _gather_stacked(ranks, self.mesh)
+                cand = (_gather_stacked(cand, self.mesh) if collect_rankings
+                        else None)
+            return (ranks.cpu().numpy(),
+                    cand.cpu().numpy() if collect_rankings else None)
 
     def _loop(self, p, table, fns, collect_rankings):
         """The eager functions, batch by batch from Python."""
@@ -631,22 +637,23 @@ def _resident_eval(res: _ResidentEvalBase, params, fns: tuple, data,
     with torch.inference_mode():
         ranks, cand = res.run(params, fns, collect_rankings)
     elapsed = time.time() - t0                  # both readbacks included
-    kept = ranks[res.keep]
-    metrics = retrieval_metrics(kept)
-    metrics["evals_per_sec"] = int(res.keep.sum()) / max(elapsed, 1e-9)
-    metrics["eval_seconds"] = elapsed
-    metrics["resident_cache_seconds"] = res.build_seconds
-    metrics["resident_cache_bytes"] = res.nbytes
-    variant = (impl, collect_rankings)
-    res.runs[variant] = res.runs.get(variant, 0) + 1
-    if res.runs[variant] == 1:
-        metrics["cold_compile"] = True
-    extra = (kept,) if return_ranks else ()
-    if collect_rankings:
-        cand = np.where(res.keep_dump[..., None], cand, 0).astype(np.int32)
-        extra += (cand.reshape(-1, cfg.num_rounds,
-                               cfg.num_options)[:data.num_dialogs],)
-    return (metrics, *extra) if extra else metrics
+    with trace.span("eval.metrics"):
+        kept = ranks[res.keep]
+        metrics = retrieval_metrics(kept)
+        metrics["evals_per_sec"] = int(res.keep.sum()) / max(elapsed, 1e-9)
+        metrics["eval_seconds"] = elapsed
+        metrics["resident_cache_seconds"] = res.build_seconds
+        metrics["resident_cache_bytes"] = res.nbytes
+        variant = (impl, collect_rankings)
+        res.runs[variant] = res.runs.get(variant, 0) + 1
+        if res.runs[variant] == 1:
+            metrics["cold_compile"] = True
+        extra = (kept,) if return_ranks else ()
+        if collect_rankings:
+            cand = np.where(res.keep_dump[..., None], cand, 0).astype(np.int32)
+            extra += (cand.reshape(-1, cfg.num_rounds,
+                                   cfg.num_options)[:data.num_dialogs],)
+        return (metrics, *extra) if extra else metrics
 
 
 def evaluate_split(params, data: VisDialSplit, vocab: Vocabulary, cfg: Config,

@@ -15,6 +15,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 
+from ..utils import trace
 from ..utils.params import flatten, unflatten
 from .core import StepGenerators, embedding_init, seeded, split_seeds
 from .decoders import (decoder_init, disc_loss, disc_option_table, disc_scores,
@@ -47,16 +48,28 @@ def _impl(cfg: Config, device) -> str:
             else "plain")
 
 
-def batch_to_device(batch: dict, device) -> dict:
-    """numpy batch (Batch.as_dict()) -> tensors on `device`; integer arrays
-    become int64 (token ids and row indices)."""
-    out = {}
+def _host_tensors(batch: dict) -> dict:
+    host = {}
     for k, v in batch.items():
         a = np.asarray(v)
         if a.dtype.kind in "iu":
             a = a.astype(np.int64)
-        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return out
+        host[k] = torch.from_numpy(np.ascontiguousarray(a))
+    return host
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """numpy batch (Batch.as_dict()) -> tensors on `device`; integer arrays
+    become int64 (token ids and row indices).  Shipping to a device is the
+    span `upload` (its copies `upload.copy`, their bytes `upload.bytes`);
+    a CPU target ships nothing and records nothing."""
+    if torch.device(device).type == "cpu":
+        return _host_tensors(batch)
+    with trace.span("upload"):
+        host = _host_tensors(batch)
+        trace.count("upload.bytes", sum(t.nbytes for t in host.values()))
+        with trace.span("upload.copy"):
+            return {k: t.to(device) for k, t in host.items()}
 
 
 def model_loss(params, batch, cfg: Config, *, train: bool = True,

@@ -22,6 +22,8 @@ import tempfile
 
 import torch
 
+from ..utils import trace
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
@@ -111,7 +113,8 @@ def library_path() -> str:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library with every entry point's signature set."""
-    lib = ctypes.CDLL(library_path())
+    with trace.span("kernels.load"):
+        lib = ctypes.CDLL(library_path())
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

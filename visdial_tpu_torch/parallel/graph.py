@@ -63,6 +63,7 @@ the graph.
 
 from __future__ import annotations
 
+import functools
 import gc
 import threading
 from typing import NamedTuple
@@ -70,21 +71,27 @@ from typing import NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
+from ..utils import trace
+
 
 CAPTURING = threading.Lock()      # held by every capture (the docstring)
 
 
-def counters() -> list[tuple[object, str]]:
-    """(object, attribute) of every launch counter in the port: the six
-    kernels' wrappers' `.launches`, the bf16 contractions' `.tensor_core`
-    and the mesh's `collectives` (parallel/mesh.py)."""
+@functools.cache
+def counters() -> tuple[tuple[str, object, str], ...]:
+    """(name, object, attribute) of every launch counter in the port: the
+    six kernels' wrappers' `.launches`, the bf16 contractions'
+    `.tensor_core` and the mesh's `collectives` (parallel/mesh.py); built
+    at the first call, since every replay reads it."""
     from ..ops import kernel_wrappers
     from ..ops.contract import mm_f32, scores_f32
     from . import mesh
 
-    return [(fn, "launches") for fn in kernel_wrappers().values()] + [
-        (mm_f32, "tensor_core"), (scores_f32, "tensor_core"),
-        (mesh, "collectives")]
+    return tuple([(f"launches.{name}", fn, "launches")
+                  for name, fn in kernel_wrappers().items()] + [
+        ("tensor_core.mm_f32", mm_f32, "tensor_core"),
+        ("tensor_core.scores_f32", scores_f32, "tensor_core"),
+        ("mesh.collectives", mesh, "collectives")])
 
 
 def _device(leaves) -> torch.device | None:
@@ -95,11 +102,11 @@ def _device(leaves) -> torch.device | None:
 
 
 def _read(cs) -> list[int]:
-    return [getattr(obj, attr) for obj, attr in cs]
+    return [getattr(obj, attr) for _, obj, attr in cs]
 
 
 def _add(cs, counts) -> None:
-    for (obj, attr), n in zip(cs, counts):
+    for (_, obj, attr), n in zip(cs, counts):
         setattr(obj, attr, getattr(obj, attr) + n)
 
 
@@ -210,8 +217,9 @@ class Graphed:
             if isinstance(x, torch.Tensor) else x for x in leaves))
         entry = self._graphs.get(key)
         if entry is None:
-            result = self._capture(key, pre, leaves, spec, device, generators,
-                                   clone)
+            with trace.span("graph.capture"):
+                result = self._capture(key, pre, leaves, spec, device,
+                                       generators, clone)
             if clone:
                 return result
             output = self._graphs[key].output
@@ -220,17 +228,21 @@ class Graphed:
         if not clone and entry.shared:
             raise ValueError("a graph captured in another graph's memory "
                              "pool returns clones only")
-        for buf, x in zip(entry.inputs, leaves):
-            if isinstance(x, torch.Tensor) and x is not buf:
-                buf.copy_(x, non_blocking=True)
-        entry.graph.replay()
+        with trace.span("graph.copy_in"):
+            for buf, x in zip(entry.inputs, leaves):
+                if isinstance(x, torch.Tensor) and x is not buf:
+                    buf.copy_(x, non_blocking=True)
+        with trace.span("graph.replay"):
+            entry.graph.replay()
         self.replays += 1
+        trace.count("graph.replays")
         _add(counters(), entry.counts)
         if not clone:
             return entry.output
-        return pytree.tree_map(
-            lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
-            entry.output)
+        with trace.span("graph.clone_out"):
+            return pytree.tree_map(
+                lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+                entry.output)
 
     def _capture(self, key, pre, leaves, spec, device, generators, clone):
         # the pool of the one graph whose outputs this one reads, if any
@@ -272,12 +284,13 @@ class Graphed:
         finally:
             if collecting:
                 gc.enable()
-            for (obj, attr), n in zip(cs, before):
+            for (_, obj, attr), n in zip(cs, before):
                 setattr(obj, attr, n)      # a capture executes nothing
         self._graphs[key] = _Capture(graph, inputs,
                                      read_in_place(output, graph), counts,
                                      bool(pool))
         self.captures += 1
+        trace.count("graph.captures")
         return result
 
 

@@ -46,6 +46,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
+
 # the flat gradient buckets' size (DistributedDataParallel's default)
 BUCKET_BYTES = 25 << 20
 # train batch keys that lead with the batch's candidate rows, not its dialogs
@@ -225,7 +227,8 @@ def make_mesh(data: int = -1, model: int = 1, device="cuda") -> Mesh:
     fills it.  A model axis that does not divide the world fails fast, and
     a grid that is not the whole world exits, naming the torchrun launch
     that fits it."""
-    dev = init_world(device)
+    with trace.span("mesh.init"):              # the process group
+        dev = init_world(device)
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if model < 1:
@@ -245,18 +248,19 @@ def make_mesh(data: int = -1, model: int = 1, device="cuda") -> Mesh:
     d, m = divmod(rank, model)
     data_group = model_group = None
     if dist.is_initialized():
-        # every rank makes every group, in the same order
-        for mm in range(model):
-            g = dist.new_group([dd * model + mm for dd in range(data)])
-            data_group = g if mm == m else data_group
-        for dd in range(data):
-            g = dist.new_group([dd * model + mm for mm in range(model)])
-            model_group = g if dd == d else model_group
-        # each group's communicator, made before any graph captures one of
-        # its collectives (every data group first, then every model group:
-        # no rank waits on a group whose members wait on it)
-        for g in (data_group, model_group):
-            dist.all_reduce(torch.zeros(1, device=dev), group=g)
+        with trace.span("mesh.init"):          # the groups, communicators
+            # every rank makes every group, in the same order
+            for mm in range(model):
+                g = dist.new_group([dd * model + mm for dd in range(data)])
+                data_group = g if mm == m else data_group
+            for dd in range(data):
+                g = dist.new_group([dd * model + mm for mm in range(model)])
+                model_group = g if dd == d else model_group
+            # each group's communicator, made before any graph captures one
+            # of its collectives (every data group first, then every model
+            # group: no rank waits on a group whose members wait on it)
+            for g in (data_group, model_group):
+                dist.all_reduce(torch.zeros(1, device=dev), group=g)
     return Mesh(data, model, d, m, dev, data_group, model_group)
 
 

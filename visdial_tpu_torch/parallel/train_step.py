@@ -49,6 +49,7 @@ from ..models.encoders import encoder_apply
 from ..models.model import (_impl, model_dense_loss, model_init, model_loss,
                             model_option_table, model_scores,
                             model_scores_with_table)
+from ..utils import trace
 from ..utils.params import flatten, unflatten
 from .graph import Graphed, Held, InferenceGraphed, copy_into
 from .mesh import (Mesh, all_reduce_grads, broadcast_tree, gather_tree,
@@ -246,6 +247,10 @@ class GraphedTrainStep:
         return self.graph.captures
 
     def __call__(self, state: TrainState, batch: dict):
+        with trace.span("train.dispatch"):
+            return self._dispatch(state, batch)
+
+    def _dispatch(self, state: TrainState, batch: dict):
         first = next(iter(batch.values()))
         G = len(first) if self.steps.stacked else 1
         self._donate(state)

@@ -20,7 +20,7 @@ model axis), and every rank takes part in the periodic eval.
 The flags are the JAX CLI's (built from the Config fields) plus --device
 (default cuda; there is no silent move to the CPU).  Every run writes JSONL
 metrics (events config, train, eval, checkpoint, non_finite_loss, done, and
-notice/resumed/step_time/profile) to stdout and <save_path>/<run_name>/
+notice/resumed/step_time/profile/spans) to stdout and <save_path>/<run_name>/
 metrics.jsonl, and full resumable checkpoints (params, optimizer moments,
 step, dropout generator, config) in the JAX package's format.  Every
 encoder (with or without img_spatial) trains with either decoder.
@@ -63,6 +63,7 @@ from .parallel.train_step import (gather_train_state, init_train_state,
                                   make_multistep_train_fn, make_train_fn,
                                   multi_train_step, shard_train_state,
                                   train_step)
+from .utils import trace
 from .utils.checkpoint import latest_checkpoint, load_train_state, save_checkpoint
 from .utils.logging import MetricsLogger
 
@@ -89,7 +90,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--run_name", type=str, default="")
     p.add_argument("--profile_steps", type=str, default="",
                    help="'start,stop' step range traced with torch.profiler "
-                        "(a Chrome trace lands in the run directory)")
+                        "and the port's spans (utils/trace.py): a Chrome "
+                        "trace lands in the run directory; the spans of "
+                        "set-up, of those steps and of each eval are "
+                        "summed in 'spans' events")
     p.add_argument("--time_steps", type=int, default=0,
                    help="log per-step wall-clock ('step_time' events, the "
                         "device synchronised each step) for the first N steps")
@@ -116,6 +120,12 @@ def config_from_args(args) -> Config:
 
 def main(argv=None) -> dict:
     args = build_argparser().parse_args(argv)
+    # --profile_steps records the port's spans over set-up (to the end of
+    # the first dispatch: the mesh, the kernels, the host builds, the
+    # captures) as well as over its steps and each eval
+    setup_spans = bool(args.profile_steps)
+    if setup_spans:
+        trace.start()
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     cfg = config_from_args(args)
@@ -236,24 +246,35 @@ def main(argv=None) -> dict:
     def crossed(every, prev):
         return prev // every != step // every
 
+    def log_spans(phase, **at):
+        log.log({"event": "spans", "phase": phase, **at,
+                 **trace.summary(trace.stop())})
+
     while step < max_steps:
         batch_iter = (b for i, b in enumerate(
             loader.epoch(seed=cfg.seed + epoch, shard=mesh.data_shard))
             if i >= skip)
         while step < max_steps:
-            pending = []
-            for b in batch_iter:
-                pending.append(b.as_dict())
-                if len(pending) >= min(group, max_steps - step):
-                    break
-            if not pending:
-                break                       # epoch exhausted
-            if prof_range and prof is None and step <= prof_range[0] < step + len(pending):
+            # the profiled steps' stretch opens before their batches are
+            # taken, so it holds the loader's gets for them
+            want = min(group, max_steps - step)
+            if prof_range and prof is None and step <= prof_range[0] < step + want:
+                if setup_spans:
+                    log_spans("setup", step=step)
+                    setup_spans = False
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
                 prof = torch.profiler.profile(activities=acts)
                 prof.start()
+                trace.start()
+            pending = []
+            for b in batch_iter:
+                pending.append(b.as_dict())
+                if len(pending) >= want:
+                    break
+            if not pending:
+                break                       # epoch exhausted
             timing = args.time_steps and step < args.time_steps
             if timing:
                 sync()
@@ -277,13 +298,20 @@ def main(argv=None) -> dict:
                          "seconds": (time.time() - t0) / len(pending),
                          "steps_per_dispatch": len(pending),
                          "loss": float(m["loss"].reshape(-1)[-1])})
+            if setup_spans:
+                sync()
+                log_spans("setup", step=step)
+                setup_spans = False
             if prof is not None and prev < prof_range[1] <= step:
                 sync()
+                record = trace.stop()
                 prof.stop()
-                trace = os.path.join(ckpt_dir, "trace.json")
-                prof.export_chrome_trace(trace)
+                path = os.path.join(ckpt_dir, "trace.json")
+                prof.export_chrome_trace(path)
                 log.log({"event": "profile", "steps": list(prof_range),
-                         "path": trace})
+                         "path": path})
+                log.log({"event": "spans", "phase": "steps",
+                         "steps": list(prof_range), **trace.summary(record)})
                 prof, prof_range = None, None
 
             if crossed(cfg.log_every, prev) or step >= max_steps:
@@ -299,11 +327,17 @@ def main(argv=None) -> dict:
                 t_last, s_last = time.time(), step
             if crossed(eval_every, prev) or step >= max_steps:
                 flush_losses()
+                # each eval outside the profiled steps is recorded on its own
+                eval_spans = bool(args.profile_steps) and prof is None
+                if eval_spans:
+                    trace.start()
                 metrics = evaluate_split(state.params, val_data, vocab, cfg,
                                          device, eval_fn=eval_fn,
                                          table_fns=table_fns, gen_fns=gen_fns,
                                          resident=args.eval_resident,
                                          resident_max_bytes=2 << 30, mesh=mesh)
+                if eval_spans:
+                    log_spans("eval", step=step)
                 last_eval = metrics
                 log.log({"event": "eval", "step": step, **metrics})
             if crossed(save_every, prev) or step >= max_steps:
