@@ -109,6 +109,8 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # that rounding feeds dh through T steps and dW through N*T-row sums.
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SCORE_TOL = 1e-3   # served scores: 512-term dot products of f32 LSTM states
+GEN_SHAPES = [(640, 16, 300, 512), (640, 40, 300, 512), (640, 9, 300, 512),
+              (640, 9, 512, 512)]
 LSTM_SHAPES = [(8192, 8, 300, 512), (8192, 8, 512, 512),
                (10, 40, 300, 512), (10, 16, 300, 512),
                (320, 40, 300, 512), (320, 16, 300, 512),
@@ -116,7 +118,11 @@ LSTM_SHAPES = [(8192, 8, 300, 512), (8192, 8, 512, 512),
                # LF's history (a training batch, a served request, and the
                # per-round hist_concat path), HRE/HREA's dialog LSTM
                (32, 256, 300, 512), (1, 256, 300, 512), (320, 256, 300, 512),
-               (32, 10, 512, 512), (1, 10, 512, 512)]         # N, T, E, H
+               (32, 10, 512, 512), (1, 10, 512, 512),
+               # gen's question, fact and LM LSTMs at batch 64, and the disc
+               # eval table's last 1,696-row chunk: other tiles and K-splits
+               # (ops/lstm_cuda.py::lstm_tile, dh_splits)
+               *GEN_SHAPES, (1696, 8, 300, 512)]             # N, T, E, H
 # how a shape's rows are aligned (lstm_case): LF's incremental history is
 # left-aligned with ragged ends, hist_concat right-aligned, the dialog LSTM
 # unmasked; the rest mix right- and left-aligned rows
@@ -131,10 +137,12 @@ DIALOG_HEAD = (32, 10, 512, 512)
 LSTM_HEAD = (32000, 8, 300, 512)
 # the training path: the option LSTM's 32,000 candidate rows (both layers),
 # the question and fact LSTMs' 320 rows (first layers), LF's history (left-
-# aligned, and per round right-aligned) and the dialog LSTM
+# aligned, and per round right-aligned), the dialog LSTM, gen's LSTMs and
+# the 1,696-row tile
 BWD_SHAPES = [(32000, 8, 300, 512), (32000, 8, 512, 512),
               (320, 40, 300, 512), (320, 16, 300, 512),
-              (32, 256, 300, 512), (320, 256, 300, 512), (32, 10, 512, 512)]
+              (32, 256, 300, 512), (320, 256, 300, 512), (32, 10, 512, 512),
+              *GEN_SHAPES, (1696, 8, 300, 512)]
 # K2 as LF's top history layer sees it: g_hs nonzero only at the 10 rounds'
 # prefix bounds of each row, g_hT = g_cT = 0
 SPARSE_BWD = (32, 256, 300, 512)
@@ -684,9 +692,21 @@ def cudnn_backward(w, b, x, mask, h0, c0, cot, dw) -> dict:
             "library": "torch.nn.LSTM backward (cuDNN)"}
 
 
+def counted_choice(fn, call):
+    """call()'s result and the tile and split counters of fn (K1's or K2's
+    wrapper) that it moved, {attribute: change}."""
+    from visdial_tpu_torch.ops.lstm_cuda import choice_counters
+
+    attrs = [a for _, o, a in choice_counters() if o is fn]
+    before = {a: getattr(fn, a) for a in attrs}
+    out = call()
+    return out, {a: getattr(fn, a) - before[a] for a in attrs
+                 if getattr(fn, a) != before[a]}
+
+
 def lstm_checks(dev, gen) -> list[dict]:
     from visdial_tpu_torch.ops.lstm import lstm_layer_plain
-    from visdial_tpu_torch.ops.lstm_cuda import lstm_layer
+    from visdial_tpu_torch.ops.lstm_cuda import lstm_layer, lstm_tile, sm_count
 
     rows = []
     for N, T, E, H in LSTM_SHAPES:
@@ -695,8 +715,12 @@ def lstm_checks(dev, gen) -> list[dict]:
         for dt in (torch.float32, torch.bfloat16):
             name = str(dt).split(".")[1]
             args = [t.to(dev) for t in (w, b, x.to(dt), mask, h0, c0)]
-            got = lstm_layer(*args)
+            got, moved = counted_choice(lstm_layer, lambda: lstm_layer(*args))
             torch.cuda.synchronize()
+            tile = lstm_tile(N, H, dt, sm_count(dev.index or 0))
+            check(moved == {f"tile_{tile[0]}": 1},
+                  f"lstm_layer {(N, T, E, H)} {name}: tile {tile}, counters "
+                  f"moved {moved}")
             want = lstm_layer_plain(*args)
             torch.cuda.synchronize()
             err = abs_err(got, want)
@@ -713,7 +737,8 @@ def lstm_checks(dev, gen) -> list[dict]:
                   f"{name}: max abs err {cs_err} > {TOL[name]}")
             del got_cs, want_cs
             row = {"phase": "lstm_layer", "shape": [N, T, E, H], "dtype": name,
-                   "align": align, "max_abs_err": err, "cs_max_abs_err": cs_err,
+                   "align": align, "tile": tile, "max_abs_err": err,
+                   "cs_max_abs_err": cs_err,
                    "tol": TOL[name],
                    "ms": time_ms(lambda: lstm_layer(*args)),
                    "plain_ms": time_ms(lambda: lstm_layer_plain(*args)),
@@ -804,8 +829,9 @@ def lstm_bwd_checks(dev, gen) -> list[dict]:
     """K2 through LSTMLayerFn against autograd through the plain forward,
     and K2 alone against its plain version on the same residuals."""
     from visdial_tpu_torch.ops.lstm import lstm_layer_bwd_plain, lstm_layer_plain
-    from visdial_tpu_torch.ops.lstm_cuda import (LSTMLayerFn, lstm_layer,
-                                                 lstm_layer_bwd)
+    from visdial_tpu_torch.ops.lstm_cuda import (LSTMLayerFn, dh_splits,
+                                                 lstm_layer, lstm_layer_bwd,
+                                                 lstm_tile, sm_count)
 
     rows = []
     for (N, T, E, H), sparse in ([(shape, False) for shape in BWD_SHAPES]
@@ -848,9 +874,16 @@ def lstm_bwd_checks(dev, gen) -> list[dict]:
             h_prev = torch.cat([h0.to(dt)[:, None], hs[:, :-1]], dim=1)
             c_prev = torch.cat([c0.to(dt)[:, None], cs[:, :-1]], dim=1)
             args = (w, b, x, mask, h_prev, c_prev, *cot)
-            k2 = lstm_layer_bwd(*args)
+            k2, moved = counted_choice(lstm_layer_bwd,
+                                       lambda: lstm_layer_bwd(*args))
             k2_plain = lstm_layer_bwd_plain(*args)
             torch.cuda.synchronize()
+            sms = sm_count(dev.index or 0)
+            tile = lstm_tile(N, H, dt, sms)
+            S = dh_splits(N, H, dt, tile, sms)
+            check(moved == {f"tile_{tile[0]}": 1, f"dh_split_{S}": 1},
+                  f"lstm_layer_bwd {(N, T, E, H)} {name}: tile {tile}, S {S}, "
+                  f"counters moved {moved}")
             k2_err, k2_abs = rel_err(k2, k2_plain), abs_err(k2, k2_plain)
             check(k2_err <= GRAD_TOL[name], f"K2 {(N, T, E, H)} {name}: "
                   f"rel err {k2_err} > {GRAD_TOL[name]}")
@@ -868,6 +901,7 @@ def lstm_bwd_checks(dev, gen) -> list[dict]:
             del k2, k2_plain, dw
             row = {**extra, "phase": "lstm_layer_bwd", "shape": [N, T, E, H],
                    "dtype": name, "align": align, "sparse_g_hs": sparse,
+                   "tile": tile, "dh_splits": S,
                    "grad_max_rel_err": err,
                    "k2_max_rel_err": k2_err, "max_abs_err": k2_abs,
                    "tol": GRAD_TOL[name],

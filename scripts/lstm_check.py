@@ -1,9 +1,10 @@
 """The first check of K1 and K2 on a card after a change to their sources:
 build the kernels, print each K1/K2 kernel's resources and HGMMA count
 (chip_smoke.kernel_report), then run K1 and K2 once at small ragged
-shapes, a 320-row shape and the head shape, f32 and bf16, against their
-plain versions, and stop.  Stops at the first shape that raises.  On one
-GPU:
+shapes, the 320-, 640- and 1,696-row shapes (each on another tile or
+K-split, ops/lstm_cuda.py::lstm_tile) and the head shape, f32 and bf16,
+against their plain versions, and stop.  Stops at the first shape that
+raises.  On one GPU:
 
     python scripts/lstm_check.py
 
@@ -28,7 +29,7 @@ from visdial_tpu_torch.ops.lstm import lstm_layer_bwd_plain, lstm_layer_plain  #
 from visdial_tpu_torch.ops.lstm_cuda import lstm_layer, lstm_layer_bwd  # noqa: E402
 
 SHAPES = [(70, 3, 33, 40), (5, 7, 10, 12), (600, 5, 20, 36), (320, 16, 300, 512),
-          (32000, 8, 300, 512)]
+          (640, 16, 300, 512), (1696, 8, 300, 512), (32000, 8, 300, 512)]
 
 
 def main() -> None:

@@ -41,10 +41,12 @@ def dev():
 
 # K1 / K2 shapes: rows off the 64- and 256-row tiles (65, 130, 321, 600),
 # E off a multiple of 8 (33, 300), H off the unit tiles (20, 36, 40), T = 1,
-# and the question / fact LSTMs' real width
+# and the question / fact LSTMs' real width; at that width 640, 1,696 and
+# 8,192 rows take the other tiles and K-splits (ops/lstm_cuda.py::lstm_tile)
 LSTM_CASES = [(5, 7, 10, 12), (70, 3, 33, 40), (200, 4, 20, 36), (600, 5, 20, 36),
               (65, 3, 33, 20), (130, 1, 300, 36), (321, 2, 8, 20),
-              (320, 16, 300, 512)]
+              (320, 16, 300, 512), (640, 3, 300, 512), (1696, 2, 300, 512),
+              (8192, 1, 300, 512)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

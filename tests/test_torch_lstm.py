@@ -15,9 +15,11 @@ from visdial_tpu.ops.lstm_pallas import lstm_layer_bwd_pallas, lstm_layer_pallas
 from visdial_tpu_torch.ops.lstm import (keep_mask, lstm_keep_masks,
                                         lstm_layer_bwd_plain, lstm_layer_plain,
                                         masked_lstm)
-from visdial_tpu_torch.ops.lstm_cuda import (LSTMLayerFn, k_tile, lstm_layer,
-                                             lstm_layer_bwd, pack_weights,
-                                             pad_input)
+from visdial_tpu_torch.ops.lstm_cuda import (DH_SPLITS, TILES, LSTMLayerFn,
+                                             choice_counters, dh_splits, k_tile,
+                                             lstm_layer, lstm_layer_bwd,
+                                             lstm_tile, pack_weights, pad_input)
+from visdial_tpu_torch.parallel import graph
 
 torch.set_num_threads(1)
 
@@ -302,3 +304,49 @@ def test_packed_operands_give_the_plain_gates(E, H, dtype):
     want = torch.cat([x[:, 1], h], dim=-1).float() @ w.to(dtype).float()
     assert torch.equal(gates, want)
 
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("rows", [1, 10, 32, 320, 640, 1696, 8192, 32000])
+def test_tile_and_dh_split_run_in_the_fewest_waves(rows, sms):
+    """lstm_tile takes the tile whose grid of (4H / BN) x (N / BM) blocks
+    runs in the fewest waves (sms x the blocks an SM holds), the narrowest
+    of those; dh_splits the most slices whose grid of (H / BN) x (N / BM) x
+    S blocks still runs in one wave, each slice holding a k-tile.  At gen's
+    640 rows on 132 SMs that is no longer the 256 x 128 tile at S = 1 (48
+    and 12 blocks)."""
+    h = 512
+
+    def waves(blocks, t):
+        return -(-blocks // (sms * t[2]))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tile = lstm_tile(rows, h, dtype, sms)
+        w = {t: waves(-(-4 * h // t[1]) * -(-rows // t[0]), t)
+             for t in TILES[dtype]}
+        assert w[tile] == min(w.values())
+        assert all(w[t] > w[tile] for t in TILES[dtype][:TILES[dtype].index(tile)])
+        s = dh_splits(rows, h, dtype, tile, sms)
+        blocks = -(-h // tile[1]) * -(-rows // tile[0])
+        assert s in DH_SPLITS and s <= 4 * h // k_tile(dtype)
+        assert waves(blocks * s, tile) == 1 or s == 1
+        assert s == DH_SPLITS[-1] or waves(blocks * 2 * s, tile) > 1
+    if sms == 132:
+        tile = lstm_tile(640, h, torch.bfloat16, sms)
+        assert tile[:2] != (256, 128)
+        assert dh_splits(640, h, torch.bfloat16, tile, sms) > 1
+
+
+def test_tile_and_split_counters_are_graph_counters():
+    """K1's and K2's tile counters and K2's split counters are integers on
+    the wrappers, and parallel/graph.py::counters() lists them, so graph
+    replays add them as they add the launches."""
+    names = {(n, id(o), a) for n, o, a in graph.counters()}
+    want = choice_counters()
+    assert {(n, id(o), a) for n, o, a in want} <= names
+    attrs = {(o, a) for _, o, a in want}
+    for fn in (lstm_layer, lstm_layer_bwd):
+        for bm in (64, 128, 256):
+            assert (fn, f"tile_{bm}") in attrs
+    assert {(lstm_layer_bwd, f"dh_split_{s}") for s in DH_SPLITS} <= attrs
+    assert all(isinstance(getattr(o, a), int) for _, o, a in want)

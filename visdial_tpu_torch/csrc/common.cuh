@@ -70,11 +70,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The LSTM kernels' layers of at most this many rows take 64 x 64 tiles,
-// which give the 320-row question and fact LSTMs 160 blocks; above it
-// 256 x 128 (bf16) or 128 x 128 (f32) tiles.
-constexpr int kSmallRows = 512;
-
 // Loads the mask of the block's BN rows at step t into ms[] and returns
 // whether any of them is real (every thread of the block must call it).
 template <int BN>

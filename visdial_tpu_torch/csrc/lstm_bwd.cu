@@ -37,13 +37,19 @@
 //      K = 4H, with Wh = W[E:] (H x 4H) as the K-major B operand as it is
 //      stored.  It contracts over all 4H gate columns, which every tile of
 //      (a) writes, so it needs all of (a) done: the launch boundary is the
-//      grid-wide barrier.  K is cut into S slices, one block each (S = 8 up
-//      to 512 rows, where 40 tiles would leave most SMs idle through a
-//      64-k-tile loop; 1 above), and each writes its partial product to its
-//      own (N, H) f32 buffer dhp[s]; phase (a) of the next step adds the S
-//      buffers to dh in order, and the wrapper adds the last step's.  So the
-//      sum is the same from run to run, and no block reads what another
-//      writes within a launch.
+//      grid-wide barrier.  K is cut into S slices, one block each, and
+//      each writes its partial product to its own (N, H) f32 buffer
+//      dhp[s]; phase (a) of the next step adds the S buffers to dh in
+//      order, and the wrapper adds the last step's.  So the sum is the same
+//      from run to run, and no block reads what another writes within a
+//      launch.
+// Both phases run on one of K1's tiles, which the wrapper picks by K1's
+// rule (lstm_fwd.cu).  Phase (b)'s output has a quarter of (a)'s columns,
+// so its grid of (H / BN) x (N / BM) x S blocks is a quarter of (a)'s at
+// S = 1.  The wrapper takes the most slices (up to 8) whose grid still runs
+// in one wave (ops/lstm_cuda.py::dh_splits): more slices shorten each
+// block's k-loop, but each adds a buffer that phase (a) reads at every
+// step, and a grid past one wave waits for a second.
 // Each phase is a launch, all 2T issued from one host call
 // (vd_lstm_layer_bwd).  The carries dh and dc are (N, H) f32 buffers
 // updated in place by phase (a): an element is read and written only by the
@@ -253,19 +259,19 @@ int bwd_launch(const BwdArgs<T>& a, cudaStream_t stream) {
 }
 
 template <typename T>
-int layer_bwd(const BwdArgs<T>& a, cudaStream_t stream) {
+int layer_bwd(const BwdArgs<T>& a, int tile, cudaStream_t stream) {
   constexpr int BK = vd::TileK<T>::BK;
   if (a.Kx % BK != 0 || a.KW != a.Kx + (a.H + BK - 1) / BK * BK || a.Ep % 8 != 0 ||
       a.S < 1)
     return (int)cudaErrorInvalidValue;
   constexpr bool F32 = std::is_same<T, float>::value;
-  if (a.N <= vd::kSmallRows) return bwd_launch<T, 64, 64, F32 ? 3 : 4>(a, stream);
-  // f32 keeps a second accumulator (common.cuh::tile_product): 128 x 128
-  // leaves a thread the registers for both
-  if constexpr (F32)
-    return bwd_launch<T, 128, 128, 3>(a, stream);
-  else
-    return bwd_launch<T, 256, 128, 4>(a, stream);
+  if (tile == 64) return bwd_launch<T, 64, 64, F32 ? 3 : 4>(a, stream);
+  if (tile == 128) return bwd_launch<T, 128, 128, F32 ? 3 : 4>(a, stream);
+  // f32 keeps a second accumulator (common.cuh::tile_product): 256 rows
+  // leave a thread too few registers for both
+  if constexpr (!F32)
+    if (tile == 256) return bwd_launch<T, 256, 128, 4>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -276,28 +282,29 @@ int layer_bwd(const BwdArgs<T>& a, cudaStream_t stream) {
 // ops/lstm_cuda.py::pack_weights packs it, wh (H, 4H) = W[E:] and dgp (N,
 // Tn, 4H); mask (N, Tn) and b (4H,) f32.  dh and dc (N, H) f32 hold (g_hT,
 // g_cT) on entry; dhp (S, N, H) f32 zeros.  On return dc holds dc0 and
-// dh0 = dh + the sum of dhp over S.  Returns a cudaError_t value (0 on
-// success).
+// dh0 = dh + the sum of dhp over S.  tile is the rows of both phases' tile,
+// as in vd_lstm_layer_fwd; ops/lstm_cuda.py::lstm_tile and dh_splits pick
+// it and S.  Returns a cudaError_t value (0 on success).
 extern "C" int vd_lstm_layer_bwd(int dtype, const void* x, const void* hprev,
                                  const void* cprev, const float* mask,
                                  const void* w, const void* wh, const float* b,
                                  const void* ghs, float* dh, float* dc, float* dhp,
                                  void* dgp, int N, int Tn, int Ep, int Kx, int KW,
-                                 int H, int S, void* stream) {
+                                 int H, int S, int tile, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return layer_bwd<float>({(const float*)x, (const float*)hprev,
                              (const float*)cprev, mask, (const float*)w,
                              (const float*)wh, b, (const float*)ghs, dh, dc, dhp,
                              (float*)dgp, N, Tn, Ep, Kx, KW, H, S},
-                            s);
+                            tile, s);
   if (dtype == 1) {
     using B16 = __nv_bfloat16;
     return layer_bwd<B16>({(const B16*)x, (const B16*)hprev, (const B16*)cprev,
                            mask, (const B16*)w, (const B16*)wh, b,
                            (const B16*)ghs, dh, dc, dhp, (B16*)dgp, N, Tn, Ep, Kx,
                            KW, H, S},
-                          s);
+                          tile, s);
   }
   return (int)cudaErrorInvalidValue;
 }

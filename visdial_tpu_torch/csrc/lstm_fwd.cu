@@ -22,9 +22,17 @@
 //  * The gate product is common.cuh::tile_product: wgmma from a ring of
 //    128-byte-swizzled shared tiles fed by 16-byte cp.async, bf16 x bf16 ->
 //    f32, or 3xTF32 for f32 with each k-tile summed apart and added with
-//    round-to-nearest.  Each block owns BM rows x BN gate columns: 64 x 64
-//    up to kSmallRows rows (enough blocks at 320 rows), above it 256 x 128
-//    in bf16 and 128 x 128 in f32 (room for its second accumulator).
+//    round-to-nearest.  Each block owns BM rows x BN gate columns, on one
+//    of three tiles: 64 x 64, 128 x 128, and 256 x 128 in bf16 only (f32
+//    needs room for its second accumulator).  The wrapper picks the tile
+//    from the launch's shape and the card's SM count
+//    (ops/lstm_cuda.py::lstm_tile): the one whose grid of (4H / BN) x
+//    (N / BM) blocks runs in the fewest waves (an SM holds three 64 x 64
+//    blocks in bf16, two in f32, one of the wider tiles), the narrowest of
+//    those.  A step launch costs about a block's time a wave, and a block's
+//    time grows with its tile, so a wider tile pays only where it saves a
+//    wave: the 256 x 128 tile runs 640 rows as 48 blocks on 132 SMs in
+//    about twice the 64 x 64 tile's time (320 blocks, one wave).
 //  * The wrapper prepares W once per call (ops/lstm_cuda.py::pack_weights):
 //    K-major, gate columns interleaved (row 4j + g of the packed W is gate g
 //    of unit j), so one N-tile holds all four gates of its BN / 4 units, and
@@ -184,18 +192,18 @@ int fwd_launch(const FwdArgs<T>& a, cudaStream_t stream) {
 }
 
 template <typename T>
-int layer_fwd(const FwdArgs<T>& a, cudaStream_t stream) {
+int layer_fwd(const FwdArgs<T>& a, int tile, cudaStream_t stream) {
   constexpr int BK = vd::TileK<T>::BK;
   if (a.Kx % BK != 0 || a.KW != a.Kx + (a.H + BK - 1) / BK * BK || a.Ep % 8 != 0)
     return (int)cudaErrorInvalidValue;
   constexpr bool F32 = std::is_same<T, float>::value;
-  if (a.N <= vd::kSmallRows) return fwd_launch<T, 64, 64, F32 ? 3 : 4>(a, stream);
-  // f32 keeps a second accumulator (common.cuh::tile_product): 128 x 128
-  // leaves a thread the registers for both
-  if constexpr (F32)
-    return fwd_launch<T, 128, 128, 3>(a, stream);
-  else
-    return fwd_launch<T, 256, 128, 4>(a, stream);
+  if (tile == 64) return fwd_launch<T, 64, 64, F32 ? 3 : 4>(a, stream);
+  if (tile == 128) return fwd_launch<T, 128, 128, F32 ? 3 : 4>(a, stream);
+  // f32 keeps a second accumulator (common.cuh::tile_product): 256 rows
+  // leave a thread too few registers for both
+  if constexpr (!F32)
+    if (tile == 256) return fwd_launch<T, 256, 128, 4>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -206,23 +214,26 @@ int layer_fwd(const FwdArgs<T>& a, cudaStream_t stream) {
 // (4H,) f32; h0c (N, H) h0 in the compute type;
 // h, c (N, H) f32 hold (h0, c0) on entry and (hT, cT) on return.  cs (N, Tn,
 // H), the post-mask cell state of every step (the training forward's
-// residual), may be null.  Returns a cudaError_t value (0 on success).
+// residual), may be null.  tile is the rows of the block's tile: 64 (64 x
+// 64), 128 (128 x 128) or 256 (256 x 128, bf16 only), as
+// ops/lstm_cuda.py::lstm_tile picks it.  Returns a cudaError_t value (0 on
+// success).
 extern "C" int vd_lstm_layer_fwd(int dtype, const void* x, const float* mask,
                                  const void* w, const float* b, const void* h0c,
                                  float* h, float* c, void* hs, void* cs, int N,
-                                 int Tn, int Ep, int Kx, int KW, int H,
+                                 int Tn, int Ep, int Kx, int KW, int H, int tile,
                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return layer_fwd<float>({(const float*)x, mask, (const float*)w, b,
                              (const float*)h0c, h, c, (float*)hs, (float*)cs, N,
                              Tn, Ep, Kx, KW, H},
-                            s);
+                            tile, s);
   if (dtype == 1) {
     using B16 = __nv_bfloat16;
     return layer_fwd<B16>({(const B16*)x, mask, (const B16*)w, b, (const B16*)h0c,
                            h, c, (B16*)hs, (B16*)cs, N, Tn, Ep, Kx, KW, H},
-                          s);
+                          tile, s);
   }
   return (int)cudaErrorInvalidValue;
 }

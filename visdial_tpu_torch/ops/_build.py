@@ -35,11 +35,12 @@ _p = ctypes.c_void_p
 _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _SIGNATURES = {
-    # dtype, x, mask, w, b, h0c, h, c, hs, cs, N, T, Ep, Kx, KW, H, stream
-    "vd_lstm_layer_fwd": [_i] + [_p] * 9 + [_i] * 6 + [_p],
+    # dtype, x, mask, w, b, h0c, h, c, hs, cs, N, T, Ep, Kx, KW, H, tile,
+    # stream
+    "vd_lstm_layer_fwd": [_i] + [_p] * 9 + [_i] * 7 + [_p],
     # dtype, x, hprev, cprev, mask, w, wh, b, ghs, dh, dc, dhp, dgp, N, T, Ep,
-    # Kx, KW, H, S, stream
-    "vd_lstm_layer_bwd": [_i] + [_p] * 12 + [_i] * 7 + [_p],
+    # Kx, KW, H, S, tile, stream
+    "vd_lstm_layer_bwd": [_i] + [_p] * 12 + [_i] * 8 + [_p],
     # dtype, q, slots, valid, valid's batch and row strides, out, B, R, S,
     # H, cl, stream
     "vd_attention": [_i] + [_p] * 3 + [_ll] * 2 + [_p] + [_i] * 5 + [_p],

@@ -16,6 +16,8 @@ on CUDA for both float32 and bfloat16.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -59,6 +61,60 @@ def pack_weights(w: torch.Tensor, E: int, dtype: torch.dtype):
     return wk, kx, kx + kh
 
 
+# The tiles of K1 and of both phases of K2, narrowest first: (rows, gate
+# columns, blocks an SM holds at once).  The last follows from the shared
+# memory a block takes (common.cuh::TileSmem: 65, 129 and 193 KB in bf16,
+# 81 and 161 KB in f32) against the 228 KB of a Hopper SM, the only card the
+# kernels are built for; f32 has no 256-row tile (csrc/lstm_fwd.cu).
+TILES = {torch.bfloat16: ((64, 64, 3), (128, 128, 1), (256, 128, 1)),
+         torch.float32: ((64, 64, 2), (128, 128, 1))}
+# the K-splits of K2's dh phase, fewest first
+DH_SPLITS = (1, 2, 4, 8)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index`, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _waves(blocks: int, tile: tuple[int, int, int], sms: int) -> int:
+    return -(-blocks // (sms * tile[2]))
+
+
+def lstm_tile(N: int, H: int, dtype: torch.dtype,
+              sms: int) -> tuple[int, int, int]:
+    """The tile (BM, BN, blocks an SM holds) of K1 and K2 for N rows of H
+    units on `sms` SMs: the one whose grid of (4H / BN) x (N / BM) blocks
+    runs in the fewest waves, and the narrowest of those.  A step launch
+    costs about one block's time a wave, which grows with the tile (13, 18
+    and 28 µs for 64, 128 and 256 rows at E 300 in bf16 on an H100;
+    PERF.md), so a wider tile pays only where it saves a wave: 640 rows
+    take the 64 x 64 tile (320 blocks, one wave), 1,696 rows the 256 x 128
+    (112 blocks)."""
+    return min(TILES[dtype], key=lambda t: _waves(
+        -(-4 * H // t[1]) * -(-N // t[0]), t, sms))
+
+
+def dh_splits(N: int, H: int, dtype: torch.dtype, tile: tuple[int, int, int],
+              sms: int) -> int:
+    """S, the slices of K2's dh phase over K = 4H on `tile`: the most (of
+    DH_SPLITS, each slice holding a k-tile) whose grid of (H / BN) x
+    (N / BM) x S blocks still runs in one wave; 1 where none does.  More
+    slices shorten each block's k-loop, but each adds an (N, H) f32 buffer
+    that the gates phase reads at every step, and a grid past one wave
+    waits for a second (PERF.md)."""
+    blocks = -(-H // tile[1]) * -(-N // tile[0])
+    nkt = -(-4 * H // k_tile(dtype))
+    fits = [s for s in DH_SPLITS
+            if s <= nkt and _waves(blocks * s, tile, sms) == 1]
+    return fits[-1] if fits else 1
+
+
+def _count(wrapper, attr: str) -> None:
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
 def _check_layer(what: str, w, b, x, mask, h0, c0) -> tuple[int, int, int, int]:
     """Validate what K1 and K2 take; returns (N, T, E, H)."""
     if x.device.type != "cuda":
@@ -95,7 +151,8 @@ def lstm_layer(w, b, x, mask, h0, c0, *, save_cell: bool = False):
     x.dtype and (hT, cT) (N, H) in float32; with save_cell (hs, cs, hT, cT),
     cs the post-mask cell state of every step in x.dtype (the training
     forward's residual; without it the kernel writes none).
-    `lstm_layer.launches` counts the calls that went to the kernel."""
+    `lstm_layer.launches` counts the calls that went to the kernel, and
+    `.tile_64`, `.tile_128`, `.tile_256` those on each tile (lstm_tile)."""
     if x.device.type == "cpu":
         return lstm_layer_plain(w, b, x, mask, h0, c0, save_cell=save_cell)
     N, T, E, H = _check_layer("lstm_layer", w, b, x, mask, h0, c0)
@@ -107,15 +164,17 @@ def lstm_layer(w, b, x, mask, h0, c0, *, save_cell: bool = False):
     cs = torch.empty_like(hs) if save_cell else None
     h0c = h0.to(x.dtype).contiguous()
     h, c = h0.clone(), c0.clone()      # the carries: (h0, c0) in, (hT, cT) out
+    bm = lstm_tile(N, H, x.dtype, sm_count(x.device.index))[0]
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.vd_lstm_layer_fwd(
             _build.DTYPE_CODE[x.dtype], xp.data_ptr(), mask.data_ptr(),
             wk.data_ptr(), b.data_ptr(), h0c.data_ptr(), h.data_ptr(),
             c.data_ptr(), hs.data_ptr(), cs.data_ptr() if save_cell else None,
-            N, T, xp.shape[-1], kx, kw, H, _build.stream_of(x))
+            N, T, xp.shape[-1], kx, kw, H, bm, _build.stream_of(x))
     _build.check(err, "lstm_layer")
     lstm_layer.launches += 1
+    _count(lstm_layer, f"tile_{bm}")
     if save_cell:
         return hs, cs, h, c
     return hs, h, c
@@ -131,7 +190,10 @@ def lstm_layer_bwd(w, b, x, mask, h_prev, c_prev, g_hs, g_ht, g_ct):
     that fed each step ([h0; hs[:, :-1]], [c0; cs[:, :-1]]); g_ht, g_ct
     (N, H).  Returns dgp (N, T, 4H) in the compute dtype (the gate
     pre-activation grads), dh0 and dc0 (N, H) float32.
-    `lstm_layer_bwd.launches` counts the calls that went to the kernel."""
+    `lstm_layer_bwd.launches` counts the calls that went to the kernel,
+    `.tile_64`, `.tile_128`, `.tile_256` those on each tile and
+    `.dh_split_1` ... `.dh_split_8` those at each S (lstm_tile,
+    dh_splits)."""
     if x.device.type == "cpu":
         return lstm_layer_bwd_plain(w, b, x, mask, h_prev, c_prev, g_hs, g_ht,
                                     g_ct)
@@ -150,11 +212,12 @@ def lstm_layer_bwd(w, b, x, mask, h_prev, c_prev, g_hs, g_ht, g_ct):
     b = b.float().contiguous()
     mask = mask.float().contiguous()
     dgp = torch.empty((N, T, 4 * H), dtype=x.dtype, device=x.device)
+    sms = sm_count(x.device.index)
+    tile = lstm_tile(N, H, x.dtype, sms)
     # K2's dh product is cut over K into S slices, each writing its partial
-    # product to its own buffer (S = 8 up to the kernel's 512-row tiles,
-    # where the row tiles alone leave most of the card idle)
-    dhp = torch.zeros((8 if N <= 512 else 1, N, H), dtype=torch.float32,
-                      device=x.device)
+    # product to its own buffer
+    S = dh_splits(N, H, x.dtype, tile, sms)
+    dhp = torch.zeros((S, N, H), dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.vd_lstm_layer_bwd(
@@ -162,13 +225,30 @@ def lstm_layer_bwd(w, b, x, mask, h_prev, c_prev, g_hs, g_ht, g_ct):
             c_prev.data_ptr(), mask.data_ptr(), wk.data_ptr(), wh.data_ptr(),
             b.data_ptr(), g_hs.data_ptr(), dh.data_ptr(), dc.data_ptr(),
             dhp.data_ptr(), dgp.data_ptr(), N, T, xp.shape[-1], kx, kw, H,
-            dhp.shape[0], _build.stream_of(x))
+            S, tile[0], _build.stream_of(x))
     _build.check(err, "lstm_layer_bwd")
     lstm_layer_bwd.launches += 1
+    _count(lstm_layer_bwd, f"tile_{tile[0]}")
+    _count(lstm_layer_bwd, f"dh_split_{S}")
     return dgp, dh + dhp.sum(dim=0), dc
 
 
 lstm_layer_bwd.launches = 0
+
+
+def choice_counters() -> list[tuple[str, object, str]]:
+    """(name, wrapper, attribute) of the counts of K1's and K2's tiles and
+    K2's dh splits, which parallel/graph.py::counters() lists beside the
+    launches."""
+    rows = sorted({t[0] for tiles in TILES.values() for t in tiles})
+    tiles = [(f"{fn.__name__}.tile_{bm}", fn, f"tile_{bm}")
+             for fn in (lstm_layer, lstm_layer_bwd) for bm in rows]
+    return tiles + [(f"lstm_layer_bwd.dh_split_{s}", lstm_layer_bwd,
+                     f"dh_split_{s}") for s in DH_SPLITS]
+
+
+for _, _fn, _attr in choice_counters():
+    setattr(_fn, _attr, 0)
 
 
 class LSTMLayerFn(torch.autograd.Function):

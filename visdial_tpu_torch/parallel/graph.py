@@ -80,15 +80,18 @@ CAPTURING = threading.Lock()      # held by every capture (the docstring)
 @functools.cache
 def counters() -> tuple[tuple[str, object, str], ...]:
     """(name, object, attribute) of every launch counter in the port: the
-    six kernels' wrappers' `.launches`, the bf16 contractions'
+    six kernels' wrappers' `.launches`, K1's and K2's tile and split
+    choices (ops/lstm_cuda.py::choice_counters), the bf16 contractions'
     `.tensor_core` and the mesh's `collectives` (parallel/mesh.py); built
     at the first call, since every replay reads it."""
     from ..ops import kernel_wrappers
     from ..ops.contract import mm_f32, scores_f32
+    from ..ops.lstm_cuda import choice_counters
     from . import mesh
 
     return tuple([(f"launches.{name}", fn, "launches")
-                  for name, fn in kernel_wrappers().items()] + [
+                  for name, fn in kernel_wrappers().items()]
+                 + choice_counters() + [
         ("tensor_core.mm_f32", mm_f32, "tensor_core"),
         ("tensor_core.scores_f32", scores_f32, "tensor_core"),
         ("mesh.collectives", mesh, "collectives")])
