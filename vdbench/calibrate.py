@@ -36,12 +36,13 @@ def control(cell: spec.Cell, seed: int, device) -> tuple[dict, dict]:
     conf, mix = cell.config, cell.traffic
     arrays = traffic.make_split(mix, conf, seed,
                                 options=conf["decoder"] == "disc")
-    start = weights.make(conf, traffic.seed_for(seed, 1), device)
+    fam = cell.family
+    start = weights.make(conf, fam, traffic.seed_for(seed, 1), device)
     if mix["kind"] == "eval":
         band = cell.limits["out_of_band"]["band"]
-        r32, bands = ref_steps.ranks(conf, arrays, start, device=device,
+        r32, bands = ref_steps.ranks(conf, fam, arrays, start, device=device,
                                      bands=tuple(sorted({band, *compare.BANDS})))
-        r8, _ = ref_steps.ranks(conf, arrays, start, precision="fp8",
+        r8, _ = ref_steps.ranks(conf, fam, arrays, start, precision="fp8",
                                 device=device)
         return (compare.eval_numbers([r8], r32, bands[band])[0],
                 compare.eval_detail([r8], r32, bands))
@@ -54,8 +55,9 @@ def control(cell: spec.Cell, seed: int, device) -> tuple[dict, dict]:
               tokens=(words["<START>"], words["<END>"]))
     drop = traffic.seed_for(seed, 2)
     host = {k: v.cpu() for k, v in start.items()}
-    r32 = ref_steps.train(conf, arrays, host, ids, drop, **kw)
-    r8 = ref_steps.train(conf, arrays, host, ids, drop, precision="fp8", **kw)
+    r32 = ref_steps.train(conf, fam, arrays, host, ids, drop, **kw)
+    r8 = ref_steps.train(conf, fam, arrays, host, ids, drop, precision="fp8",
+                         **kw)
     r8 = {"loss": r8["loss"], "params": {k: v.cpu() for k, v in r8["params"].items()},
           "m": {k: v.cpu() for k, v in r8["m"].items()}}
     return (compare.train_numbers(r8, r32, host),

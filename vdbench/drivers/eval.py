@@ -49,7 +49,8 @@ def run(args: RunArgs) -> dict:
     arrays = traffic.make_split(mix, conf, args.seed)
     split = VisDialSplit(**arrays)
     vocab = Vocabulary(word2ind=traffic.vocab_words(conf))
-    flat = weights.make(conf, traffic.seed_for(args.seed, 1), device)
+    fam = cell.family
+    flat = weights.make(conf, fam, traffic.seed_for(args.seed, 1), device)
     params = weights.nest(flat)
     fns = make_disc_table_eval_fns(cfg)
     spans = Spans()
@@ -83,7 +84,7 @@ def run(args: RunArgs) -> dict:
             summary = trace.summarize(prof, wall)
             traced = work.Work()
             for _ in range(int(mix["passes_traced"])):
-                traced.add(work.eval_pass(conf, arrays))
+                traced.add(work.eval_pass(conf, fam, arrays))
             continue
         passes.append(one_pass())
     sync(device)
@@ -96,8 +97,8 @@ def run(args: RunArgs) -> dict:
 
     band = cell.limits["out_of_band"]["band"]
     bands = tuple(sorted({band, *compare.BANDS})) if args.detail else (band,)
-    ref, ref_bands = ref_steps.ranks(conf, arrays, weights.make(
-        conf, traffic.seed_for(args.seed, 1), device), device=device,
+    ref, ref_bands = ref_steps.ranks(conf, fam, arrays, weights.make(
+        conf, fam, traffic.seed_for(args.seed, 1), device), device=device,
         bands=bands)
     numbers, failed = compare.eval_numbers(passes, ref, ref_bands[band])
     ok, shown = compare.judge(numbers, cell.limits)

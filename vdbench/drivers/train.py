@@ -98,7 +98,8 @@ def run(args: RunArgs) -> dict:
                                 options=conf["decoder"] == "disc")
     split = VisDialSplit(**arrays)
     vocab = Vocabulary(word2ind=traffic.vocab_words(conf))
-    flat = weights.make(conf, traffic.seed_for(args.seed, 1), device)
+    fam = cell.family
+    flat = weights.make(conf, fam, traffic.seed_for(args.seed, 1), device)
     start = {k: v.detach().cpu().clone() for k, v in flat.items()}
     zeros = lambda: weights.nest({k: torch.zeros_like(v) for k, v in flat.items()})
     drop_seed = traffic.seed_for(args.seed, 2)
@@ -201,7 +202,7 @@ def run(args: RunArgs) -> dict:
         n += 1
         if prof is not None and summary is None:
             for g in range(G):
-                traced.add(work.train_step(conf, arrays,
+                traced.add(work.train_step(conf, fam, arrays,
                                            ids[g, lo:lo + per_rank]))
             left -= 1
             if left == 0:
@@ -227,7 +228,7 @@ def run(args: RunArgs) -> dict:
                         "work": traced.__dict__ if summary else None}}
     if rank != 0:
         return {**out, "correct": True, "compared": {}}
-    ref = ref_steps.train(conf, arrays, start, list(first_ids), drop_seed,
+    ref = ref_steps.train(conf, fam, arrays, start, list(first_ids), drop_seed,
                           ranks=ranks, device=device,
                           tokens=(vocab.start, vocab.end))
     numbers = compare.train_numbers(prog, ref, start)

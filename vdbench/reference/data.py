@@ -24,43 +24,14 @@ def right_align(tok: np.ndarray, lens: np.ndarray) -> np.ndarray:
     return np.where(src >= 0, out, 0).astype(np.int32)
 
 
-def facts(split: dict, idx: np.ndarray, width: int):
-    """Per-dialog facts (B, R, width) right-aligned: slot 0 the caption,
-    slot j the question and answer of round j - 1, each cut to width."""
-    q, ql = split["ques"][idx], split["ques_len"][idx]
-    a, al = split["ans"][idx], split["ans_len"][idx]
-    B, R, Lq = q.shape
-    La = a.shape[-1]
-    qa = np.zeros((B, R - 1, Lq + La), np.int32)
-    qa[..., :Lq] = q[:, :R - 1]
-    pos = ql[:, :R - 1, None] + np.arange(La)
-    real = np.arange(La) < al[:, :R - 1, None]
-    b_i, r_i, k_i = np.nonzero(real)
-    qa[b_i, r_i, pos[b_i, r_i, k_i]] = a[:, :R - 1][b_i, r_i, k_i]
-    out = np.zeros((B, R, width), np.int32)
-    lens = np.zeros((B, R), np.int32)
-    cap, cl = split["cap"][idx], split["cap_len"][idx]
-    w = min(width, cap.shape[1])
-    out[:, 0, :w] = cap[:, :w]
-    lens[:, 0] = np.minimum(cl, width)
-    w = min(width, Lq + La)
-    out[:, 1:, :w] = qa[..., :w]
-    lens[:, 1:] = np.minimum(ql[:, :R - 1] + al[:, :R - 1], width)
-    return right_align(out, lens), lens
-
-
-def encoder_batch(split: dict, idx: np.ndarray, config: dict) -> dict:
-    """The encoder's inputs of dialogs idx: ques and facts right-aligned,
-    the image L2-normalised."""
-    fact_width = max(config["max_cap_len"],
-                     config["max_ques_len"] + config["max_ans_len"])
-    f, _ = facts(split, idx, fact_width)
+def image(split: dict, idx: np.ndarray, config: dict) -> np.ndarray:
+    """The fc7 features of dialogs idx (B, F) in float32, L2-normalised
+    unless the configuration's img_norm is false."""
     img = split["img_feat"][idx].astype(np.float32)
     if config.get("img_norm", True):
         norm = np.linalg.norm(img, axis=1, keepdims=True)
         img = img / np.maximum(norm, 1e-8)
-    return {"ques": right_align(split["ques"][idx], split["ques_len"][idx]),
-            "facts": f, "img": img.astype(np.float32)}
+    return img.astype(np.float32)
 
 
 def disc_candidates(split: dict, idx: np.ndarray):

@@ -7,8 +7,8 @@ for the decoder), and a rank d of a data axis adds d to both.  Each seed
 starts a torch.Generator on the batch's device, from which every keep mask
 is `torch.rand(shape, generator=g) < 1 - rate`, drawn in this order:
 
-  encoder: the question LSTM's (B R, Lq, H); the fact LSTM's (B R, Lf, H);
-           [query; memory]'s (B R, 2H)
+  encoder: the family's masks, drawn by its module's encoder_masks
+           (encoders/<family>.py)
   decoder: disc, the candidate LSTM's (B R K, La, H) over the batch's
            unique candidate rows in ascending pool order, then all-pad
            filler rows up to B R K (without disc_dedup_options, over every
@@ -28,22 +28,12 @@ def step_seeds(cpu: torch.Generator, steps: int) -> list[tuple[int, int]]:
             for _ in range(steps)]
 
 
-def _keep(g: torch.Generator, shape, rate: float) -> torch.Tensor:
+def keep(g: torch.Generator, shape, rate: float) -> torch.Tensor:
     return torch.rand(shape, generator=g, device=g.device) < 1.0 - rate
-
-
-def encoder_masks(seed: int, n: int, config: dict, device) -> dict:
-    H, rate = config["rnn_hidden_size"], config["dropout"]
-    g = torch.Generator(device=device).manual_seed(seed)
-    fact_width = max(config["max_cap_len"],
-                     config["max_ques_len"] + config["max_ans_len"])
-    return {"ques": _keep(g, (n, config["max_ques_len"], H), rate),
-            "fact": _keep(g, (n, fact_width, H), rate),
-            "cat": _keep(g, (n, 2 * H), rate)}
 
 
 def decoder_mask(seed: int, rows: int, width: int, config: dict,
                  device) -> torch.Tensor:
     g = torch.Generator(device=device).manual_seed(seed)
-    return _keep(g, (rows, width, config["rnn_hidden_size"]),
-                 config["dropout"])
+    return keep(g, (rows, width, config["rnn_hidden_size"]),
+                config["dropout"])

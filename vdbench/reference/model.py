@@ -1,33 +1,31 @@
-"""The MN-QIH encoder and both decoders in plain PyTorch, float32.
+"""What every encoder family shares, and both decoders, in plain PyTorch,
+float32.
 
 Every product goes through `Ops.mm` / `Ops.bmm`: exact float32 products
 (the caller turns TF32 off), or with precision "fp8" the lower-precision
 control: each operand rounded to float8 e4m3 under a per-tensor scale (its
 largest magnitude to 448), in the forward and in the backward.
 
-The model (Das et al. 2017, MN-QIH; train.lua's options):
+Shared (Das et al. 2017; train.lua's options):
   * tokens embed through one table whose pad row reads zero;
-  * a stacked LSTM over each right-aligned question and each per-round
-    fact (caption; question + answer of each earlier round), its state
-    carried through pad steps, the top layer's last state kept;
-  * the fc7 image, L2-normalised, projected to H and fused with the
-    question state: query = tanh(W [q; img] + b);
-  * attention over the fact slots 0..t of round t: softmax of the
-    unscaled dot products, then joint = tanh(W [query; memory] + b);
+  * a stacked masked LSTM, its state carried through pad steps, and the
+    top layer's state after each row's last token (right- or
+    left-aligned rows);
   * disc: each candidate through an option LSTM (its last state), score =
     dot(candidate, joint), 100-way NLL of the ground truth;
   * gen: an LSTM language model started at h = joint in every layer,
     teacher-forced over <START> + answer, NLL of answer + <END>.
-Dropout (rate from the configuration) falls on the first LSTM layer's
-outputs (before the second layer) and on [query; memory]; the caller hands
-the keep masks in (dropout.py draws them).
+The encoder that makes joint (B R, H) is its family's `encode`
+(encoders/<family>.py), built from these parts.  Dropout (rate from the
+configuration) falls on the first LSTM layer's outputs (before the second
+layer), and where the family says; the caller hands the keep masks in
+(dropout.py and the family's encoder_masks draw them).
 """
 
 from __future__ import annotations
 
 import torch
 
-NEG = -1e30
 E4M3_MAX = 448.0
 
 
@@ -105,7 +103,7 @@ def lstm(ops: Ops, layers: list, x: torch.Tensor, mask: torch.Tensor,
     return inp, h
 
 
-def _one(keep):
+def inner_keep(keep):
     """A two-layer LSTM's keep masks: the one between its layers."""
     return None if keep is None else [keep]
 
@@ -132,40 +130,11 @@ def last_state(ops, layers, p, tok, keep=None, rate=0.0, right=True):
     return h
 
 
-def encode(ops: Ops, p: dict, b: dict, rate: float = 0.0,
-           masks: dict | None = None) -> torch.Tensor:
-    """joint (B * R, H) of the MN-QIH encoder; b holds ques (B, R, Lq) and
-    facts (B, R, Lf) right-aligned, img (B, F) normalised; masks the keep
-    masks "ques", "fact" (N, L, H) and "cat" (N, 2H) at `rate`."""
-    enc = p["encoder"]
-    B, R, Lq = b["ques"].shape
-    N = B * R
-    masks = masks or {}
-    kq, kf = masks.get("ques"), masks.get("fact")
-    q = last_state(ops, enc["ques_lstm"]["layers"], p,
-                   b["ques"].reshape(N, Lq), _one(kq), rate)
-    facts = last_state(ops, enc["fact_lstm"]["layers"], p,
-                       b["facts"].reshape(N, -1), _one(kf), rate)
-    facts = facts.reshape(B, R, -1)
-    img = linear(ops, enc["img_proj"], b["img"]).repeat_interleave(R, dim=0)
-    query = torch.tanh(linear(ops, enc["query_fusion"],
-                              torch.cat([q, img], dim=-1)))
-    qr = query.reshape(B, R, -1)
-    scores = ops.bmm(qr, facts.transpose(1, 2))                 # (B, R, R)
-    slot = torch.arange(R, device=qr.device)
-    scores = torch.where(slot[None, :] <= slot[:, None], scores, NEG)
-    mem = ops.bmm(torch.softmax(scores, dim=-1), facts).reshape(N, -1)
-    cat = torch.cat([query, mem], dim=-1)
-    if masks.get("cat") is not None:
-        cat = torch.where(masks["cat"], cat / (1.0 - rate), 0.0)
-    return torch.tanh(linear(ops, enc["fusion"], cat))
-
-
 def option_states(ops: Ops, p: dict, tok: torch.Tensor, keep=None,
                   rate: float = 0.0) -> torch.Tensor:
     """Candidates' last states (M, H); tok (M, La) left-aligned."""
     return last_state(ops, p["decoder"]["opt_lstm"]["layers"], p, tok,
-                      _one(keep), rate, right=False)
+                      inner_keep(keep), rate, right=False)
 
 
 def disc_nll(ops: Ops, joint: torch.Tensor, emb: torch.Tensor,
@@ -186,7 +155,7 @@ def gen_nll(ops: Ops, p: dict, joint: torch.Tensor, ans_in: torch.Tensor,
     layers = dec["lm_lstm"]["layers"]
     hi = left_span(ans_in)
     outs, _ = lstm(ops, layers, embed(p, ans_in), (ans_in != 0).float(),
-                   _one(keep), rate, h0=joint, hi=hi)
+                   inner_keep(keep), rate, h0=joint, hi=hi)
     tgt = ans_out[:, :hi] * (ans_in[:, 1:2] != 0)
     logits = linear(ops, dec["out_proj"], outs.reshape(-1, outs.shape[-1]))
     logp = torch.log_softmax(logits, dim=-1)

@@ -1,10 +1,12 @@
 """Training steps and retrieval ranks of the reference.
 
-`train` follows the program's first steps: the same weights, dialogs and
-dropout seeds, each step's loss over the global batch (on a data axis of D
-ranks the sum of each rank's shard, its own masks, over the global count),
-its gradients by autograd, the global-norm clip, then Adam at the step's
-decayed learning rate.  `ranks` scores every round of a split against its
+The encoder is the configuration's family module (encoders/<family>.py,
+handed in as `family`): its batch, masks and forward.  `train` follows
+the program's first steps: the same weights, dialogs and dropout seeds,
+each step's loss over the global batch (on a data axis of D ranks the sum
+of each rank's shard, its own masks, over the global count), its gradients
+by autograd, the global-norm clip, then Adam at the step's decayed
+learning rate.  `ranks` scores every round of a split against its
 100 candidates through the option table and returns each ground truth's
 rank, ties counted in its favour (1 + the candidates that score higher).
 """
@@ -34,8 +36,8 @@ def _f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
-def step_loss(ops, p, config, split, idx, enc_seed, dec_seed, ranks, device,
-              tokens):
+def step_loss(ops, p, config, family, split, idx, enc_seed, dec_seed, ranks,
+              device, tokens):
     """The global batch's loss (a 0-dim tensor) over dialogs idx."""
     rate = config["dropout"]
     R, K, La = (config["num_rounds"], config["num_options"],
@@ -46,10 +48,10 @@ def step_loss(ops, p, config, split, idx, enc_seed, dec_seed, ranks, device,
         sidx = idx[d * per:(d + 1) * per]
         n = per * R
         b = {k: _t(v, device) for k, v in
-             data.encoder_batch(split, sidx, config).items()}
-        masks = (dropout.encoder_masks(enc_seed + d, n, config, device)
+             family.encoder_batch(split, sidx, config).items()}
+        masks = (family.encoder_masks(enc_seed + d, n, config, device)
                  if rate > 0 else None)
-        joint = model.encode(ops, p, b, rate, masks)
+        joint = family.encode(ops, p, b, rate, masks)
         if config["decoder"] == "disc":
             if config.get("disc_dedup_options", True):
                 uniq, rows = data.disc_candidates(split, sidx)
@@ -74,7 +76,7 @@ def step_loss(ops, p, config, split, idx, enc_seed, dec_seed, ranks, device,
     return total / count
 
 
-def train(config: dict, split: dict, params: dict, steps: list,
+def train(config: dict, family, split: dict, params: dict, steps: list,
           dropout_seed: int, *, ranks: int = 1, precision: str = "f32",
           device="cpu", tokens=(0, 0)) -> dict:
     """Follow len(steps) optimizer steps, steps[s] the dialogs of step s.
@@ -93,8 +95,8 @@ def train(config: dict, split: dict, params: dict, steps: list,
     losses = []
     for s, idx in enumerate(steps):
         leaves = {k: x.requires_grad_() for k, x in flat.items()}
-        loss = step_loss(ops, nest(leaves), config, split, np.asarray(idx),
-                         *seeds[s], ranks, device, tokens)
+        loss = step_loss(ops, nest(leaves), config, family, split,
+                         np.asarray(idx), *seeds[s], ranks, device, tokens)
         grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
         losses.append(float(loss.detach()))
         with torch.no_grad():
@@ -118,9 +120,9 @@ def train(config: dict, split: dict, params: dict, steps: list,
 
 
 @torch.no_grad()
-def ranks(config: dict, split: dict, params: dict, *, precision: str = "f32",
-          device="cpu", block: int = 512, table_block: int = 16384,
-          bands=()) -> tuple[np.ndarray, dict]:
+def ranks(config: dict, family, split: dict, params: dict, *,
+          precision: str = "f32", device="cpu", block: int = 512,
+          table_block: int = 16384, bands=()) -> tuple[np.ndarray, dict]:
     """Ground-truth rank of every round (N * R,) in dialog order, and for
     each fraction a in `bands` the band of ranks (lo, hi) the ground truth
     takes when every score may move by a times the round's largest score
@@ -138,8 +140,8 @@ def ranks(config: dict, split: dict, params: dict, *, precision: str = "f32",
     for lo in range(0, n, block):
         idx = np.arange(lo, min(lo + block, n))
         b = {k: _t(v, device) for k, v in
-             data.encoder_batch(split, idx, config).items()}
-        joint = model.encode(ops, p, b)
+             family.encoder_batch(split, idx, config).items()}
+        joint = family.encode(ops, p, b)
         cand = table[_t(split["opt_inds"][idx].reshape(len(idx) * config["num_rounds"], -1),
                         device)]
         scores = ops.bmm(cand, joint[:, :, None])[..., 0]

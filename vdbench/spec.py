@@ -4,7 +4,9 @@ A cell (an entry of `workloads`) names its configuration and its traffic
 mix; the configuration's file is configs/<config>.json, the mix's
 traffic/<traffic>.json, the cell's limits limits/<cell>.json, and each
 metric's reader metrics/<metric>.py.  A later cell, mix or metric is a new
-file and a new entry, never an edit of one here.
+file and a new entry, never an edit of one here.  The configuration's
+encoder family (its name before the first "-") is encoders/<family>.py
+beside the configs: a new encoder family is one new file there.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import importlib.util
 import json
 import os
 from dataclasses import dataclass, field
+
+from . import encoders
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -34,6 +38,7 @@ class Cell:
     traffic_name: str
     traffic: dict          # the traffic file
     limits: dict           # {number: {"limit": x, ...}}
+    family: object         # the encoder family's module (encoders/)
     end_to_end: list = field(default_factory=list)   # metric entries
     per_layer: list = field(default_factory=list)
 
@@ -56,12 +61,13 @@ def load_cell(name: str, spec_path: str = SPEC) -> Cell:
     conf = configs[w["config"]]
     root = os.path.dirname(os.path.abspath(spec_path))
     files = os.path.join(root, os.path.basename(HERE))
+    config = _load_json(os.path.join(root, conf["file"]))
     return Cell(
         name=name, chips=int(w["chips"]), config_name=w["config"],
-        config=_load_json(os.path.join(root, conf["file"])),
-        traffic_name=w["traffic"],
+        config=config, traffic_name=w["traffic"],
         traffic=_load_json(os.path.join(files, "traffic", w["traffic"] + ".json")),
         limits=_load_json(os.path.join(files, "limits", name + ".json")),
+        family=encoders.load(config, os.path.join(files, "encoders")),
         end_to_end=[m for m in spec["end_to_end"] if _applies(m, name)],
         per_layer=[m for m in spec["per_layer"] if _applies(m, name)])
 

@@ -1,6 +1,7 @@
 """Nothing the run loads has the top-level name jax, jaxlib, flax or
 visdial_tpu (whole names: visdial_tpu_torch is the port), in the run's
-process and in a rank; the reference loads nothing of the port."""
+process and in a rank; the reference and the encoder families load nothing
+of the port."""
 
 import ast
 import os
@@ -34,6 +35,7 @@ def _imports(path):
 
 
 def test_sources_import_no_jax_and_reference_no_port():
+    plain = [os.sep + d + os.sep for d in ("reference", "encoders")]
     for dirpath, _, files in os.walk(HERE):
         for f in files:
             if not f.endswith(".py"):
@@ -41,7 +43,7 @@ def test_sources_import_no_jax_and_reference_no_port():
             path = os.path.join(dirpath, f)
             tops = {m.split(".")[0] for m in _imports(path)}
             assert not tops & set(run.FORBIDDEN), path
-            if os.sep + "reference" + os.sep in path:
+            if any(d in path for d in plain):
                 assert "visdial_tpu_torch" not in tops, path
 
 

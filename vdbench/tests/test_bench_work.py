@@ -7,7 +7,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from vdbench import traffic, weights, work
+from vdbench import encoders, traffic, weights, work
 from vdbench.reference import model, steps
 
 CONF = {
@@ -33,23 +33,25 @@ def test_train_step_operations(decoder):
                 disc_dedup_options=not decoder.endswith("nodedup"))
     arrays = _split(conf)
     assert (arrays["ques_len"] == conf["max_ques_len"]).all()
-    flat = weights.make(conf, 3, "cpu")
+    fam = encoders.load(conf)
+    flat = weights.make(conf, fam, 3, "cpu")
     idx = np.array([1, 4])
     leaves = {k: v.requires_grad_() for k, v in flat.items()}
     with FlopCounterMode(display=False) as counter:
-        loss = steps.step_loss(model.Ops(), weights.nest(leaves), conf, arrays,
-                               idx, 0, 0, 1, "cpu", (37, 38))
+        loss = steps.step_loss(model.Ops(), weights.nest(leaves), conf, fam,
+                               arrays, idx, 0, 0, 1, "cpu", (37, 38))
         torch.autograd.grad(loss, list(leaves.values()))
-    counted = work.train_step(conf, arrays, idx)
+    counted = work.train_step(conf, fam, arrays, idx)
     assert counted.model == counter.get_total_flops()
 
 
 def test_eval_pass_operations():
     arrays = _split(CONF)
-    flat = weights.make(CONF, 3, "cpu")
+    fam = encoders.load(CONF)
+    flat = weights.make(CONF, fam, 3, "cpu")
     with FlopCounterMode(display=False) as counter:
-        steps.ranks(CONF, arrays, flat)
-    assert work.eval_pass(CONF, arrays).model == counter.get_total_flops()
+        steps.ranks(CONF, fam, arrays, flat)
+    assert work.eval_pass(CONF, fam, arrays).model == counter.get_total_flops()
 
 
 def test_kernel_bounds_count_real_steps_only():
@@ -58,9 +60,10 @@ def test_kernel_bounds_count_real_steps_only():
                                      "caption": 100.0})
     arrays = traffic.make_split(short, conf, 5)
     idx = np.arange(2)
-    w = work.train_step(conf, arrays, idx)
+    fam = encoders.load(conf)
+    w = work.train_step(conf, fam, arrays, idx)
     full = dict(arrays, ques_len=np.full_like(arrays["ques_len"], 6))
-    assert w.k1[0] < work.train_step(conf, full, idx).k1[0]
+    assert w.k1[0] < work.train_step(conf, fam, full, idx).k1[0]
 
 
 def test_roofline_share():

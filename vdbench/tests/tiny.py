@@ -1,10 +1,14 @@
 """A tiny copy of the benchmark's spec for the CPU tests: the same cells'
-kinds at widths a test can hold, written under a temporary directory."""
+kinds at widths a test can hold, written under a temporary directory with
+a copy of the encoder family modules beside its configs."""
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+
+from vdbench import encoders
 
 CONFIG = {
     "encoder": "mn-ques-im-hist", "decoder": "disc", "vocab_size": 60,
@@ -33,6 +37,9 @@ def write(root: str, ranks: int = 2) -> str:
     os.makedirs(os.path.join(root, "vdbench", "configs"), exist_ok=True)
     os.makedirs(os.path.join(root, "vdbench", "traffic"), exist_ok=True)
     os.makedirs(os.path.join(root, "vdbench", "limits"), exist_ok=True)
+    shutil.copytree(encoders.HERE, os.path.join(root, "vdbench", "encoders"),
+                    ignore=shutil.ignore_patterns("__pycache__"),
+                    dirs_exist_ok=True)
 
     def put(path, obj):
         with open(os.path.join(root, path), "w") as f:

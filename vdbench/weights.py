@@ -7,6 +7,10 @@ linear w (in, out) and b (out,).  Every matrix is drawn uniform(-0.08,
 0.08) in one call on the device from a generator seeded by the run's seed;
 biases are zero with the LSTM forget gate's at 1.0, and the embedding's pad
 row is zero (the initialisation the source's train.lua uses).
+
+The embedding's and the decoders' leaves are laid out here, the encoder's
+by its family module (encoders/<family>.py::weight_shapes), so a
+configuration whose family has a module has a layout.
 """
 
 from __future__ import annotations
@@ -16,36 +20,31 @@ import torch
 SCALE = 0.08
 
 
-def shapes(config: dict) -> dict:
-    """{path: shape} of every leaf, paths as "encoder/ques_lstm/layers/0/w".
-    Covers the MN encoder with the fc7 image and either decoder."""
+def lstm_shapes(prefix: str, in_dim: int, config: dict) -> dict:
+    """{path: shape} of a stacked LSTM with input width in_dim."""
+    H, out = config["rnn_hidden_size"], {}
+    for i in range(config["num_layers"]):
+        out[f"{prefix}/layers/{i}/w"] = ((in_dim if i == 0 else H) + H, 4 * H)
+        out[f"{prefix}/layers/{i}/b"] = (4 * H,)
+    return out
+
+
+def linear_shapes(prefix: str, i: int, o: int) -> dict:
+    return {f"{prefix}/w": (i, o), f"{prefix}/b": (o,)}
+
+
+def shapes(config: dict, family) -> dict:
+    """{path: shape} of every leaf, paths as "encoder/ques_lstm/layers/0/w":
+    the embedding, then the encoder's leaves (its family module's
+    weight_shapes, encoders/), then the decoder's."""
     E, H, V = (config["embed_size"], config["rnn_hidden_size"],
                config["vocab_size"])
-    F, L = config["img_feat_size"], config["num_layers"]
-    if not config["encoder"].startswith("mn-"):
-        raise ValueError(f"no weight layout for {config['encoder']!r}")
-    out = {"embed/table": (V, E)}
-
-    def lstm(prefix, in_dim, layers):
-        for i in range(layers):
-            out[f"{prefix}/layers/{i}/w"] = ((in_dim if i == 0 else H) + H, 4 * H)
-            out[f"{prefix}/layers/{i}/b"] = (4 * H,)
-
-    def linear(prefix, i, o):
-        out[f"{prefix}/w"] = (i, o)
-        out[f"{prefix}/b"] = (o,)
-
-    lstm("encoder/ques_lstm", E, L)
-    lstm("encoder/fact_lstm", E, L)
-    if "-im" in config["encoder"]:
-        linear("encoder/img_proj", F, H)
-        linear("encoder/query_fusion", 2 * H, H)
-    linear("encoder/fusion", 2 * H, H)
+    out = {"embed/table": (V, E), **family.weight_shapes(config)}
     if config["decoder"] == "gen":
-        lstm("decoder/lm_lstm", E, L)
-        linear("decoder/out_proj", H, V)
+        out.update(lstm_shapes("decoder/lm_lstm", E, config))
+        out.update(linear_shapes("decoder/out_proj", H, V))
     else:
-        lstm("decoder/opt_lstm", E, L)
+        out.update(lstm_shapes("decoder/opt_lstm", E, config))
     return out
 
 
@@ -68,10 +67,11 @@ def nest(flat: dict) -> dict:
     return listify(tree)
 
 
-def make(config: dict, seed: int, device) -> dict:
+def make(config: dict, family, seed: int, device) -> dict:
     """{path: float32 tensor on device}: the matrices from one uniform draw
-    of a generator on `device` seeded with `seed`, the biases set."""
-    sizes = shapes(config)
+    of a generator on `device` seeded with `seed`, in shapes' order, the
+    biases set."""
+    sizes = shapes(config, family)
     mats = [p for p, s in sizes.items() if len(s) == 2]
     total = sum(sizes[p][0] * sizes[p][1] for p in mats)
     gen = torch.Generator(device=device).manual_seed(seed)

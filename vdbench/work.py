@@ -7,15 +7,12 @@ counts them; an LSTM step counts only where its row holds a real token
 once and each output written once.  A roofline share is the larger of the
 operation bound and the byte bound over the measured kernel time.
 
-The model step (MN-QIH, either decoder), per layer of a stacked LSTM with
-input width `in` and hidden H, over `real` real row-steps:
-  forward 2 real (in + H) 4H; its backward twice that (the input's and the
-  weights' gradients);
-  img_proj 2 B F H forward and 2 B F H backward (the weights' only: the
-  image is data); query_fusion and fusion 2 N 2H H each; attention
-  2 N R H for its scores and 2 N R H for the weighted sum; disc scores
-  2 N K H; gen LM head 2 T H V over the T real targets; each backward
-  twice its forward.
+The model step: the encoder's work, counted by its family module
+(encoders/<family>.py::encoder_work), then the decoder's, counted here.
+Per layer of a stacked LSTM with input width `in` and hidden H, over
+`real` real row-steps: forward 2 real (in + H) 4H; its backward twice that
+(the input's and the weights' gradients).  Disc scores 2 N K H; gen LM
+head 2 T H V over the T real targets; each backward twice its forward.
 Kernels: K1 (lstm_fwd_step_kernel) the LSTM forward above; K2
 (lstm_bwd_gates_kernel, lstm_bwd_dh_kernel) real (2 (in + H) 4H + 2 4H H)
 a layer: the gates recomputed and dh through W_h; K5 (lm_score_partial_
@@ -93,47 +90,16 @@ def lm_head(config: dict, targets: float) -> tuple[float, float]:
     return ops, nbytes
 
 
-def fact_lengths(split: dict, idx: np.ndarray, config: dict) -> np.ndarray:
-    width = max(config["max_cap_len"],
-                config["max_ques_len"] + config["max_ans_len"])
-    R = config["num_rounds"]
-    out = np.empty((len(idx), R), np.int64)
-    out[:, 0] = np.minimum(split["cap_len"][idx], width)
-    out[:, 1:] = np.minimum(split["ques_len"][idx][:, :R - 1]
-                            + split["ans_len"][idx][:, :R - 1], width)
-    return out
-
-
-def _encoder(config: dict, split: dict, idx: np.ndarray, train: bool) -> Work:
-    E, H, F, R = (config["embed_size"], config["rnn_hidden_size"],
-                  config["img_feat_size"], config["num_rounds"])
-    B, N = len(idx), len(idx) * R
-    w = Work()
-    grad = 3.0 if train else 1.0
-    for real in (float(split["ques_len"][idx].sum()),
-                 float(fact_lengths(split, idx, config).sum())):
-        f_ops, f_bytes = lstm_fwd(config, real, E)
-        w.k1[0] += f_ops
-        w.k1[1] += f_bytes
-        if train:
-            b_ops, b_bytes = lstm_bwd(config, real, E)
-            w.k2[0] += b_ops
-            w.k2[1] += b_bytes
-        w.model += grad * f_ops
-    dense = 2.0 * N * 2 * H * H * 2 + 4.0 * N * R * H      # fusions, attention
-    w.model += grad * dense + (2.0 if train else 1.0) * 2.0 * B * F * H
-    return w
-
-
-def train_step(config: dict, split: dict, idx: np.ndarray) -> Work:
-    """One optimizer step over dialogs idx (a rank's shard on a data axis).
-    The disc candidate rows are those the configuration runs through the
+def train_step(config: dict, family, split: dict, idx: np.ndarray) -> Work:
+    """One optimizer step over dialogs idx (a rank's shard on a data axis):
+    the encoder's work (its family module's encoder_work), then the
+    decoder's.  The disc candidate rows are those the configuration runs through the
     option LSTM: the shard's unique rows, or with disc_dedup_options false
     every candidate of every round."""
     E, H, K, R = (config["embed_size"], config["rnn_hidden_size"],
                   config["num_options"], config["num_rounds"])
     N = len(idx) * R
-    w = _encoder(config, split, idx, train=True)
+    w = family.encoder_work(config, split, idx, True)
     if config["decoder"] == "disc":
         rows = split["opt_inds"][idx].reshape(-1)
         if config.get("disc_dedup_options", True):
@@ -157,13 +123,13 @@ def train_step(config: dict, split: dict, idx: np.ndarray) -> Work:
     return w
 
 
-def eval_pass(config: dict, split: dict) -> Work:
+def eval_pass(config: dict, family, split: dict) -> Work:
     """One pass of the disc retrieval eval over the split: the option table
     over the pool, then every dialog's encoder and its rounds' scores."""
     E, H, K, R = (config["embed_size"], config["rnn_hidden_size"],
                   config["num_options"], config["num_rounds"])
     n = len(split["gt_ind"])
-    w = _encoder(config, split, np.arange(n), train=False)
+    w = family.encoder_work(config, split, np.arange(n), False)
     f_ops, f_bytes = lstm_fwd(config, float(split["opt_list_len"].sum()), E)
     w.k1[0] += f_ops
     w.k1[1] += f_bytes
