@@ -7,7 +7,10 @@ once, and runs one pass (the resident upload, the captures) and a second
 (the replays warm).  The window is whole passes, repeated until its
 seconds have passed; the rate is every round ranked over the window's
 time, each pass's option-table build included.  After the window every
-pass's ranks are compared with the reference's (reference/steps.py).
+pass's ranks are compared with the reference's (reference/steps.py).  A
+traced run also records the port's own spans and counters over set-up and
+over the window's passes before the traced ones (ProgramRecords); an
+untraced run leaves them off.
 
 Traffic file keys: passes_traced (passes under the profiler).
 """
@@ -21,7 +24,7 @@ import torch
 
 from .. import compare, trace, traffic, weights, work
 from ..reference import steps as ref_steps
-from . import RunArgs, Spans, free, port_config, profiler, sync
+from . import ProgramRecords, RunArgs, Spans, free, port_config, profiler, sync
 
 
 def _planted(ranks: np.ndarray, fault: str | None, K: int) -> np.ndarray:
@@ -41,6 +44,7 @@ def run(args: RunArgs) -> dict:
     from visdial_tpu_torch.eval_harness import evaluate_split
     from visdial_tpu_torch.parallel.train_step import make_disc_table_eval_fns
 
+    program = ProgramRecords(args.trace)
     cell, log = args.cell, args.log
     conf, mix = cell.config, cell.traffic
     cfg = port_config(conf)
@@ -65,7 +69,8 @@ def run(args: RunArgs) -> dict:
     one_pass()                                  # upload, captures
     one_pass()                                  # replays warm
     spans.seconds.clear()
-    passes, summary, traced = [], None, None
+    passes, summary, traced, untraced = [], None, None, 0
+    program.cut("setup")
     sync(device)
     t0 = time.perf_counter()
     setup_s = time.time() - args.t0
@@ -73,6 +78,8 @@ def run(args: RunArgs) -> dict:
             args.trace and summary is None):
         if args.trace and summary is None and passes:
             sync(device)
+            program.cut("window")
+            untraced = len(passes)
             prof = profiler(device)
             prof.start()
             t = time.perf_counter()
@@ -80,6 +87,7 @@ def run(args: RunArgs) -> dict:
                 passes.append(one_pass())
             sync(device)
             wall = time.perf_counter() - t
+            program.stop()
             prof.stop()
             summary = trace.summarize(prof, wall)
             traced = work.Work()
@@ -112,4 +120,5 @@ def run(args: RunArgs) -> dict:
                          "window_s": window_s, "rounds": rounds,
                          "peak_reserved_bytes": int(peak),
                          "spans": spans.seconds, "trace": summary,
-                         "work": traced.__dict__ if traced else None}}
+                         "work": traced.__dict__ if traced else None,
+                         **program.readings(untraced)}}

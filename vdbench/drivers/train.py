@@ -18,7 +18,10 @@ whole dispatches, the host at most two dispatches ahead of the device,
 until the window's seconds have passed (on a data axis, the count of
 dispatches the ranks agreed on from their warm-up, so that every rank
 issues the same collectives).  The rate is every round trained (over all
-ranks) over the window's time, which ends when the device does.
+ranks) over the window's time, which ends when the device does.  A
+traced run also records the port's own spans and counters over set-up and
+over the window's dispatches before the traced stretch (ProgramRecords);
+an untraced run leaves them off.
 
 Traffic file keys: steps_per_dispatch (G), trace_dispatches (the traced
 stretch), ranks (the data axis: the configuration's batch_size is each
@@ -37,7 +40,7 @@ import torch
 from .. import compare, trace, traffic, weights, work
 from ..reference import data as ref_data
 from ..reference import steps as ref_steps
-from . import RunArgs, Spans, free, port_config, profiler, sync
+from . import ProgramRecords, RunArgs, Spans, free, port_config, profiler, sync
 
 
 def _leaves(state) -> list:
@@ -78,6 +81,7 @@ def run(args: RunArgs) -> dict:
     from visdial_tpu_torch.parallel.train_step import (
         TrainState, make_multistep_train_fn, shard_train_state)
 
+    program = ProgramRecords(args.trace)
     cell, log = args.cell, args.log
     conf, mix = cell.config, cell.traffic
     ranks = int(mix.get("ranks", 1))
@@ -172,20 +176,22 @@ def run(args: RunArgs) -> dict:
 
     spans.seconds.clear()
     losses, pending = [], collections.deque()
-    traced, summary, prof, n = work.Work(), None, None, 0
+    traced, summary, prof, n, untraced = work.Work(), None, None, 0, 0
+    program.cut("setup")
     sync(device)
     t0 = time.perf_counter()
     setup_s = time.time() - args.t0
     while True:
         elapsed = time.perf_counter() - t0
-        tracing = prof is not None and summary is None
         done = (n >= plan) if plan is not None else elapsed >= args.seconds
-        if done and not tracing:
-            break
+        if done and not (args.trace and summary is None):
+            break                    # a traced run ends after its stretch
         if args.trace and prof is None and (
                 n == trace_at if plan is not None
                 else elapsed >= args.seconds / 3):
             sync(device)
+            program.cut("window")
+            untraced = n
             prof = profiler(device)
             prof.start()
             t_trace, left = time.perf_counter(), trace_len
@@ -208,6 +214,7 @@ def run(args: RunArgs) -> dict:
             if left == 0:
                 sync(device)
                 wall = time.perf_counter() - t_trace
+                program.stop()
                 prof.stop()
                 summary = trace.summarize(prof, wall)
                 prof = True
@@ -225,7 +232,8 @@ def run(args: RunArgs) -> dict:
                         "window_s": window_s, "rounds": n * G * B * R,
                         "peak_reserved_bytes": int(peak),
                         "spans": spans.seconds, "trace": summary,
-                        "work": traced.__dict__ if summary else None}}
+                        "work": traced.__dict__ if summary else None,
+                        **program.readings(untraced)}}
     if rank != 0:
         return {**out, "correct": True, "compared": {}}
     ref = ref_steps.train(conf, fam, arrays, start, list(first_ids), drop_seed,

@@ -36,12 +36,14 @@ import importlib.util
 import os
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+FUNCTIONS = ("weight_shapes", "encoder_batch", "encoder_masks", "encode",
+             "encoder_work")
 
 
 def load(config: dict, directory: str = HERE):
     """The family module of config's encoder, read from
-    directory/<family>.py; an encoder whose family has no module fails
-    here, naming the file it looked for."""
+    directory/<family>.py; an encoder whose family has no module, or a
+    module that lacks one of FUNCTIONS, fails here, naming the file."""
     family = config["encoder"].split("-")[0]
     path = os.path.join(directory, family + ".py")
     if not os.path.isfile(path):
@@ -51,4 +53,7 @@ def load(config: dict, directory: str = HERE):
         "vdbench_encoder_" + family, path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
+    missing = [f for f in FUNCTIONS if not callable(getattr(mod, f, None))]
+    if missing:
+        raise SystemExit(f"encoder family module {path} lacks {missing}")
     return mod

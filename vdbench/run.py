@@ -149,7 +149,7 @@ def main(argv=None) -> int:
         return 3
     readings = res["readings"]
     metrics = spec.read_metrics(cell.per_layer if args.trace else cell.end_to_end,
-                                readings)
+                                readings, cell.files)
     device = {"platform": "gpu" if args.device == "cuda" else "cpu",
               "kind": res["card"]["kind"], "count": cell.chips,
               "memory_peak_bytes": int(res["memory_peak_bytes"]),

@@ -3,10 +3,12 @@
 A cell (an entry of `workloads`) names its configuration and its traffic
 mix; the configuration's file is configs/<config>.json, the mix's
 traffic/<traffic>.json, the cell's limits limits/<cell>.json, and each
-metric's reader metrics/<metric>.py.  A later cell, mix or metric is a new
-file and a new entry, never an edit of one here.  The configuration's
-encoder family (its name before the first "-") is encoders/<family>.py
-beside the configs: a new encoder family is one new file there.
+metric's reader metrics/<metric>.py, all in the benchmark's directory
+beside the spec (a test's own spec brings its own).  A later cell, mix or
+metric is a new file and a new entry, never an edit of one here.  The
+configuration's encoder family (its name before the first "-") is
+encoders/<family>.py beside the configs: a new encoder family is one new
+file there.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ class Cell:
     traffic: dict          # the traffic file
     limits: dict           # {number: {"limit": x, ...}}
     family: object         # the encoder family's module (encoders/)
+    files: str             # the benchmark's directory beside the spec
     end_to_end: list = field(default_factory=list)   # metric entries
     per_layer: list = field(default_factory=list)
 
@@ -68,14 +71,15 @@ def load_cell(name: str, spec_path: str = SPEC) -> Cell:
         traffic=_load_json(os.path.join(files, "traffic", w["traffic"] + ".json")),
         limits=_load_json(os.path.join(files, "limits", name + ".json")),
         family=encoders.load(config, os.path.join(files, "encoders")),
+        files=files,
         end_to_end=[m for m in spec["end_to_end"] if _applies(m, name)],
         per_layer=[m for m in spec["per_layer"] if _applies(m, name)])
 
 
-def reader(metric: str):
-    """The `read` function of metrics/<metric>.py (a metric's name may hold
-    dots, so the file is loaded by its path)."""
-    path = os.path.join(HERE, "metrics", metric + ".py")
+def reader(metric: str, files: str = HERE):
+    """The `read` function of files/metrics/<metric>.py (a metric's name may
+    hold dots, so the file is loaded by its path)."""
+    path = os.path.join(files, "metrics", metric + ".py")
     mod_spec = importlib.util.spec_from_file_location(
         "vdbench_metric_" + metric.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(mod_spec)
@@ -83,13 +87,13 @@ def reader(metric: str):
     return mod.read
 
 
-def read_metrics(entries: list, readings) -> dict:
+def read_metrics(entries: list, readings, files: str = HERE) -> dict:
     """{name: {"value", "unit"}} of each metric whose reader finds something
     to read in `readings`; a reader that finds nothing returns None and the
     metric is left out."""
     out = {}
     for m in entries:
-        value = reader(m["name"])(readings)
+        value = reader(m["name"], files)(readings)
         if value is not None:
             out[m["name"]] = {"value": float(value), "unit": m["unit"]}
     return out

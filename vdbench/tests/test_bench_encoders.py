@@ -126,25 +126,16 @@ def test_the_family_file_alone_decides(tmp_path, cell, planted):
 
 
 def test_an_encoder_without_a_family_module_fails_at_set_up(tmp_path):
-    """LF, which the port runs, has no family module here: its cell fails
-    before any work, naming the file it looked for."""
+    """With the tiny spec's own copy of its family module taken away, a
+    cell fails before any work, naming the file it looked for."""
     path = tiny.write(str(tmp_path))
-    with open(path) as f:
-        bench = json.load(f)
-    conf = dict(tiny.CONFIG, encoder="lf-ques-im-hist")
-    (tmp_path / "vdbench" / "configs" / "tiny-lf.json").write_text(json.dumps(conf))
-    (tmp_path / "vdbench" / "limits" / "tiny-lf.train.json").write_text(
-        json.dumps(tiny.LIMITS["train"]))
-    bench["configs"].append({"name": "tiny-lf",
-                             "file": "vdbench/configs/tiny-lf.json"})
-    bench["workloads"].append({"name": "tiny-lf.train", "config": "tiny-lf",
-                               "traffic": "train", "chips": 1})
-    with open(path, "w") as f:
-        json.dump(bench, f)
+    mn = tmp_path / "vdbench" / "encoders" / "mn.py"
+    mn.unlink()
     r = subprocess.run(
-        [sys.executable, "-m", "vdbench.run", "--workload", "tiny-lf.train",
+        [sys.executable, "-m", "vdbench.run", "--workload", "tiny-disc.train",
          "--seed", "5", "--seconds", "0.5", "--trace", "0", "--spec", path,
          "--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
         timeout=600)
     assert r.returncode != 0 and r.stdout.strip() == ""
-    assert str(tmp_path / "vdbench" / "encoders" / "lf.py") in r.stderr
+    assert str(mn) in r.stderr
+    assert "[vdbench]" not in r.stderr        # no progress: no work began

@@ -1,6 +1,7 @@
 """A tiny copy of the benchmark's spec for the CPU tests: the same cells'
 kinds at widths a test can hold, written under a temporary directory with
-a copy of the encoder family modules beside its configs."""
+a copy of the encoder family modules and of the metrics' readers beside
+its configs."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import json
 import os
 import shutil
 
-from vdbench import encoders
+from vdbench import spec
 
 CONFIG = {
     "encoder": "mn-ques-im-hist", "decoder": "disc", "vocab_size": 60,
@@ -31,15 +32,18 @@ LIMITS = {
 }
 
 
-def write(root: str, ranks: int = 2) -> str:
-    """The tiny spec under root; returns its path.  Cells: tiny-disc.train,
-    tiny-gen.train, tiny-disc.eval and tiny-gen.train-dp<ranks>."""
+def write(root: str, ranks: int = 2, real: str = spec.SPEC) -> str:
+    """The tiny spec under root, its metrics taken from the spec at `real`;
+    returns its path.  Cells: tiny-disc.train, tiny-gen.train,
+    tiny-disc.eval and tiny-gen.train-dp<ranks>."""
+    files = os.path.join(os.path.dirname(os.path.abspath(real)), "vdbench")
     os.makedirs(os.path.join(root, "vdbench", "configs"), exist_ok=True)
     os.makedirs(os.path.join(root, "vdbench", "traffic"), exist_ok=True)
     os.makedirs(os.path.join(root, "vdbench", "limits"), exist_ok=True)
-    shutil.copytree(encoders.HERE, os.path.join(root, "vdbench", "encoders"),
-                    ignore=shutil.ignore_patterns("__pycache__"),
-                    dirs_exist_ok=True)
+    for d in ("encoders", "metrics"):
+        shutil.copytree(os.path.join(files, d), os.path.join(root, "vdbench", d),
+                        ignore=shutil.ignore_patterns("__pycache__"),
+                        dirs_exist_ok=True)
 
     def put(path, obj):
         with open(os.path.join(root, path), "w") as f:
@@ -55,36 +59,46 @@ def write(root: str, ranks: int = 2) -> str:
                                               trace_dispatches=2, ranks=ranks))
     put("vdbench/traffic/eval.json", dict(TRAFFIC, kind="eval", dialogs=20,
                                           passes_traced=1))
-    cells = [("tiny-disc.train", "tiny-disc", "train", "train"),
-             ("tiny-gen.train", "tiny-gen", "train", "train"),
-             ("tiny-disc.eval", "tiny-disc", "eval", "eval"),
-             (f"tiny-gen.train-dp{ranks}", "tiny-gen", "train-dp", "train")]
-    for name, _, _, kind in cells:
-        put(f"vdbench/limits/{name}.json", LIMITS[kind])
-    with open(os.path.join(os.path.dirname(os.path.dirname(
-            os.path.dirname(os.path.abspath(__file__)))), "BENCHMARK.json")) as f:
-        real = json.load(f)
-    spec = {
+    # name, config, traffic and its (kind, decoder, over several ranks)
+    cells = [("tiny-disc.train", "tiny-disc", "train", ("train", "disc", False)),
+             ("tiny-gen.train", "tiny-gen", "train", ("train", "gen", False)),
+             ("tiny-disc.eval", "tiny-disc", "eval", ("eval", "disc", False)),
+             (f"tiny-gen.train-dp{ranks}", "tiny-gen", "train-dp",
+              ("train", "gen", True))]
+    for name, _, _, like in cells:
+        put(f"vdbench/limits/{name}.json", LIMITS[like[0]])
+    with open(real) as f:
+        bench = json.load(f)
+    profiles = _profiles(bench, os.path.dirname(os.path.abspath(real)))
+
+    def given(m: dict) -> dict:
+        """m, listing the tiny cells like the real cells it lists."""
+        if "workloads" not in m:
+            return dict(m, workloads=[n for n, *_ in cells])
+        likes = {profiles[w] for w in m["workloads"]}
+        return dict(m, workloads=[n for n, _, _, like in cells if like in likes])
+
+    put("BENCHMARK.json", {
         "configs": [{"name": n, "file": f"vdbench/configs/{n}.json"}
                     for n in ("tiny-disc", "tiny-gen")],
         "workloads": [{"name": n, "config": c, "traffic": t, "chips": 1}
                       for n, c, t, _ in cells],
-        "end_to_end": [dict(m, workloads=[n for n, _, _, k in cells
-                                          if _kind_of(m, real, n, k)])
-                       for m in real["end_to_end"]],
-        "per_layer": [dict(m, workloads=[n for n, _, _, k in cells
-                                         if _kind_of(m, real, n, k)])
-                      for m in real["per_layer"]],
-    }
-    path = os.path.join(root, "BENCHMARK.json")
-    put("BENCHMARK.json", spec)
-    return path
+        "end_to_end": [given(m) for m in bench["end_to_end"]],
+        "per_layer": [given(m) for m in bench["per_layer"]],
+    })
+    return os.path.join(root, "BENCHMARK.json")
 
 
-def _kind_of(metric: dict, real: dict, cell: str, kind: str) -> bool:
-    """Whether the real spec gives `metric` to a cell of this kind."""
-    if "workloads" not in metric:
-        return True
-    kinds = {w["name"]: w["traffic"] for w in real["workloads"]}
-    return any(("val" in kinds[w]) == (kind == "eval")
-               for w in metric["workloads"])
+def _profiles(bench: dict, root: str) -> dict:
+    """{cell: (its traffic's kind, its decoder, whether over several
+    ranks)} of each cell of the spec `bench` at root."""
+    configs = {c["name"]: c["file"] for c in bench["configs"]}
+    out = {}
+    for w in bench["workloads"]:
+        with open(os.path.join(root, configs[w["config"]])) as f:
+            decoder = json.load(f)["decoder"]
+        with open(os.path.join(root, "vdbench", "traffic",
+                               w["traffic"] + ".json")) as f:
+            mix = json.load(f)
+        out[w["name"]] = (mix["kind"], decoder, int(mix.get("ranks", 1)) > 1)
+    return out

@@ -1,17 +1,27 @@
 """What a torch.profiler trace of a stretch of the window says: the device's
 busy time (the union of its kernels' intervals), each kernel's summed time
-by name, and the longest idle gaps named by the benchmark's span that was
-open on the host when each began."""
+by name, and the longest idle gaps named by the innermost span open on the
+host when each began: the benchmark's own ("vdbench.") or the port's
+("vdt.", visdial_tpu_torch/utils/trace.py, among them "gc" for a garbage
+collection)."""
 
 from __future__ import annotations
 
 import torch
 
-SPAN_PREFIX = "vdbench."
+SPAN_PREFIXES = ("vdbench.", "vdt.")
 
 
 def _interval(e):
     return e.time_range.start, e.time_range.end
+
+
+def _span_name(name: str) -> str | None:
+    """A span's name without its prefix, None for any other event."""
+    for p in SPAN_PREFIXES:
+        if name.startswith(p):
+            return name[len(p):]
+    return None
 
 
 def summarize(prof, wall_s: float, top: int = 10) -> dict:
@@ -21,11 +31,13 @@ def summarize(prof, wall_s: float, top: int = 10) -> dict:
     kernels = sorted((e for e in events
                       if e.device_type == torch.autograd.DeviceType.CUDA
                       and not getattr(e, "is_user_annotation", False)
-                      and not e.name.startswith(SPAN_PREFIX)),
+                      and _span_name(e.name) is None),
                      key=lambda e: e.time_range.start)
-    spans = sorted((_interval(e) + (e.name[len(SPAN_PREFIX):],)
-                    for e in events if e.name.startswith(SPAN_PREFIX)
-                    and e.device_type == torch.autograd.DeviceType.CPU))
+    # by start, and of two that start together the outer first
+    spans = sorted((_interval(e) + (_span_name(e.name),) for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and _span_name(e.name) is not None),
+                   key=lambda x: (x[0], -x[1]))
     busy_us, end, gaps = 0.0, None, []
     for e in kernels:
         s, t = _interval(e)
