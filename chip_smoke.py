@@ -706,7 +706,8 @@ def counted_choice(fn, call):
 
 def lstm_checks(dev, gen) -> list[dict]:
     from visdial_tpu_torch.ops.lstm import lstm_layer_plain
-    from visdial_tpu_torch.ops.lstm_cuda import lstm_layer, lstm_tile, sm_count
+    from visdial_tpu_torch.ops.lstm_cuda import (k_tile, layer_plan, lstm_layer,
+                                                 resident_clusters, sm_count)
 
     rows = []
     for N, T, E, H in LSTM_SHAPES:
@@ -717,10 +718,16 @@ def lstm_checks(dev, gen) -> list[dict]:
             args = [t.to(dev) for t in (w, b, x.to(dt), mask, h0, c0)]
             got, moved = counted_choice(lstm_layer, lambda: lstm_layer(*args))
             torch.cuda.synchronize()
-            tile = lstm_tile(N, H, dt, sm_count(dev.index or 0))
-            check(moved == {f"tile_{tile[0]}": 1},
-                  f"lstm_layer {(N, T, E, H)} {name}: tile {tile}, counters "
-                  f"moved {moved}")
+            index = dev.index or 0
+            clusters = (resident_clusters(index, -(-E // k_tile(dt)) * k_tile(dt), H, T)
+                        if dt == torch.bfloat16 else 0)
+            route, last = layer_plan(N, H, dt, clusters, sm_count(index))
+            want_moved = {f"route_{route}": 1}
+            if route == "step":
+                want_moved[f"tile_{last}"] = 1
+            check(moved == want_moved,
+                  f"lstm_layer {(N, T, E, H)} {name}: {route} route ({last}), "
+                  f"counters moved {moved}")
             want = lstm_layer_plain(*args)
             torch.cuda.synchronize()
             err = abs_err(got, want)
@@ -737,7 +744,7 @@ def lstm_checks(dev, gen) -> list[dict]:
                   f"{name}: max abs err {cs_err} > {TOL[name]}")
             del got_cs, want_cs
             row = {"phase": "lstm_layer", "shape": [N, T, E, H], "dtype": name,
-                   "align": align, "tile": tile, "max_abs_err": err,
+                   "align": align, "route": route, "launch": last, "max_abs_err": err,
                    "cs_max_abs_err": cs_err,
                    "tol": TOL[name],
                    "ms": time_ms(lambda: lstm_layer(*args)),

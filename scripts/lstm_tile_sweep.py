@@ -1,15 +1,22 @@
-"""Per-launch device time of K1 (LSTM forward) and of K2's two phases
+"""K1's two routes against each other by rows, then the per-launch device
+time of K1 (LSTM forward) and of K2's two phases
 (gates, dh) on each tile the kernels have, and of the dh phase at each
 K-split S, at the row counts the benchmark's cells run: the disc encoders'
 320 rows, gen's 640, the eval table's last 1,696-row chunk and its
 8,192-row chunks, the candidate LSTM's 32,000; E 300 and 512, H 512, bf16
-and f32, every step real.  The basis of ops/lstm_cuda.py::lstm_tile and
-dh_splits.  On one GPU:
+and f32, every step real.  The basis of ops/lstm_cuda.py::layer_plan,
+lstm_tile and dh_splits.  On one GPU:
 
-    python scripts/lstm_tile_sweep.py [--rows 320,640] [--reps 10]
+    python scripts/lstm_tile_sweep.py [--rows 320,640] [--reps 10] [--routes_only]
 
-First each tile and S at 640 and 1,696 rows is held to the plain version
-(chip_smoke's limits).  Then one JSON line per (shape, dtype, tile, S):
+First each tile and S at 640 and 1,696 rows, and the resident route at
+10 and 330 rows, is held to the plain version (chip_smoke's limits).
+Then one JSON line per (shape, route) in bf16 at 10-1,024 rows, T 16 and
+40, E 300 and 512, every step real: `route_us` K1's device time a call
+(the profiler's kernel durations), `route_graph_us` a call replayed from
+a CUDA graph, `step_us` the first per step, `clusters` the resident
+clusters the card runs at once, `rule` true on layer_plan's pick.  Then
+(unless --routes_only) one JSON line per (shape, dtype, tile, S):
 `k1_us`, `gates_us`, `dh_us`, each kernel's mean duration over the
 launches of `--reps` calls in the profiler's trace; `k1_graph_us`,
 `k2_graph_us`, a call replayed from a CUDA graph, per step (the kernels
@@ -36,6 +43,23 @@ KERNELS = {"k1_us": "lstm_fwd_step_kernel", "gates_us": "lstm_bwd_gates_kernel",
            "dh_us": "lstm_bwd_dh_kernel"}
 ROWS = (320, 640, 1696, 8192, 32000)
 CHECK_ROWS = (640, 1696)
+
+
+ROUTE_ROWS = (10, 64, 128, 192, 256, 320, 384, 448, 512, 640, 768, 1024)
+
+
+@contextlib.contextmanager
+def forced_route(route):
+    """layer_plan made to pick `route`: the step route as if no resident
+    cluster ran, the resident route as if the layer's clusters all ran at
+    once."""
+    saved = lstm_cuda.layer_plan
+    lstm_cuda.layer_plan = lambda N, H, dt, clusters, sms: saved(
+        N, H, dt, 0 if route == "step" else max(clusters, -(-N // 64)), sms)
+    try:
+        yield
+    finally:
+        lstm_cuda.layer_plan = saved
 
 
 @contextlib.contextmanager
@@ -119,7 +143,7 @@ def check_all(dt, H=512) -> None:
         want = lstm_layer_plain(*fwd, save_cell=True)
         want_b = lstm_layer_bwd_plain(*bwd)
         for tile, S in choices(dt):
-            with forced(tile, S):
+            with forced(tile, S), forced_route("step"):
                 got = lstm_cuda.lstm_layer(*fwd, save_cell=True)
                 got_b = lstm_cuda.lstm_layer_bwd(*bwd)
             torch.cuda.synchronize()
@@ -131,16 +155,59 @@ def check_all(dt, H=512) -> None:
                      f"tile {tile} S {S} at {N} rows {name}: {err}, {b_err}")
 
 
+def check_resident(H=512) -> None:
+    """The resident route against the plain version, ragged rows."""
+    for N in (10, 330):
+        fwd, _ = inputs(N, 9, 300, H, torch.bfloat16, align="mixed")
+        want = lstm_layer_plain(*fwd, save_cell=True)
+        with forced_route("resident"):
+            got = lstm_cuda.lstm_layer(*fwd, save_cell=True)
+        torch.cuda.synchronize()
+        err = cs.abs_err(got, want)
+        print(json.dumps({"check": [N, 9, 300, H], "dtype": "bfloat16",
+                          "route": "resident", "k1_max_abs_err": err}), flush=True)
+        cs.check(err <= cs.TOL["bfloat16"], f"resident route at {N} rows: {err}")
+
+
+def route_sweep(reps: int, sms: int, gpu: str) -> None:
+    """Both of K1's routes, bf16, 10-1,024 rows."""
+    H, dt = 512, torch.bfloat16
+    for N in ROUTE_ROWS:
+        for T in (16, 40):
+            for E in (300, 512):
+                fwd, _ = inputs(N, T, E, H, dt)
+                clusters = lstm_cuda.resident_clusters(0, -(-E // 64) * 64, H, T)
+                rule = lstm_cuda.layer_plan(N, H, dt, clusters, sms)[0]
+                for route in lstm_cuda.ROUTES:
+                    with forced_route(route):
+                        us = kernel_us(lambda: lstm_cuda.lstm_layer(*fwd), reps)
+                        g_us = graph_us(lambda: lstm_cuda.lstm_layer(*fwd), 1, reps)
+                    print(json.dumps({
+                        "shape": [N, T, E, H], "dtype": "bfloat16", "route": route,
+                        "route_us": us["k1_us"] * (T if route == "step" else 1),
+                        "route_graph_us": g_us,
+                        "step_us": us["k1_us"] / (1 if route == "step" else T),
+                        "clusters": clusters, "sms": sms, "gpu": gpu,
+                        "rule": route == rule}), flush=True)
+                del fwd
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--rows", default=",".join(map(str, ROWS)))
     p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--routes_only", action="store_true",
+                   help="check and time K1's routes, not the tiles")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("lstm_tile_sweep: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     sms = lstm_cuda.sm_count(0)
     gpu = torch.cuda.get_device_name(0)
+    check_resident()
+    route_sweep(args.reps, sms, gpu)
+    if args.routes_only:
+        return
     for dt in (torch.bfloat16, torch.float32):
         check_all(dt)
     H = 512
@@ -155,7 +222,7 @@ def main() -> None:
                     row = {"shape": [N, T, E, H], "dtype": str(dt).split(".")[1],
                            "tile": tile, "S": S, "sms": sms, "gpu": gpu,
                            "rule": (tile, S) == (rule_tile, rule_S)}
-                    with forced(tile, S):
+                    with forced(tile, S), forced_route("step"):
                         if S == 1:   # K1 is the same at every S
                             row.update(kernel_us(
                                 lambda: lstm_cuda.lstm_layer(*fwd), args.reps))

@@ -24,6 +24,7 @@ from visdial_tpu_torch.ops.lm_score import (lm_dlogits_plain,
 from visdial_tpu_torch.ops.lm_score_cuda import lm_dlogits, lm_token_logprobs_lse
 from visdial_tpu_torch.ops.lstm import (INIT_SCALE, lstm_layer_bwd_plain,
                                         lstm_layer_plain)
+from visdial_tpu_torch.ops import lstm_cuda
 from visdial_tpu_torch.ops.lstm_cuda import LSTMLayerFn, lstm_layer, lstm_layer_bwd
 
 pytestmark = pytest.mark.cuda
@@ -506,6 +507,116 @@ def test_lstm_encoder_shapes_match_plain(dev, N, T, E, H, align, dtype):
     for a, r in zip(got, want):
         scale = float(r.float().abs().max())
         assert float((a.float() - r.float()).abs().max()) <= TOL[dtype] * scale
+
+
+def _visdial_case(N, T, E, H, kind, seed):
+    """w (the model's init scale), b, x and right-aligned masks at VisDial's
+    mean lengths (1 + Poisson(mean - 1)): "question" rows of Lq (5.1);
+    "fact" rows of Lq + La (2.9), every tenth a caption (11), the encoder's
+    fact 0; "late" the fact rows with rows 64-127 starting at step 30, a
+    cluster's block all padding before it; h0 and c0 nonzero."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.empty(E + H, 4 * H).uniform_(-INIT_SCALE, INIT_SCALE, generator=g)
+    b = torch.empty(4 * H).uniform_(-0.5, 0.5, generator=g)
+    x = (torch.randn(N, T, E, generator=g) * 0.5).to(torch.bfloat16)
+
+    def lengths(mean):
+        return 1 + torch.poisson(torch.full((N,), mean - 1.0), generator=g).long()
+
+    lens = lengths(5.1) if kind == "question" else lengths(5.1) + lengths(2.9)
+    if kind != "question":
+        lens[::10] = lengths(11.0)[::10]
+    if kind == "late":
+        lens[64:128] = (lens[64:128] % (T - 30)) + 1
+    lens = lens.clamp(max=T)
+    mask = (torch.arange(T)[None] >= (T - lens)[:, None]).float()
+    h0, c0 = torch.randn(2, N, H, generator=g) * 0.5
+    return w, b, x, mask, h0, c0, g
+
+
+# K1's route rule as the wrapper has it, for the tests that force a route
+_PLAN = lstm_cuda.layer_plan
+
+
+def _force_route(monkeypatch, route: str) -> None:
+    """layer_plan made to pick `route`: the step route as if no resident
+    cluster ran, the resident route as if the layer's clusters all ran at
+    once."""
+    monkeypatch.setattr(lstm_cuda, "layer_plan", lambda N, H, dtype, clusters, sms: _PLAN(
+        N, H, dtype, 0 if route == "step" else max(clusters, -(-N // 64)), sms))
+
+
+def test_resident_clusters_where_the_layer_fits(dev):
+    """vd_lstm_resident_clusters: at least one cluster at the disc
+    encoders' layers (Kx 320 and 512, H 512, T 16 and 40), none where W_h's
+    slice cannot stay in the registers (H 1024) or W_x's cannot fit in
+    shared memory beside one ring stage (Kx 640); as many at Kx 576, the
+    widest that fits."""
+    idx = dev.index or 0
+    n = lstm_cuda.resident_clusters(idx, 320, 512, 16)
+    assert n >= 1
+    assert lstm_cuda.resident_clusters(idx, 512, 512, 40) == n
+    assert lstm_cuda.resident_clusters(idx, 576, 512, 16) == n
+    assert lstm_cuda.resident_clusters(idx, 640, 512, 16) == 0
+    assert lstm_cuda.resident_clusters(idx, 320, 1024, 16) == 0
+
+
+# The resident route's launches (ops/lstm_cuda.py::layer_plan): the disc
+# eval's question and fact LSTMs (320 rows, both layers' widths), a served
+# request (10 rows), 330 rows (a block past a multiple of 64) with a block
+# that is all padding for its first 30 steps
+RESIDENT_CASES = [(320, 16, 300, 512, "question"), (320, 40, 300, 512, "fact"),
+                  (320, 16, 512, 512, "question"), (10, 16, 300, 512, "question"),
+                  (330, 40, 300, 512, "late"), (330, 40, 512, 512, "fact")]
+
+
+@pytest.mark.parametrize("save_cell", [False, True])
+@pytest.mark.parametrize("N,T,E,H,kind", RESIDENT_CASES)
+def test_resident_route_matches_step_route_and_plain(dev, monkeypatch, N, T, E, H,
+                                                    kind, save_cell):
+    """K1's resident route (one launch, W kept on chip) against its step
+    route (a launch a step) and the plain version, in bf16 at the shapes
+    that take it; the wrapper counts the route it took."""
+    *case, _ = _visdial_case(N, T, E, H, kind, N + T + E)
+    args = [t.to(dev) for t in case]
+    before = (lstm_layer.route_resident, lstm_layer.route_step)
+    got = lstm_layer(*args, save_cell=save_cell)
+    assert (lstm_layer.route_resident, lstm_layer.route_step) == (before[0] + 1,
+                                                                  before[1])
+    _force_route(monkeypatch, "step")
+    step = lstm_layer(*args, save_cell=save_cell)
+    assert lstm_layer.route_step == before[1] + 1
+    want = lstm_layer_plain(*args, save_cell=save_cell)
+    torch.cuda.synchronize()
+    for a, st, r in zip(got, step, want):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        assert float((a.float() - r.float()).abs().max()) <= TOL[torch.bfloat16]
+        assert float((a.float() - st.float()).abs().max()) <= TOL[torch.bfloat16]
+
+
+def test_k2_from_the_resident_forward(dev, monkeypatch):
+    """LSTMLayerFn's gradients (K2 on the forward's cs, then the
+    contractions) with K1 on the resident route against the same with K1 on
+    the step route and against autograd through the plain layer, relative to
+    the largest reference value (the file's bf16 gradient tolerance)."""
+    w, b, x, mask, h0, c0, g = _visdial_case(320, 16, 300, 512, "question", 11)
+    cot = [torch.randn(320, 16, 512, generator=g).to(torch.bfloat16),
+           torch.randn(320, 512, generator=g), torch.randn(320, 512, generator=g)]
+    grads = {}
+    for name in ("resident", "step", "plain"):
+        _force_route(monkeypatch, name)
+        fn = lstm_layer_plain if name == "plain" else LSTMLayerFn.apply
+        ins = [t.to(dev).requires_grad_() for t in (w, b, x)] + [mask.to(dev)] + [
+            t.to(dev).requires_grad_() for t in (h0, c0)]
+        outs = fn(*ins)
+        grads[name] = torch.autograd.grad(outs, ins[:3] + ins[4:],
+                                          [c.to(dev) for c in cot])
+    for other in ("step", "plain"):
+        for a, r in zip(grads["resident"], grads[other]):
+            scale = float(r.float().abs().max())
+            assert scale > 0
+            assert float((a.float() - r.float()).abs().max()) <= (
+                3 * TOL[torch.bfloat16] * scale)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -330,8 +330,8 @@ class _FakeGraph:
         return self.captured_in or ("pool", id(self))
 
 
-def _fake_capture(g, capture_error_mode, pool=None):
-    g.captured_in = pool
+def _fake_capture(g, capture_error_mode, pool=None, stream=None):
+    g.captured_in, g.stream = pool, stream
     return contextlib.nullcontext()
 
 
@@ -353,6 +353,9 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
     monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
+    streams = {}
+    monkeypatch.setattr(graph, "side_stream",
+                        lambda index: streams.setdefault(index, _FakeStream()))
     monkeypatch.setattr(torch.cuda, "current_stream", _FakeStream)
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
@@ -412,6 +415,22 @@ def test_a_capture_holds_the_capture_lock(fake_card):
     g(torch.ones(2))
     assert held == [False, True] and g.captures == 1
     assert fake_card[0].replays == 1 and not graph.CAPTURING.locked()
+
+
+def test_warm_up_and_capture_share_the_device_side_stream(fake_card, monkeypatch):
+    """Every graph of a device is warmed up and captured on one stream
+    (graph.side_stream): a second Graphed's warm-up and capture take the
+    stream the first took, so cuBLAS makes its workspace for that stream
+    once, before any warm-up."""
+    entered = []
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: entered.append(s) or contextlib.nullcontext())
+    first, second = graph.Graphed(lambda x: x + 1), graph.Graphed(lambda x: x * 2)
+    first(torch.zeros(2))
+    second(torch.zeros(3))
+    side = graph.side_stream(None)        # the stand-in device has no index
+    assert [g.stream for g in fake_card] == [side, side]
+    assert entered == [side, side]        # the two warm-ups
 
 
 def test_helper_restores_the_counters_when_a_capture_fails(fake_card,

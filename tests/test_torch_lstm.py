@@ -15,8 +15,9 @@ from visdial_tpu.ops.lstm_pallas import lstm_layer_bwd_pallas, lstm_layer_pallas
 from visdial_tpu_torch.ops.lstm import (keep_mask, lstm_keep_masks,
                                         lstm_layer_bwd_plain, lstm_layer_plain,
                                         masked_lstm)
-from visdial_tpu_torch.ops.lstm_cuda import (DH_SPLITS, TILES, LSTMLayerFn,
-                                             choice_counters, dh_splits, k_tile,
+from visdial_tpu_torch.ops.lstm_cuda import (DH_SPLITS, RESIDENT_ROWS, TILES,
+                                             LSTMLayerFn, choice_counters,
+                                             dh_splits, k_tile, layer_plan,
                                              lstm_layer, lstm_layer_bwd,
                                              lstm_tile, pack_weights, pad_input)
 from visdial_tpu_torch.parallel import graph
@@ -337,14 +338,46 @@ def test_tile_and_dh_split_run_in_the_fewest_waves(rows, sms):
         assert dh_splits(640, h, torch.bfloat16, tile, sms) > 1
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H", [512, 1024])
+@pytest.mark.parametrize("rows", [10, 320, 640, 1696, 8192, 32000])
+def test_route_takes_the_resident_kernel_where_one_wave_holds_it(rows, H, dtype):
+    """layer_plan: the resident route in bf16 where the layer fits the
+    resident kernel and its clusters of at most 64 rows run at once.  An
+    H100 runs 7 clusters of 16 blocks at H 512 (resident_clusters, from the
+    C side); at H 1024, whose W_h slice the registers cannot hold, the C
+    side reports none.  So the disc encoders' 320 rows and a served
+    request's 10 take it and gen's 640 keep the step kernel, as float32
+    always does.  A resident launch takes the fewest rows a cluster that
+    still fit the clusters (48 at 320 rows, 16 at 10), a step launch
+    lstm_tile's rows."""
+    sms = 132
+    clusters = 7 if H <= 512 else 0
+    step = ("step", lstm_tile(rows, H, dtype, sms)[0])
+    resident = dtype == torch.bfloat16 and 0 < -(-rows // 64) <= clusters
+    route, last = layer_plan(rows, H, dtype, clusters, sms)
+    if resident:
+        assert route == "resident" and last == {10: 16, 320: 48}[rows]
+        assert last in RESIDENT_ROWS and -(-rows // last) <= clusters
+        assert all(-(-rows // r) > clusters for r in RESIDENT_ROWS if r < last)
+        # more clusters at once: no more rows a cluster
+        assert layer_plan(rows, H, dtype, 2 * clusters, sms)[1] <= last
+    else:
+        assert (route, last) == step
+    assert layer_plan(rows, H, dtype, 0, sms) == step
+
+
 def test_tile_and_split_counters_are_graph_counters():
-    """K1's and K2's tile counters and K2's split counters are integers on
-    the wrappers, and parallel/graph.py::counters() lists them, so graph
-    replays add them as they add the launches."""
+    """K1's route and tile counters and K2's tile and split counters are
+    integers on the wrappers, and parallel/graph.py::counters() lists them,
+    so graph replays add them as they add the launches."""
     names = {(n, id(o), a) for n, o, a in graph.counters()}
     want = choice_counters()
     assert {(n, id(o), a) for n, o, a in want} <= names
     attrs = {(o, a) for _, o, a in want}
+    assert {(lstm_layer, "route_resident"), (lstm_layer, "route_step")} <= attrs
+    assert ("lstm_layer.route_resident", "lstm_layer.route_step") == tuple(
+        n for n, _, _ in want[:2])
     for fn in (lstm_layer, lstm_layer_bwd):
         for bm in (64, 128, 256):
             assert (fn, f"tile_{bm}") in attrs

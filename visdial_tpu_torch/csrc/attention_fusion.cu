@@ -85,6 +85,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using vd::cluster_arrive;
+using vd::cluster_wait;
 using vd::from_f;
 using vd::Operand;
 using vd::to_f;
@@ -113,16 +115,6 @@ __device__ __forceinline__ void grid_dependency_wait() {
 __device__ __forceinline__ void launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
-// The two halves of a cluster barrier (release / acquire): a block arrives
-// once it has read its peers' shared memory, and waits before it exits, so
-// that no block's shared memory goes while a peer may still read it.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 // 16 bytes of T (4 f32 or 8 bf16 values) as floats, and back
 template <typename T> struct Vec {
   static constexpr int N = 16 / sizeof(T);

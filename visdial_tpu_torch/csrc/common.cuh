@@ -1,6 +1,7 @@
-// Helpers shared by the port's kernels: the launchers' per-device shared-
-// memory attribute, f32 <-> activation-type conversion, the logistic
-// function, warp reductions, and the tensor-core tile product
+// Helpers shared by the port's kernels: the launchers' per-device function
+// attributes, f32 <-> activation-type conversion, the logistic function,
+// the halves of a cluster barrier, warp reductions, and the tensor-core tile
+// product
 // of the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu) and the LM head's
 // (lm_score.cu).
 #pragma once
@@ -18,30 +19,35 @@ namespace vd {
 // cudaErrorInvalidDevice).
 constexpr int kMaxDevices = 64;
 
-// For each kernel and device: 0 until the kernel's dynamic shared-memory
-// limit is raised there, then that attribute call's cudaError_t plus one.
-// The attribute belongs to a device, so a process that launches a kernel
-// on two cards sets it on each.
-template <auto Kernel> inline std::atomic<int> smem_attr_state[kMaxDevices];
+// For each kernel, function attribute, value and device: 0 until the
+// attribute is set there, then that call's cudaError_t plus one.  An
+// attribute belongs to a device, so a process that launches a kernel on two
+// cards sets it on each.
+template <auto Kernel, cudaFuncAttribute A, int V>
+inline std::atomic<int> func_attr_state[kMaxDevices];
 
-// Raises Kernel's dynamic shared-memory limit to Bytes on the current
-// device, once a device, and returns that call's error on every later call
-// too (the launchers return it to the wrapper, which raises).  After the
-// first call a launch pays one atomic load; two threads that race to the
-// first call both set the same attribute, which is harmless.
-template <auto Kernel, int Bytes> cudaError_t allow_smem() {
+// Sets Kernel's attribute A to V on the current device, once a device, and
+// returns that call's error on every later call too (the launchers return
+// it to the wrapper, which raises).  After the first call a launch pays one
+// atomic load; two threads that race to the first call both set the same
+// attribute, which is harmless.
+template <auto Kernel, cudaFuncAttribute A, int V> cudaError_t set_func_attr() {
   int dev = 0;
   const cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  std::atomic<int>& state = smem_attr_state<Kernel>[dev];
+  std::atomic<int>& state = func_attr_state<Kernel, A, V>[dev];
   int s = state.load(std::memory_order_acquire);
   if (s == 0) {
-    s = 1 + (int)cudaFuncSetAttribute((const void*)Kernel,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, Bytes);
+    s = 1 + (int)cudaFuncSetAttribute((const void*)Kernel, A, V);
     state.store(s, std::memory_order_release);
   }
   return (cudaError_t)(s - 1);
+}
+
+// Raises Kernel's dynamic shared-memory limit to Bytes on the current device.
+template <auto Kernel, int Bytes> cudaError_t allow_smem() {
+  return set_func_attr<Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Bytes>();
 }
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -57,6 +63,18 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
+
+// The two halves of a cluster barrier: arrive releases this thread's
+// earlier writes (shared memory its peers read included), wait acquires the
+// peers' and returns once every thread of the cluster has arrived.  A block
+// that has read a peer's shared memory arrives before it exits, and waits,
+// so that no block's shared memory goes while a peer may still read it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -248,6 +266,96 @@ template <> struct Wgmma<float, 128> {
         : "l"(a), "l"(b), "r"((int)acc));
   }
 };
+// d (64 x N f32) = A . B^T + d for one k-step, bf16, with N of 16-48 (the
+// resident route of lstm_fwd.cu takes N = 16, 32, 48 or 64 rows).
+#define VD_R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define VD_R16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define VD_R24                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
+  "%17, %18, %19, %20, %21, %22, %23}"
+template <> struct Wgmma<__nv_bfloat16, 16> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " VD_R8
+        ", %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : VD_D8(0)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<__nv_bfloat16, 32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " VD_R16
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : VD_D8(0), VD_D8(8)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<__nv_bfloat16, 48> {
+  static __device__ __forceinline__ void run(float (&d)[24], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " VD_R24
+        ", %24, %25, p, 1, 1, 0, 0;\n}\n"
+        : VD_D8(0), VD_D8(8), VD_D8(16)
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+// The same with A (64 x 16 bf16) in registers: warp w of the warpgroup
+// holds rows 16w..16w+15, thread l of it a[0] = (row l/4, cols 2(l%4), +1),
+// a[1] = (row l/4 + 8, same cols), a[2] and a[3] the same rows at cols + 8
+// (lstm_fwd.cu's resident route keeps W_h so); d += A . B^T.
+template <int N> struct WgmmaRS;
+template <> struct WgmmaRS<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " VD_R8
+        ", {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : VD_D8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct WgmmaRS<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " VD_R16
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : VD_D8(0), VD_D8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct WgmmaRS<48> {
+  static __device__ __forceinline__ void run(float (&d)[24], const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " VD_R24
+        ", {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+        : VD_D8(0), VD_D8(8), VD_D8(16)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct WgmmaRS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VD_R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : VD_D8(0), VD_D8(8), VD_D8(16), VD_D8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+#undef VD_R8
+#undef VD_R16
+#undef VD_R24
 #undef VD_D8
 #undef VD_R32
 #undef VD_R64

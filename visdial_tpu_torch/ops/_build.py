@@ -38,6 +38,10 @@ _SIGNATURES = {
     # dtype, x, mask, w, b, h0c, h, c, hs, cs, N, T, Ep, Kx, KW, H, tile,
     # stream
     "vd_lstm_layer_fwd": [_i] + [_p] * 9 + [_i] * 7 + [_p],
+    # the same with the rows a cluster in place of tile
+    "vd_lstm_layer_fwd_resident": [_i] + [_p] * 9 + [_i] * 7 + [_p],
+    # Kx, H, T
+    "vd_lstm_resident_clusters": [_i] * 3,
     # dtype, x, hprev, cprev, mask, w, wh, b, ghs, dh, dc, dhp, dgp, N, T, Ep,
     # Kx, KW, H, S, tile, stream
     "vd_lstm_layer_bwd": [_i] + [_p] * 12 + [_i] * 8 + [_p],

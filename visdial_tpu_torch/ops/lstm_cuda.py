@@ -111,6 +111,47 @@ def dh_splits(N: int, H: int, dtype: torch.dtype, tile: tuple[int, int, int],
     return fits[-1] if fits else 1
 
 
+# K1's resident route (csrc/lstm_fwd.cu): a cluster of ceil(H / 32) blocks
+# owns R rows (one of RESIDENT_ROWS) for all T steps, W_h in the registers
+# of its blocks and W_x's slice in their shared memory.  Whether a layer
+# fits, and the ring of x k-tiles beside it, the C side decides.
+RESIDENT_ROWS = (16, 32, 48, 64)
+ROUTES = ("resident", "step")
+
+
+@functools.cache
+def resident_clusters(index: int, Kx: int, H: int, T: int) -> int:
+    """How many of the resident route's clusters CUDA device `index` runs at
+    once for a bf16 layer of T steps, Kx (its input width padded to a
+    k-tile) and H units (cudaOccupancyMaxActiveClusters); 0 where the layer
+    does not fit the resident kernel (H past 512; W_x's slice too wide).
+    Read once a device and shape."""
+    lib = _build.library()
+    with torch.cuda.device(index):
+        n = lib.vd_lstm_resident_clusters(Kx, H, T)
+    if n < 0:
+        _build.check(-n, "resident_clusters")
+    return n
+
+
+def layer_plan(N: int, H: int, dtype: torch.dtype, clusters: int,
+               sms: int) -> tuple[str, int]:
+    """K1's route for N rows of H units and what its launch takes last,
+    where the card runs `clusters` resident clusters at once for the layer
+    (resident_clusters; 0 where it does not fit) and has `sms` SMs:
+    ("resident", R) in bf16 where ceil(N / 64) clusters run in one wave, so
+    that none waits for another to finish, with R the fewest rows a cluster
+    (of RESIDENT_ROWS) that still need no more clusters than that, so that
+    the rows, products and cell updates spread over every cluster that runs
+    (320 rows on 7 clusters take 48); else ("step", BM), one launch a step
+    on lstm_tile's tile.  At a few hundred rows a step launch re-streams all
+    of W for ~1 GFLOP of work; at tens of thousands every SM wants rows of
+    its own (PERF.md)."""
+    if dtype == torch.bfloat16 and -(-N // RESIDENT_ROWS[-1]) <= clusters:
+        return "resident", next(r for r in RESIDENT_ROWS if -(-N // r) <= clusters)
+    return "step", lstm_tile(N, H, dtype, sms)[0]
+
+
 def _count(wrapper, attr: str) -> None:
     setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
@@ -151,8 +192,10 @@ def lstm_layer(w, b, x, mask, h0, c0, *, save_cell: bool = False):
     x.dtype and (hT, cT) (N, H) in float32; with save_cell (hs, cs, hT, cT),
     cs the post-mask cell state of every step in x.dtype (the training
     forward's residual; without it the kernel writes none).
-    `lstm_layer.launches` counts the calls that went to the kernel, and
-    `.tile_64`, `.tile_128`, `.tile_256` those on each tile (lstm_tile)."""
+    `lstm_layer.launches` counts the calls that went to the kernel,
+    `.route_resident` and `.route_step` those on each route (layer_plan),
+    and `.tile_64`, `.tile_128`, `.tile_256` the step route's on each tile
+    (lstm_tile)."""
     if x.device.type == "cpu":
         return lstm_layer_plain(w, b, x, mask, h0, c0, save_cell=save_cell)
     N, T, E, H = _check_layer("lstm_layer", w, b, x, mask, h0, c0)
@@ -164,17 +207,24 @@ def lstm_layer(w, b, x, mask, h0, c0, *, save_cell: bool = False):
     cs = torch.empty_like(hs) if save_cell else None
     h0c = h0.to(x.dtype).contiguous()
     h, c = h0.clone(), c0.clone()      # the carries: (h0, c0) in, (hT, cT) out
-    bm = lstm_tile(N, H, x.dtype, sm_count(x.device.index))[0]
+    index = x.device.index
+    clusters = (resident_clusters(index, kx, H, T)
+                if x.dtype == torch.bfloat16 else 0)
+    route, last = layer_plan(N, H, x.dtype, clusters, sm_count(index))
     lib = _build.library()
+    launch = (lib.vd_lstm_layer_fwd_resident if route == "resident"
+              else lib.vd_lstm_layer_fwd)
     with torch.cuda.device(x.device):
-        err = lib.vd_lstm_layer_fwd(
+        err = launch(
             _build.DTYPE_CODE[x.dtype], xp.data_ptr(), mask.data_ptr(),
             wk.data_ptr(), b.data_ptr(), h0c.data_ptr(), h.data_ptr(),
             c.data_ptr(), hs.data_ptr(), cs.data_ptr() if save_cell else None,
-            N, T, xp.shape[-1], kx, kw, H, bm, _build.stream_of(x))
+            N, T, xp.shape[-1], kx, kw, H, last, _build.stream_of(x))
     _build.check(err, "lstm_layer")
     lstm_layer.launches += 1
-    _count(lstm_layer, f"tile_{bm}")
+    _count(lstm_layer, f"route_{route}")
+    if route == "step":
+        _count(lstm_layer, f"tile_{last}")
     if save_cell:
         return hs, cs, h, c
     return hs, h, c
@@ -237,14 +287,16 @@ lstm_layer_bwd.launches = 0
 
 
 def choice_counters() -> list[tuple[str, object, str]]:
-    """(name, wrapper, attribute) of the counts of K1's and K2's tiles and
-    K2's dh splits, which parallel/graph.py::counters() lists beside the
-    launches."""
+    """(name, wrapper, attribute) of the counts of K1's routes, K1's and
+    K2's tiles and K2's dh splits, which parallel/graph.py::counters() lists
+    beside the launches."""
     rows = sorted({t[0] for tiles in TILES.values() for t in tiles})
+    routes = [(f"lstm_layer.route_{r}", lstm_layer, f"route_{r}")
+              for r in ROUTES]
     tiles = [(f"{fn.__name__}.tile_{bm}", fn, f"tile_{bm}")
              for fn in (lstm_layer, lstm_layer_bwd) for bm in rows]
-    return tiles + [(f"lstm_layer_bwd.dh_split_{s}", lstm_layer_bwd,
-                     f"dh_split_{s}") for s in DH_SPLITS]
+    return routes + tiles + [(f"lstm_layer_bwd.dh_split_{s}", lstm_layer_bwd,
+                              f"dh_split_{s}") for s in DH_SPLITS]
 
 
 for _, _fn, _attr in choice_counters():

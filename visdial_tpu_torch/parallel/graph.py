@@ -9,10 +9,11 @@ call, where the eager path issues every kernel from Python.
 `Graphed(fn)` is the helper.  Its arguments are pytrees (dicts, lists,
 tuples) whose tensor leaves are the graph's inputs and whose other leaves
 are static, part of the signature, as jax.jit's static_argnums.  The first
-call of a signature runs fn on a side stream (the warm-up PyTorch requires
-before a capture; it also builds the kernels and sets their shared-memory
-attributes outside capture) and returns that run's result; then fn is
-captured over the graph's own copies of the tensor leaves.  A later call
+call of a signature runs fn on the device's side stream (the warm-up
+PyTorch requires before a capture; it also builds the kernels and sets their
+shared-memory attributes outside capture) and returns that run's result;
+then fn is captured on that stream over the graph's own copies of the
+tensor leaves.  A later call
 copies its tensors into those buffers, replays the graph and returns clones
 of the graph's outputs.  On CPU tensors fn runs eagerly: dispatch follows
 the device, as the kernels' does.  On the card a capture or a replay that
@@ -75,6 +76,31 @@ from ..utils import trace
 
 
 CAPTURING = threading.Lock()      # held by every capture (the docstring)
+
+
+@functools.cache
+def side_stream(index: int) -> torch.cuda.Stream:
+    """The stream on which every graph of CUDA device `index` is warmed up
+    and captured, made once.  cuBLAS keeps a workspace for each thread's
+    handle and stream it multiplies on, allocated at the first product
+    there and never freed.  One first allocated inside a warm-up (the
+    backward's, on autograd's device thread) is cut from the warm-up's
+    freed memory and keeps that whole segment reserved after the capture
+    releases the rest: 32 MiB held 500 MiB in the disc step.  So the
+    stream's first products, forward on this thread and backward on
+    autograd's, run here before any warm-up, and their workspaces take
+    segments of their own."""
+    device = torch.device("cuda", index)
+    stream = torch.cuda.Stream(device)
+    with torch.inference_mode(False), torch.enable_grad(), \
+            torch.cuda.device(device), torch.cuda.stream(stream):
+        for dtype in (torch.bfloat16, torch.float32):
+            a = torch.ones(16, 16, device=device, dtype=dtype, requires_grad=True)
+            torch.addmm(a[0], a, a).sum().backward()
+        b = a.detach().bfloat16()
+        torch.mm(b, b, out_dtype=torch.float32)
+    stream.synchronize()
+    return stream
 
 
 @functools.cache
@@ -264,7 +290,7 @@ class Graphed:
                   else x for x in leaves]
         args = (*pre, *pytree.tree_unflatten(inputs, spec))
         main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
+        side = side_stream(device.index)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             result = self.fn(*args)          # the warm-up: this call's result
@@ -281,7 +307,8 @@ class Graphed:
             # staging thread, a process group's watchdog) must not
             # invalidate this thread's capture
             with CAPTURING, torch.cuda.device(device), torch.cuda.graph(
-                    graph, capture_error_mode="thread_local", **pool):
+                    graph, stream=side, capture_error_mode="thread_local",
+                    **pool):
                 output = self.fn(*args)
             counts = [a - b for a, b in zip(_read(cs), before)]
         finally:
